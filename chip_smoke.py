@@ -1,0 +1,649 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port (``src/repro_torch``) on one GPU.
+
+Run from the root of a checkout on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It builds the four CUDA fabric kernels from ``src/repro_torch/kernels/
+csrc`` and then runs, failing (non-zero exit, no result line) on any
+mismatch:
+
+1. per-kernel checks: every kernel against its plain PyTorch version on
+   the card, on random consistent states from a seeded
+   ``torch.Generator`` — small shapes, the full-size run's shapes,
+   sentinel rows, full rings and FIFOs — equal bit for bit;
+2. quickstart parity: the README's echo pair (4 flows, 8 RPCs, 4 steps)
+   through the kernels and through the plain path;
+3. full-size run: a 512-flow client/server loopback pair under open-loop
+   load at 0.8 x F*B requests/step for 2,000 steps with telemetry,
+   through the fused kernel route, the staged kernel route and the plain
+   path from one start state — completions, histograms, generator
+   accounting and end states equal, the conservation ledger balanced,
+   every kernel of each route launched;
+4. kernel summary: one JSON line with each kernel's launches on the
+   full-size run, its device time per call (``torch.profiler``), the
+   plain version's, and its byte bound, on inputs captured from the
+   full-size run.
+
+Then it prints a ``details`` line (the whole report as JSON), the
+kernel summary line, the card's name and power limit and, last, the
+device line ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+
+# full-size loopback pair: the widest configuration FabricConfig names
+# (n_flows <= 512, the paper's bound), B = 4, request buffer B*F
+FULL = dict(n_flows=512, ring_entries=64, slot_bytes=64, batch_size=4,
+            request_buffer_slots=2048, conn_cache_entries=256,
+            dynamic_batching=False)
+FULL_STEPS = 2000
+LOAD = 0.8                          # offered load, fraction of F*B
+
+KERNELS = {
+    "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
+                  "src/repro/kernels/ring_push.py:47"),
+    "ring_gather": ("src/repro_torch/kernels/csrc/ring_copy.cu",
+                    "src/repro/kernels/ring_copy.py:34"),
+    "nic_deliver_fused": ("src/repro_torch/kernels/csrc/nic_deliver.cu",
+                          "src/repro/kernels/nic_deliver.py:157"),
+    "switch_step_fused": ("src/repro_torch/kernels/csrc/switch_step.cu",
+                          "src/repro/kernels/switch_step.py:307"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def say(msg):
+    print(msg, flush=True)
+
+
+# --------------------------------------------------------------------------
+# random consistent states (torch.Generator on the card)
+# --------------------------------------------------------------------------
+
+class Rand:
+    def __init__(self, torch, seed, dev):
+        self.torch = torch
+        self.dev = dev
+        self.g = torch.Generator(device=dev)
+        self.g.manual_seed(seed)
+
+    def ints(self, lo, hi, shape):
+        return self.torch.randint(lo, hi, tuple(shape), generator=self.g,
+                                  device=self.dev, dtype=self.torch.int32)
+
+    def perm(self, n):
+        return self.torch.randperm(n, generator=self.g, device=self.dev) \
+            .to(self.torch.int32)
+
+    def one(self, lo, hi):
+        return int(self.ints(lo, hi, (1,))[0])
+
+
+def push_inputs(rnd, q, e, w, n, full=False):
+    cells = rnd.perm(q * e)[:n]
+    qid = (cells // e).to(rnd.torch.int32)
+    pos = (cells % e).to(rnd.torch.int32)
+    drop = rnd.ints(0, 10, (n,)) < 3
+    qid = rnd.torch.where(drop | full, q, qid).to(rnd.torch.int32)
+    return (rnd.ints(-2**31, 2**31 - 1, (q, e, w)), qid, pos,
+            rnd.ints(-1000, 1000, (n, w)))
+
+
+def gather_inputs(rnd, r, w, f, b):
+    return rnd.ints(-1000, 1000, (r, w)), rnd.ints(0, r + 1, (f, b))
+
+
+def deliver_inputs(rnd, n, f, d, r, w, c, full=None):
+    torch = rnd.torch
+    slots = rnd.ints(-1000, 1000, (n, w))
+    slots[:, 0] = rnd.ints(0, 2 * c, (n,))
+    slots[:, 2] = (rnd.ints(0, 2, (n,)) << 16) | rnd.ints(0, 5, (n,))
+    valid = rnd.ints(0, 2, (n,))
+    fifo = rnd.perm(r)
+    head = rnd.one(0, r)
+    avail = 0 if full == "free" else rnd.one(0, r + 1)
+    ffspace = (torch.zeros((f,), dtype=torch.int32, device=rnd.dev)
+               if full == "fifo" else rnd.ints(0, d + 1, (f,)))
+    scal = torch.tensor([head, avail, head + avail, rnd.one(0, 50),
+                         rnd.one(1, f + 1)], dtype=torch.int32,
+                        device=rnd.dev)
+    return (slots, valid, fifo, rnd.ints(-99, 99, (r, w)),
+            rnd.ints(-99, 99, (f, d)), rnd.ints(-1, 2 * c, (c,)),
+            rnd.ints(0, 8, (c,)), rnd.ints(0, 3, (c,)),
+            rnd.ints(0, 100, (f,)), ffspace, scal)
+
+
+def switch_inputs(rnd, t, f, e, w, r, d, c, b, nb, m=None, full=None):
+    torch = rnd.torch
+    i32 = torch.int32
+    tx_buf = rnd.ints(0, 100, (t, f, e, w))
+    tx_buf[..., 0] = rnd.ints(0, 12, (t, f, e))
+    tx_buf[..., 2] = (rnd.ints(0, 8, (t, f, e)) << 16) \
+        | rnd.ints(0, 5, (t, f, e))
+    tx_buf[..., 4] = rnd.ints(0, 6, (t, f, e))
+    tx_head = rnd.ints(0, 3, (t, f))
+    rx_head = rnd.ints(0, 3, (t, f))
+    fifo = torch.stack([rnd.perm(r) for _ in range(t)])
+    fh = rnd.ints(0, 3, (t,))
+    tag = torch.full((t, c), -1, dtype=i32, device=rnd.dev)
+    ids = torch.arange(12, dtype=i32, device=rnd.dev)
+    for ti in range(t):
+        live = ids[rnd.ints(0, 10, (12,)) < 8]
+        tag[ti, (live % c).long()] = live
+    ffh = rnd.ints(0, 3, (t, f))
+    from repro_torch.kernels import switch_step as ss
+    scal = torch.zeros((t, ss.SCAL_COLS), dtype=i32, device=rnd.dev)
+    scal[:, 0] = fh
+    scal[:, 1] = fh + (0 if full == "free" else rnd.ints(2, r + 1, (t,)))
+    scal[:, 2] = rnd.ints(0, f, (t,))
+    scal[:, 3] = rnd.ints(1, b + 2, (t,))
+    scal[:, 4] = rnd.ints(1, f + 1, (t,))
+    scal[:, 5] = rnd.ints(0, 2, (t,))
+    scal[:, 6] = rnd.ints(0, 8, (t,))
+    include_fetch = m is None
+    m = t * f * b if include_fetch else m
+    ext_slots = rnd.ints(0, 60, (m, w))
+    ext_slots[:, 0] = rnd.ints(0, 12, (m,))
+    ext_slots[:, 2] = rnd.ints(0, 2, (m,)) << 16
+    rx_tail = rx_head + (e if full == "rx" else rnd.ints(0, 3, (t, f)))
+    ff_tail = ffh + (d if full == "fifo" else rnd.ints(0, 4, (t, f)))
+    args = (tx_buf, tx_head, tx_head + rnd.ints(0, 6, (t, f)),
+            rnd.ints(0, 100, (t, f, e, w)), rx_head, rx_tail.to(i32),
+            rnd.ints(0, 100, (t, r, w)), fifo, rnd.ints(0, r, (t, f, d)),
+            ffh, ff_tail.to(i32), tag, rnd.ints(0, f, (t, c)),
+            rnd.ints(-1, t + 1, (t, c)), rnd.ints(0, 3, (t, c)), scal,
+            torch.zeros((t, nb), dtype=i32, device=rnd.dev), ext_slots,
+            rnd.ints(0, 2, (m,)),
+            (rnd.ints(-2, t + 2, (m,)) if t > 1
+             else torch.zeros((m,), dtype=i32, device=rnd.dev)))
+    return args, include_fetch
+
+
+# --------------------------------------------------------------------------
+# timing
+# --------------------------------------------------------------------------
+
+def time_ms(torch, fn, reps=25):
+    """Median of ``reps`` individually event-timed calls, after warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def same(torch, got, want):
+    """Bit-exact equality of two tuples of int32 tensors; returns the max
+    absolute difference (0 when equal)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    check(len(got) == len(want), "output arity differs")
+    worst = 0
+    for k, (g, w) in enumerate(zip(got, want)):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"output {k}: {g.dtype}{tuple(g.shape)} vs "
+              f"{w.dtype}{tuple(w.shape)}")
+        if not torch.equal(g, w):
+            diff = (g.to(torch.int64) - w.to(torch.int64)).abs().max()
+            worst = max(worst, int(diff))
+            raise SmokeFailure(f"output {k} differs (max |diff| {worst}, "
+                               f"{int((g != w).sum())} elements)")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phases
+# --------------------------------------------------------------------------
+
+def phase_kernels(torch, dev):
+    from repro_torch.kernels import nic_deliver as nd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ring_copy as rc
+    from repro_torch.kernels import ring_push as rp
+    from repro_torch.kernels import switch_step as ss
+
+    f, e, w, b = FULL["n_flows"], FULL["ring_entries"], 16, 4
+    r, c, nb = FULL["request_buffer_slots"], FULL["conn_cache_entries"], 64
+    d = max(e, r)
+    n = f * b
+    rnd = Rand(torch, 1234, dev)
+    cases = 0
+
+    def run(name, kernel, plain, args, **kw):
+        nonlocal cases
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        try:
+            same(torch, got, want)
+        except SmokeFailure as exc:
+            raise SmokeFailure(f"{name}: kernel != plain: {exc}") from exc
+        cases += 1
+
+    for shape, full in (((4, 8, 16, 12), False), ((3, 4, 8, 5), True),
+                        ((f, e, w, n), False), ((f, e, w, n), True)):
+        run("ring_push", ops.ring_push, rp.ring_push_plain,
+            push_inputs(rnd, *shape, full=full))
+    for shape in ((8, 16, 2, 4), (33, 8, 5, 3), (r, w, f, b)):
+        run("ring_gather", ops.ring_gather, rc.ring_gather_plain,
+            gather_inputs(rnd, *shape))
+    for shape, full in (((17, 3, 4, 6, 12, 16), None),
+                        ((40, 4, 16, 16, 12, 8), None),
+                        ((n, f, d, r, w, c), None),
+                        ((n, f, d, r, w, c), None),
+                        ((n, 8, 4, r, w, 4), None),
+                        ((n, f, d, r, w, c), "free"),
+                        ((n, f, d, r, w, c), "fifo")):
+        run("nic_deliver_fused", ops.nic_deliver_fused,
+            nd.nic_deliver_fused_plain, deliver_inputs(rnd, *shape, full=full))
+    for kw, full in ((dict(t=3, f=2, e=8, w=16, r=8, d=8, c=16, b=4, nb=16),
+                      None),
+                     (dict(t=3, f=2, e=8, w=16, r=8, d=8, c=16, b=4, nb=16,
+                           m=14), None),
+                     (dict(t=2, f=8, e=4, w=16, r=16, d=16, c=16, b=4,
+                           nb=8), "rx"),
+                     (dict(t=2, f=256, e=16, w=16, r=512, d=512, c=64,
+                           b=4, nb=16), None),
+                     (dict(t=1, f=f, e=e, w=w, r=r, d=d, c=c, b=b, nb=nb,
+                           m=n), None),
+                     (dict(t=1, f=f, e=e, w=w, r=r, d=d, c=c, b=b, nb=nb,
+                           m=n), None),
+                     (dict(t=1, f=8, e=e, w=w, r=r, d=d, c=16, b=b, nb=nb,
+                           m=n), None),
+                     (dict(t=1, f=f, e=e, w=w, r=r, d=d, c=c, b=b, nb=nb,
+                           m=n), "free"),
+                     (dict(t=1, f=f, e=e, w=w, r=r, d=d, c=c, b=b, nb=nb,
+                           m=n), "fifo")):
+        args, include_fetch = switch_inputs(rnd, full=full, **kw)
+        run("switch_step_fused", ops.switch_step_fused,
+            ss.switch_step_fused_plain, args, bmax=kw["b"],
+            include_fetch=include_fetch)
+    return cases
+
+
+def make_pair(fabric_cls, cfg, dev, scheme, client_entry=True):
+    """A client/server pair with connection 1 open on the server and, with
+    ``client_entry``, on the client too.  A client entry pins every
+    response to the entry's source flow (the SRQ override), so one
+    connection completes at most B RPCs a step; without it responses
+    take the round-robin balancer across all flows."""
+    fab = fabric_cls(cfg)
+    cst, sst = fab.init_state(dev), fab.init_state(dev)
+    if client_entry:
+        cst = fab.open_connection(cst, 1, 0, 1, scheme)
+    sst = fab.open_connection(sst, 1, 0, 0, scheme)
+    return fab, cst, sst
+
+
+def echo(recs, valid):
+    out = dict(recs)
+    out["payload"] = recs["payload"] + 1
+    return out
+
+
+def tree_equal(torch, a, b, path):
+    import dataclasses
+    if dataclasses.is_dataclass(a):
+        for fld in dataclasses.fields(a):
+            tree_equal(torch, getattr(a, fld.name), getattr(b, fld.name),
+                       f"{path}.{fld.name}")
+    elif isinstance(a, dict):
+        check(a.keys() == b.keys(), f"{path}: keys differ")
+        for k in a:
+            tree_equal(torch, a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (tuple, list)):
+        for k, (x, y) in enumerate(zip(a, b)):
+            tree_equal(torch, x, y, f"{path}[{k}]")
+    else:
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"{path} differs between routes")
+
+
+def phase_quickstart(torch, dev):
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import serdes
+    from repro_torch.core.engine import LoopbackEngine
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.load_balancer import LB_ROUND_ROBIN
+    from repro_torch.kernels import ops
+
+    results = {}
+    for route in ("kernels", "plain"):
+        cfg = FabricConfig(n_flows=4, ring_entries=32, batch_size=4,
+                           dynamic_batching=False,
+                           use_pallas=route == "kernels")
+        fab, cst, sst = make_pair(DaggerFabric, cfg, dev, LB_ROUND_ROBIN)
+        pw = fab.slot_words - serdes.HEADER_WORDS
+        recs = serdes.make_records(
+            torch.ones(8, dtype=torch.int32, device=dev),
+            torch.arange(8, dtype=torch.int32, device=dev),
+            torch.zeros(8, dtype=torch.int32, device=dev),
+            torch.zeros(8, dtype=torch.int32, device=dev),
+            torch.zeros((8, pw), dtype=torch.int32, device=dev))
+        ops.reset_launch_counts()
+        cst, _ = fab.host_tx_enqueue(cst, recs,
+                                     torch.arange(8, device=dev) % 4)
+        eng = LoopbackEngine(fab, fab, echo)
+        done = []
+        for _ in range(4):
+            cst, sst, recs_d, dvalid = eng.step(cst, sst)
+            done.append((recs_d, dvalid))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        n_done = sum(int(v.sum()) for _, v in done)
+        check(n_done == 8, f"quickstart ({route}): {n_done} of 8 RPCs done")
+        if route == "kernels":
+            check(counts["ring_push"] > 0 and counts["switch_step_fused"] > 0,
+                  f"quickstart did not run through the kernels: {counts}")
+        else:
+            check(not any(counts.values()),
+                  f"plain quickstart launched kernels: {counts}")
+        results[route] = (cst, sst, done, counts)
+    k, p = results["kernels"], results["plain"]
+    tree_equal(torch, k[0], p[0], "client")
+    tree_equal(torch, k[1], p[1], "server")
+    for step, ((rk, vk), (rp_, vp)) in enumerate(zip(k[2], p[2])):
+        check(torch.equal(vk, vp), f"quickstart step {step}: valid differs")
+        for key in rk:
+            check(torch.equal(rk[key][vk], rp_[key][vp]),
+                  f"quickstart step {step}: completion field {key} differs")
+    return k[3]
+
+
+def phase_full(torch, dev):
+    from repro_torch import interop
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.engine import LoopbackEngine
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.load_balancer import LB_ROUND_ROBIN
+    from repro_torch.kernels import ops
+
+    cfg0 = FabricConfig(**FULL)
+    rate = LOAD * cfg0.n_flows * cfg0.batch_size
+    _, c0, s0 = make_pair(DaggerFabric, cfg0, dev, LB_ROUND_ROBIN,
+                          client_entry=False)
+    start = (interop.fabric_state_to_numpy(c0),
+             interop.fabric_state_to_numpy(s0))
+    runs = {}
+    for route in ("fused", "staged", "plain"):
+        cfg = cfg0.replace(use_pallas=route != "plain")
+        fab = DaggerFabric(cfg)
+        gen = lg.LoadGen(fab, mode=lg.MODE_DETERMINISTIC)
+        eng = LoopbackEngine(fab, fab, echo, loadgen=gen,
+                             stages=route == "staged")
+        cst = interop.fabric_state_from_numpy(start[0], dev)
+        sst = interop.fabric_state_from_numpy(start[1], dev)
+        tel = tlm.create(device=dev)
+        gst = gen.init_state(rate, seed=7, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        cst, sst, n_done, tel, gst = eng.run_steps(cst, sst, FULL_STEPS,
+                                                   tel=tel, gen=gst)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        runs[route] = dict(cst=cst, sst=sst, n_done=n_done, tel=tel, gst=gst,
+                           secs=secs, counts=counts, eng=eng)
+        done = int(n_done)
+        q = tlm.quantiles(tel.hist)
+        say(f"full-size {route}: {done} RPCs in {FULL_STEPS} steps, "
+            f"{secs:.3f} s, {done / secs / 1e6:.4f} Mrps, "
+            f"{FULL_STEPS / secs:.1f} steps/s, p50 {q[0.5]} / p99 {q[0.99]} "
+            f"steps, launches {counts}")
+    # every route agrees bit for bit
+    for route in ("staged", "plain"):
+        for key in ("cst", "sst", "n_done", "tel", "gst"):
+            tree_equal(torch, runs["fused"][key], runs[route][key],
+                       f"{route}.{key}")
+    fused, staged = runs["fused"]["counts"], runs["staged"]["counts"]
+    check(fused["ring_push"] > 0 and fused["switch_step_fused"] > 0,
+          f"fused route missed a kernel: {fused}")
+    check(staged["ring_push"] > 0 and staged["ring_gather"] > 0
+          and staged["nic_deliver_fused"] > 0,
+          f"staged route missed a kernel: {staged}")
+    check(not any(runs["plain"]["counts"].values()),
+          f"plain route launched kernels: {runs['plain']['counts']}")
+    # conservation ledger: injected == completed + in flight + drops
+    r = runs["fused"]
+    cst, sst, gst = r["cst"], r["sst"], r["gst"]
+    mon = {k: int(cst.mon[k]) + int(sst.mon[k]) for k in cst.mon}
+    drops = (mon["drops_no_slot"] + mon["drops_fifo_full"]
+             + mon["drops_rx_full"] + mon["drops_exchange"]
+             + int(sst.mon["drops_tx_full"]))
+    in_flight = lg.system_occupancy(cst, sst)
+    snap = lg.snapshot(gst)
+    check(snap["injected"] == int(r["n_done"]) + in_flight + drops,
+          f"ledger unbalanced: {snap} done={int(r['n_done'])} "
+          f"in_flight={in_flight} drops={drops}")
+    check(snap["offered"] == snap["injected"] + snap["dropped"],
+          f"offered != injected + dropped: {snap}")
+    check(int(r["tel"].hist.sum()) == int(r["tel"].n_done) == int(r["n_done"]),
+          "telemetry does not conserve completions")
+    check(int(r["n_done"]) > 0.9 * snap["offered"],
+          f"only {int(r['n_done'])} of {snap['offered']} RPCs completed")
+    say(f"ledger: offered {snap['offered']} injected {snap['injected']} "
+        f"completed {int(r['n_done'])} in_flight {in_flight} drops {drops}")
+    return runs, rate
+
+
+def device_events(torch, fn, reps):
+    """CUDA activity (kernels, copies, memsets) of ``reps`` calls of
+    ``fn`` under ``torch.profiler``: [(name, microseconds)]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(torch, fn, reps=20):
+    """Device time of one call of ``fn`` in ms (None if the profiler saw
+    no device activity)."""
+    fn()
+    ev = device_events(torch, fn, reps)
+    return sum(us for _, us in ev) / reps / 1e3 if ev else None
+
+
+def device_share(torch, runs, steps=20):
+    """Device busy share of each route: device time per step from a
+    ``torch.profiler`` trace of ``steps`` more steps (one stream, so the
+    sum of activity durations), over the unprofiled wall time per step
+    of the full-size run; plus the five kernels with the most device
+    time."""
+    out = {}
+    for route, r in runs.items():
+        ev = device_events(torch, lambda: r["eng"].run_steps(
+            r["cst"], r["sst"], steps, tel=r["tel"], gen=r["gst"]), 1)
+        dev_us = sum(us for _, us in ev) / steps
+        wall_us = r["secs"] / FULL_STEPS * 1e6
+        by_name = {}
+        for name, us in ev:
+            by_name[name[:70]] = by_name.get(name[:70], 0.0) + us / steps
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        out[route] = {"device_us_per_step": dev_us,
+                      "wall_us_per_step": wall_us,
+                      "busy_share": dev_us / wall_us if ev else None,
+                      "activities_per_step": len(ev) / steps, "top": top}
+        say(f"device time {route}: {dev_us:.1f} us/step of {wall_us:.1f} "
+            f"us/step wall ({len(ev) / steps:.0f} device activities/step)"
+            + ("" if ev else " (profiler saw no device activity)"))
+    return out
+
+
+def capture_inputs(torch, runs):
+    """Record each kernel's inputs on 3 more steps of each kernel route,
+    from the end states of the full-size run (steady-state shapes and
+    data)."""
+    from repro_torch.kernels import ops
+    seen = {}
+    orig = {k: getattr(ops, k) for k in ops.KERNELS}
+
+    def recorder(name):
+        def call(*args, **kw):
+            seen[name] = (args, kw)
+            return orig[name](*args, **kw)
+        return call
+    try:
+        for k in ops.KERNELS:
+            setattr(ops, k, recorder(k))
+        for route in ("fused", "staged"):
+            r = runs[route]
+            r["eng"].run_steps(r["cst"], r["sst"], 3, tel=r["tel"],
+                               gen=r["gst"])
+    finally:
+        for k, fn in orig.items():
+            setattr(ops, k, fn)
+    torch.cuda.synchronize()
+    return seen
+
+
+def phase_summary(torch, runs, seen):
+    from repro_torch.kernels import nic_deliver as nd
+    from repro_torch.kernels import ring_copy as rc
+    from repro_torch.kernels import ring_push as rp
+    from repro_torch.kernels import switch_step as ss
+
+    impl = {
+        "ring_push": (rp.ring_push_cuda, rp.ring_push_plain,
+                      lambda a, kw, o: rp.bytes_moved(a[0], a[1], a[3])),
+        "ring_gather": (rc.ring_gather_cuda, rc.ring_gather_plain,
+                        lambda a, kw, o: rc.bytes_moved(*a)),
+        "nic_deliver_fused": (nd.nic_deliver_fused_cuda,
+                              nd.nic_deliver_fused_plain,
+                              lambda a, kw, o: nd.bytes_moved(*a)),
+        "switch_step_fused": (
+            ss.switch_step_fused_cuda, ss.switch_step_fused_plain,
+            lambda a, kw, o: ss.bytes_moved(
+                a[:20], o, kw.get("include_fetch", True))),
+    }
+    rows = []
+    for name, (src, replaces) in KERNELS.items():
+        kernel, plain, nbytes = impl[name]
+        args, kw = seen[name]
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = same(torch, got, want)
+        call_ms = time_ms(torch, lambda: kernel(*args, **kw))
+        plain_call_ms = time_ms(torch, lambda: plain(*args, **kw))
+        ms = device_ms(torch, lambda: kernel(*args, **kw))
+        plain_ms = device_ms(torch, lambda: plain(*args, **kw))
+        if ms is None:          # no device trace: fall back to events
+            ms, plain_ms = call_ms, plain_call_ms
+        outs = got if isinstance(got, tuple) else (got,)
+        moved = nbytes(args, kw, outs)
+        launches = (runs["fused"]["counts"][name]
+                    + runs["staged"]["counts"][name])
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "bytes": moved, "call_ms": call_ms,
+            "plain_call_ms": plain_call_ms,
+            "launches_per_step": {
+                route: runs[route]["counts"][name] / FULL_STEPS
+                for route in ("fused", "staged")}})
+        check(launches > 0, f"{name} was never launched on the main path")
+    return rows
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    torch.manual_seed(0)
+    report = {"device": torch.cuda.get_device_name(0),
+              "torch": torch.__version__, "cuda": torch.version.cuda}
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    report["build_s"] = time.perf_counter() - t0
+    say(f"built {lib.name} from {len(_build.sources())} sources in "
+        f"{report['build_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    report["kernel_cases"] = phase_kernels(torch, dev)
+    say(f"phase 1: {report['kernel_cases']} kernel-vs-plain cases equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    report["quickstart_launches"] = phase_quickstart(torch, dev)
+    say(f"phase 2: quickstart parity ok, launches "
+        f"{report['quickstart_launches']} ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    runs, rate = phase_full(torch, dev)
+    report["full"] = {route: {"secs": r["secs"], "n_done": int(r["n_done"]),
+                              "launches": r["counts"]}
+                      for route, r in runs.items()}
+    report["full"]["rate"] = rate
+    say(f"phase 3: full-size routes equal ({time.perf_counter() - t0:.1f} s)")
+    report["device_share"] = device_share(torch, runs)
+
+    t0 = time.perf_counter()
+    seen = capture_inputs(torch, runs)
+    rows = phase_summary(torch, runs, seen)
+    report["kernels"] = rows
+    say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "nvidia-smi: " + smi.stderr.strip()
+    report["nvidia_smi"] = card
+    say("details " + json.dumps(report))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,77 @@
+"""Masked scatter and filled gather — JAX's ``mode="drop"`` and
+``mode="fill"`` written as explicit index masks.
+
+PyTorch has neither mode.  As in JAX, an index in ``[-n, 0)`` counts
+from the end before the range check.  A dropped row is routed to one
+extra sink row past the end of the destination, which is cut off
+afterwards, so no boolean indexing (and so no host sync) is needed.
+Targets of kept rows are unique wherever the fabric scatters, so
+``index_put_`` without accumulation is deterministic on them; only the
+discarded sink row sees duplicate writes.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _linear(dst_shape, idx, keep):
+    """Row-major linear index over the leading ``len(idx)`` dims, with
+    out-of-range or unkept entries sent to the sink index ``prod(lead)``."""
+    lead = dst_shape[:len(idx)]
+    nl = math.prod(lead)
+    ok = keep
+    lin = torch.zeros_like(idx[0], dtype=torch.int64)
+    for ix, n in zip(idx, lead):
+        ix = torch.where(ix < 0, ix + n, ix)
+        ok = ok & (ix >= 0) & (ix < n)
+        lin = lin * n + ix.to(torch.int64)
+    return torch.where(ok, lin, nl), nl
+
+
+def set_drop(dst, idx, vals, keep):
+    """``dst.at[idx].set(vals, mode="drop")`` restricted to ``keep`` rows.
+
+    ``idx`` is a tuple of index tensors over the leading dims of ``dst``;
+    returns a new tensor.
+    """
+    lin, nl = _linear(dst.shape, idx, keep)
+    rest = dst.shape[len(idx):]
+    flat = torch.empty((nl + 1,) + tuple(rest), dtype=dst.dtype,
+                       device=dst.device)
+    flat[:nl] = dst.reshape((nl,) + tuple(rest))
+    flat.index_put_((lin,), vals.to(dst.dtype))
+    return flat[:nl].reshape(dst.shape)
+
+
+def add_drop(dst, idx, vals, keep):
+    """``dst.at[idx].add(vals, mode="drop")`` restricted to ``keep`` rows
+    (integer adds: exact in any order)."""
+    lin, nl = _linear(dst.shape, idx, keep)
+    rest = dst.shape[len(idx):]
+    flat = torch.zeros((nl + 1,) + tuple(rest), dtype=dst.dtype,
+                       device=dst.device)
+    flat[:nl] = dst.reshape((nl,) + tuple(rest))
+    flat.index_add_(0, lin.reshape(-1), torch.broadcast_to(
+        vals.to(dst.dtype), lin.shape + tuple(rest)).reshape(
+            (-1,) + tuple(rest)))
+    return flat[:nl].reshape(dst.shape)
+
+
+def get_fill(src, idx, fill: int = 0):
+    """``src.at[idx].get(mode="fill", fill_value=fill)`` for an index
+    tensor over dim 0: rows at out-of-range indices read ``fill``."""
+    n = src.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    rows = src[torch.where(ok, idx, 0)]
+    mask = ok.reshape(ok.shape + (1,) * (src.dim() - 1))
+    return torch.where(mask, rows, torch.full_like(rows, fill))
+
+
+def get_clip(src, idx):
+    """``src[idx]`` with JAX's default gather semantics: out-of-range
+    indices are clamped into ``[0, n - 1]``."""
+    n = src.shape[0]
+    return src[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]

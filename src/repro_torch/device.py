@@ -1,0 +1,20 @@
+"""Device selection shared by every entry point of the port.
+
+Entry points take ``device="cuda"`` by default.  Without a CUDA device
+they raise instead of carrying on quietly on the CPU: the CPU is used
+only when the caller asks for it.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names CUDA and no
+    CUDA device is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev

@@ -1,0 +1,95 @@
+"""Carry fabric, telemetry and load-generator state across packages.
+
+The state of the dataplane is what a model's weights are elsewhere: two
+runs that start from the same state must end in the same state.  These
+functions move it as numpy arrays, so a caller can start ``repro`` and
+``repro_torch`` from one state and compare the ends without either
+package importing the other:
+
+* ``*_to_numpy(state)`` -> nested dicts of numpy arrays keyed by the
+  reference's field names (``{"tx": {"buf", "head", "tail"}, ...}``);
+* ``*_from_numpy(src, device)`` reads the same names from nested dicts
+  or from any object with those attributes — e.g. a ``repro`` state
+  whose leaves ``np.asarray`` accepts.
+
+Every leaf must already have the reference's dtype (int32; bool for
+``force_flush``): a round trip never widens or narrows a type.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import monitor
+from repro_torch.core.connection import ConnTable
+from repro_torch.core.fabric import FabricState, SoftConfig
+from repro_torch.core.loadgen import LoadGenState
+from repro_torch.core.rings import FreeFifo, Ring
+from repro_torch.core.telemetry import Telemetry
+from repro_torch.device import resolve
+
+_NESTED = {"tx": Ring, "rx": Ring, "free": FreeFifo, "flow_fifo": Ring,
+           "conn": ConnTable, "soft": SoftConfig}
+_BOOL_FIELDS = {"force_flush"}
+
+
+def _get(src, name):
+    return src[name] if isinstance(src, dict) else getattr(src, name)
+
+
+def _leaf(x, dev, name):
+    a = np.asarray(x)
+    want = np.bool_ if name in _BOOL_FIELDS else np.int32
+    if a.dtype != want:
+        raise ValueError(f"{name}: dtype {a.dtype}, expected "
+                         f"{np.dtype(want).name}")
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def _load(cls, src, dev):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = _get(src, f.name)
+        if cls is FabricState and f.name in _NESTED:
+            kw[f.name] = _load(_NESTED[f.name], v, dev)
+        elif cls is FabricState and f.name == "mon":
+            kw[f.name] = {k: _leaf(_get(v, k), dev, k)
+                          for k in monitor.COUNTERS}
+        else:
+            kw[f.name] = _leaf(v, dev, f.name)
+    return cls(**kw)
+
+
+def _dump(x):
+    if dataclasses.is_dataclass(x):
+        return {f.name: _dump(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: _dump(v) for k, v in x.items()}
+    return x.detach().cpu().numpy().copy()
+
+
+def fabric_state_from_numpy(src, device="cuda") -> FabricState:
+    return _load(FabricState, src, resolve(device))
+
+
+def fabric_state_to_numpy(st: FabricState) -> dict:
+    return _dump(st)
+
+
+def telemetry_from_numpy(src, device="cuda") -> Telemetry:
+    return _load(Telemetry, src, resolve(device))
+
+
+def telemetry_to_numpy(tel: Telemetry) -> dict:
+    return _dump(tel)
+
+
+def loadgen_state_from_numpy(src, device="cuda") -> LoadGenState:
+    return _load(LoadGenState, src, resolve(device))
+
+
+def loadgen_state_to_numpy(gst: LoadGenState) -> dict:
+    return _dump(gst)

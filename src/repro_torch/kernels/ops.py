@@ -1,0 +1,78 @@
+"""Dispatching wrappers for the fabric kernels, with launch counts.
+
+Each wrapper takes its kernel's plain PyTorch version only because the
+tensors it was given lie on the CPU; for CUDA tensors it launches the
+CUDA kernel (built from ``csrc/`` at first use) or raises — a failed
+build or launch is never replaced by the plain version.  Each wrapper
+adds one to its launch count where it launches its kernel and nowhere
+else, so a run can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import nic_deliver as _nd
+from repro_torch.kernels import ring_copy as _rc
+from repro_torch.kernels import ring_push as _rp
+from repro_torch.kernels import switch_step as _ss
+
+KERNELS = ("ring_push", "ring_gather", "nic_deliver_fused",
+           "switch_step_fused")
+_launches = dict.fromkeys(KERNELS, 0)
+
+
+def launch_counts() -> dict:
+    """Launches per kernel since the last ``reset_launch_counts``."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def _on_card(t, name: str) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for tensors on {t.device}")
+
+
+def ring_push(buf, queue_ids, pos, slots):
+    if not _on_card(buf, "ring_push"):
+        return _rp.ring_push_plain(buf, queue_ids, pos, slots)
+    out = _rp.ring_push_cuda(buf, queue_ids, pos, slots)
+    _launches["ring_push"] += 1
+    return out
+
+
+def ring_gather(table, refs):
+    if not _on_card(table, "ring_gather"):
+        return _rc.ring_gather_plain(table, refs)
+    out = _rc.ring_gather_cuda(table, refs)
+    _launches["ring_gather"] += 1
+    return out
+
+
+def nic_deliver_fused(slots, valid, fifo, req_table, ffbuf, conn_tag,
+                      conn_src, conn_lb, fftail, ffspace, scal, **kw):
+    args = (slots, valid, fifo, req_table, ffbuf, conn_tag, conn_src,
+            conn_lb, fftail, ffspace, scal)
+    if not _on_card(slots, "nic_deliver_fused"):
+        return _nd.nic_deliver_fused_plain(*args, **kw)
+    out = _nd.nic_deliver_fused_cuda(*args, **kw)
+    _launches["nic_deliver_fused"] += 1
+    return out
+
+
+def switch_step_fused(tx_buf, tx_head, tx_tail, rx_buf, rx_head, rx_tail,
+                      req_table, fifo, ffbuf, ff_head, ff_tail, conn_tag,
+                      conn_src, conn_dest, conn_lb, scal, hist, ext_slots,
+                      ext_valid, ext_dest, bmax, **kw):
+    args = (tx_buf, tx_head, tx_tail, rx_buf, rx_head, rx_tail, req_table,
+            fifo, ffbuf, ff_head, ff_tail, conn_tag, conn_src, conn_dest,
+            conn_lb, scal, hist, ext_slots, ext_valid, ext_dest, bmax)
+    if not _on_card(tx_buf, "switch_step_fused"):
+        return _ss.switch_step_fused_plain(*args, **kw)
+    out = _ss.switch_step_fused_cuda(*args, **kw)
+    _launches["switch_step_fused"] += 1
+    return out

@@ -40,6 +40,10 @@ def pytest_configure(config):
         "requires_pallas: test drives a Pallas kernel (compiled or "
         "interpret mode); auto-skipped when jax.experimental.pallas is "
         "unavailable on this backend")
+    config.addinivalue_line(
+        "markers",
+        "requires_cuda: test runs a CUDA kernel of repro_torch on the card; "
+        "skips where torch.cuda.is_available() is False")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,85 @@
+"""The CUDA kernels of ``repro_torch`` against their plain versions, on
+the card.
+
+Every test here needs a CUDA device (marker ``requires_cuda``) and skips
+without one; the decision is taken inside the ``cuda`` fixture.  Inputs
+are seeded numpy arrays moved to the card; each kernel (through its
+``ops`` wrapper, which must launch it) and its plain PyTorch version run
+on the same tensors.  The dataplane is int32: exact equality.  No JAX
+here — the card's machine has none.  Run on the card with
+
+    python -m pytest -q tests/test_torch_cuda.py
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import nic_deliver, ops, ring_copy, ring_push
+from repro_torch.kernels import switch_step
+from torch_cases import (deliver_inputs, gather_inputs, push_inputs,
+                         switch_inputs, with_ext)
+
+pytestmark = pytest.mark.requires_cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _dev(arrays, dev):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in arrays)
+
+
+def _launch_and_compare(name, wrapper, plain, args, **kw):
+    before = ops.launch_counts()[name]
+    got = wrapper(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, f"output {k}"
+        assert torch.equal(g, w), f"{name} output {k} differs"
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 16, 12), (512, 64, 16, 2048)])
+def test_ring_push_kernel(cuda, shape):
+    rng = np.random.default_rng(0)
+    args = _dev(push_inputs(rng, *shape), cuda)
+    _launch_and_compare("ring_push", ops.ring_push,
+                        ring_push.ring_push_plain, args)
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 2, 4), (2048, 16, 512, 4)])
+def test_ring_gather_kernel(cuda, shape):
+    rng = np.random.default_rng(1)
+    args = _dev(gather_inputs(rng, *shape), cuda)
+    _launch_and_compare("ring_gather", ops.ring_gather,
+                        ring_copy.ring_gather_plain, args)
+
+
+@pytest.mark.parametrize("shape", [(17, 3, 4, 6), (2048, 512, 2048, 2048)])
+def test_nic_deliver_kernel(cuda, shape):
+    rng = np.random.default_rng(2)
+    args = _dev(deliver_inputs(rng, *shape), cuda)
+    _launch_and_compare("nic_deliver_fused", ops.nic_deliver_fused,
+                        nic_deliver.nic_deliver_fused_plain, args)
+
+
+@pytest.mark.parametrize("ext", [False, True])
+def test_switch_step_kernel(cuda, ext):
+    rng = np.random.default_rng(3)
+    st = switch_inputs(rng)
+    if ext:
+        st = with_ext(rng, st)
+    args = _dev(st.values(), cuda)
+    _launch_and_compare("switch_step_fused", ops.switch_step_fused,
+                        switch_step.switch_step_fused_plain, args, bmax=4,
+                        include_fetch=not ext)

@@ -1,0 +1,195 @@
+"""Port parity for the four fabric kernel modules of ``repro_torch``.
+
+Each kernel's plain PyTorch version (what the ``ops`` wrapper runs on CPU
+tensors) is held against the reference's ``repro.kernels.ref`` oracle on
+the same numpy-made inputs; ``switch_step_fused`` is also held against
+``repro.kernels.ops.switch_step_fused`` in interpret mode.  The
+dataplane is int32, so the tolerance is exact equality on every output.
+The CUDA kernels themselves run only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ref
+from repro_torch.kernels import nic_deliver, ops, ring_copy, ring_push
+from repro_torch.kernels import switch_step
+
+from torch_cases import deliver_inputs, push_inputs, switch_inputs, with_ext
+
+
+def _t(a):
+    return torch.from_numpy(np.array(np.asarray(a), copy=True))
+
+
+def _eq(got, want, what=""):
+    g = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    w = np.asarray(want)
+    assert g.dtype == w.dtype, f"{what}: dtype {g.dtype} vs {w.dtype}"
+    np.testing.assert_array_equal(g, w, err_msg=what)
+
+
+# ------------------------------------------------------------- ring_push
+@pytest.mark.parametrize("seed,q,e,w,n", [(0, 4, 8, 16, 12), (1, 2, 32, 8, 40),
+                                          (2, 3, 4, 16, 3)])
+def test_ring_push_plain_matches_ref(seed, q, e, w, n):
+    """Unique (queue, pos) targets with sentinel-queue (dropped) rows."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(-2**31, 2**31 - 1, (q, e, w)).astype(np.int32)
+    cells = rng.permutation(q * e)[:n]
+    qid = (cells // e).astype(np.int32)
+    pos = (cells % e).astype(np.int32)
+    qid[rng.random(n) < 0.3] = q                       # drop sentinel
+    slots = rng.integers(-1000, 1000, (n, w)).astype(np.int32)
+    want = ref.ref_ring_push(jnp.asarray(buf), jnp.asarray(qid),
+                             jnp.asarray(pos), jnp.asarray(slots))
+    got = ring_push.ring_push_plain(_t(buf), _t(qid), _t(pos), _t(slots))
+    _eq(got, want, "ring_push")
+    _eq(ops.ring_push(_t(buf), _t(qid), _t(pos), _t(slots)), want, "ops")
+
+
+def test_ring_push_full_ring_all_dropped():
+    buf = np.arange(2 * 4 * 6, dtype=np.int32).reshape(2, 4, 6)
+    qid = np.full((5,), 2, np.int32)
+    pos = np.arange(5, dtype=np.int32) % 4
+    slots = np.ones((5, 6), np.int32)
+    got = ring_push.ring_push_plain(_t(buf), _t(qid), _t(pos), _t(slots))
+    _eq(got, ref.ref_ring_push(jnp.asarray(buf), jnp.asarray(qid),
+                               jnp.asarray(pos), jnp.asarray(slots)))
+    _eq(got, buf)
+
+
+# ----------------------------------------------------------- ring_gather
+@pytest.mark.parametrize("seed,r,w,f,b", [(0, 8, 16, 2, 4), (1, 16, 8, 4, 4),
+                                          (2, 32, 16, 3, 1)])
+def test_ring_gather_plain_matches_ref(seed, r, w, f, b):
+    """References include the free-slot sentinel R (zero rows)."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(-1000, 1000, (r, w)).astype(np.int32)
+    refs = rng.integers(0, r + 1, (f, b)).astype(np.int32)
+    want = ref.ref_ring_copy(jnp.asarray(table), jnp.asarray(refs))
+    _eq(ring_copy.ring_gather_plain(_t(table), _t(refs)), want, "gather")
+    _eq(ops.ring_gather(_t(table), _t(refs)), want, "ops")
+
+
+# ---------------------------------------------------- nic_deliver_fused
+@pytest.mark.parametrize("seed,n,f,e,r", [(0, 8, 4, 8, 8), (1, 17, 3, 4, 6),
+                                          (2, 32, 4, 16, 16),
+                                          (3, 16, 2, 2, 32)])
+def test_nic_deliver_plain_matches_ref(seed, n, f, e, r):
+    rng = np.random.default_rng(seed)
+    args = deliver_inputs(rng, n, f, e, r)
+    want = ref.ref_nic_deliver_fused(*map(jnp.asarray, args))
+    got = nic_deliver.nic_deliver_fused_plain(*map(_t, args))
+    for k, (g, x) in enumerate(zip(got, want)):
+        _eq(g, x, f"nic_deliver output {k}")
+    via_ops = ops.nic_deliver_fused(*map(_t, args))
+    for g, x in zip(via_ops, want):
+        _eq(g, x, "ops")
+
+
+@pytest.mark.parametrize("full", ["free", "fifo"])
+def test_nic_deliver_plain_exhaustion(full):
+    """No free slot (every valid row is a no-slot drop) or every flow
+    FIFO full (every granted slot leaks back)."""
+    rng = np.random.default_rng(7)
+    args = list(deliver_inputs(rng, 16, 4, 8, 16))
+    if full == "free":
+        args[10] = args[10].copy()
+        args[10][1] = 0
+    else:
+        args[9] = np.zeros_like(args[9])
+    want = ref.ref_nic_deliver_fused(*map(jnp.asarray, args))
+    got = nic_deliver.nic_deliver_fused_plain(*map(_t, args))
+    for k, (g, x) in enumerate(zip(got, want)):
+        _eq(g, x, f"nic_deliver output {k}")
+
+
+# ---------------------------------------------------- switch_step_fused
+_OUT_NAMES = ("tx_head", "rx_buf", "rx_head", "rx_tail", "req_table",
+              "fifo", "ffbuf", "ff_head", "ff_tail", "scal", "hist",
+              "cand_slots", "cand_valid", "cand_dest", "drained", "dvalid",
+              "mon")
+
+
+@pytest.mark.parametrize("seed,include_fetch", [(0, True), (1, True),
+                                                (2, True), (0, False),
+                                                (3, False)])
+def test_switch_step_plain_matches_ref(seed, include_fetch):
+    rng = np.random.default_rng(seed)
+    st = switch_inputs(rng)
+    if not include_fetch:
+        st = with_ext(rng, st)
+    want = ref.ref_switch_step_fused(*map(jnp.asarray, st.values()), bmax=4,
+                                     include_fetch=include_fetch)
+    got = switch_step.switch_step_fused_plain(
+        *map(_t, st.values()), bmax=4, include_fetch=include_fetch)
+    for nm, g, x in zip(_OUT_NAMES, got, want):
+        _eq(g, x, f"switch_step output '{nm}'")
+
+
+@pytest.mark.requires_pallas
+def test_switch_step_plain_matches_interpret_kernel():
+    """Against the reference's Pallas kernel itself (interpret mode)."""
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(11)
+    st = switch_inputs(rng)
+    want = jops.switch_step_fused(*map(jnp.asarray, st.values()), bmax=4,
+                                  include_fetch=True)
+    got = ops.switch_step_fused(*map(_t, st.values()), bmax=4,
+                                include_fetch=True)
+    for nm, g, x in zip(_OUT_NAMES, got, want):
+        _eq(g, x, f"switch_step output '{nm}'")
+
+
+def test_switch_step_full_rings_backpressure():
+    """Every RX ring full: nothing is emitted, the flow FIFOs keep their
+    slots, and the monitor deltas agree."""
+    rng = np.random.default_rng(5)
+    st = switch_inputs(rng)
+    e = st["rx_buf"].shape[2]
+    st["rx_tail"] = st["rx_head"] + e
+    want = ref.ref_switch_step_fused(*map(jnp.asarray, st.values()), bmax=4)
+    got = switch_step.switch_step_fused_plain(*map(_t, st.values()), bmax=4)
+    for nm, g, x in zip(_OUT_NAMES, got, want):
+        _eq(g, x, f"switch_step output '{nm}'")
+    assert int(got[-1][:, switch_step.M_EMITTED].sum()) == 0
+
+
+# ------------------------------------------------------------ dispatching
+def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(3)
+    table = _t(rng.integers(0, 9, (4, 8)).astype(np.int32))
+    refs = _t(np.asarray([[0, 4], [3, 1]], np.int32))
+    ops.ring_gather(table, refs)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    table = torch.zeros((4, 8), dtype=torch.int32, device="meta")
+    refs = torch.zeros((2, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.ring_gather(table, refs)
+
+
+def test_kernel_launchers_check_shapes_before_launch():
+    """A mismatched input is refused before any pointer reaches a kernel
+    (these checks run ahead of the build, so they run on the CPU)."""
+    rng = np.random.default_rng(9)
+    buf, qid, pos, slots = map(_t, push_inputs(rng, 2, 4, 6, 3))
+    with pytest.raises(ValueError, match="pos"):
+        ring_push.ring_push_cuda(buf, qid, pos[:2], slots)
+    args = list(map(_t, deliver_inputs(rng, 8, 4, 8, 8)))
+    args[1] = args[1][:5]
+    with pytest.raises(ValueError, match="valid"):
+        nic_deliver.nic_deliver_fused_cuda(*args)
+    st = {k: _t(v) for k, v in switch_inputs(rng).items()}
+    st["scal"] = st["scal"][:, :5].contiguous()
+    with pytest.raises(ValueError, match="scal"):
+        switch_step.switch_step_fused_cuda(*st.values(), bmax=4)

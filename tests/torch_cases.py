@@ -1,0 +1,109 @@
+"""Seeded numpy inputs for the fabric kernels, shared by the CPU parity
+tests (``test_torch_kernels.py``) and the card tests
+(``test_torch_cuda.py``).  numpy only: the card's machine has no JAX.
+
+The states are consistent (free FIFOs are permutations, cursors within
+capacity), so every scatter target of a kept row is unique and the
+kernels' results do not depend on the order writes land in.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+SCAL_COLS = 9
+
+
+def push_inputs(rng, q, e, w, n, drop=0.3):
+    """Unique (queue, pos) targets; a ``drop`` share of rows carry the
+    sentinel queue id Q."""
+    buf = rng.integers(-2**31, 2**31 - 1, (q, e, w)).astype(np.int32)
+    cells = rng.permutation(q * e)[:n]
+    qid = (cells // e).astype(np.int32)
+    pos = (cells % e).astype(np.int32)
+    qid[rng.random(n) < drop] = q
+    slots = rng.integers(-1000, 1000, (n, w)).astype(np.int32)
+    return buf, qid, pos, slots
+
+
+def gather_inputs(rng, r, w, f, b):
+    """References include the free-slot sentinel R."""
+    return (rng.integers(-1000, 1000, (r, w)).astype(np.int32),
+            rng.integers(0, r + 1, (f, b)).astype(np.int32))
+
+
+def deliver_inputs(rng, n, f, e, r, w=12, c=16, full=False):
+    slots = rng.integers(-1000, 1000, (n, w)).astype(np.int32)
+    slots[:, 0] = rng.integers(0, 2 * c, n)
+    slots[:, 2] = (rng.integers(0, 2, n) << 16) | rng.integers(0, 5, n)
+    valid = rng.integers(0, 2, n).astype(np.int32)
+    fifo = rng.permutation(r).astype(np.int32)
+    head = int(rng.integers(0, r))
+    avail = 0 if full else int(rng.integers(0, r + 1))
+    req = rng.integers(-99, 99, (r, w)).astype(np.int32)
+    ffbuf = rng.integers(-99, 99, (f, e)).astype(np.int32)
+    tag = rng.integers(-1, 2 * c, c).astype(np.int32)
+    src = rng.integers(0, 8, c).astype(np.int32)
+    lbv = rng.integers(0, 3, c).astype(np.int32)
+    fftail = rng.integers(0, 100, f).astype(np.int32)
+    ffspace = (np.zeros(f, np.int32) if full
+               else rng.integers(0, e + 1, f).astype(np.int32))
+    scal = np.asarray([head, avail, head + avail, int(rng.integers(0, 50)),
+                       int(rng.integers(1, f + 1))], np.int32)
+    return (slots, valid, fifo, req, ffbuf, tag, src, lbv, fftail, ffspace,
+            scal)
+
+
+def switch_inputs(rng, t=3, f=2, e=8, w=16, r=8, d=8, c=16, b=4, nb=16):
+    tx_buf = rng.integers(0, 100, (t, f, e, w)).astype(np.int32)
+    tx_buf[..., 0] = rng.integers(0, 12, (t, f, e))
+    tx_buf[..., 2] = (rng.integers(0, 8, (t, f, e)) << 16) \
+        | rng.integers(0, 5, (t, f, e))
+    tx_buf[..., 4] = rng.integers(0, 6, (t, f, e))
+    tx_head = rng.integers(0, 3, (t, f)).astype(np.int32)
+    rx_head = rng.integers(0, 3, (t, f)).astype(np.int32)
+    fifo = np.stack([rng.permutation(r) for _ in range(t)]).astype(np.int32)
+    fh = rng.integers(0, 3, (t,)).astype(np.int32)
+    tag = np.full((t, c), -1, np.int32)
+    ids = np.arange(12)
+    for ti in range(t):
+        live = rng.random(12) < 0.8
+        tag[ti, ids[live] % c] = ids[live]
+    ffh = rng.integers(0, 3, (t, f)).astype(np.int32)
+    scal = np.zeros((t, SCAL_COLS), np.int32)
+    scal[:, 0] = fh
+    scal[:, 1] = fh + rng.integers(2, r + 1, (t,))
+    scal[:, 2] = rng.integers(0, f, (t,))
+    scal[:, 3] = rng.integers(1, b + 2, (t,))
+    scal[:, 4] = rng.integers(1, f + 1, (t,))
+    scal[:, 5] = rng.integers(0, 2, (t,))
+    scal[:, 6] = rng.integers(0, 8, (t,))
+    m = t * f * b
+    return dict(
+        tx_buf=tx_buf, tx_head=tx_head,
+        tx_tail=tx_head + rng.integers(0, 6, (t, f)).astype(np.int32),
+        rx_buf=rng.integers(0, 100, (t, f, e, w)).astype(np.int32),
+        rx_head=rx_head,
+        rx_tail=rx_head + rng.integers(0, 3, (t, f)).astype(np.int32),
+        req_table=rng.integers(0, 100, (t, r, w)).astype(np.int32),
+        fifo=fifo, ffbuf=rng.integers(0, r, (t, f, d)).astype(np.int32),
+        ff_head=ffh,
+        ff_tail=ffh + rng.integers(0, 4, (t, f)).astype(np.int32),
+        conn_tag=tag, conn_src=rng.integers(0, f, (t, c)).astype(np.int32),
+        conn_dest=rng.integers(-1, t + 1, (t, c)).astype(np.int32),
+        conn_lb=rng.integers(0, 3, (t, c)).astype(np.int32), scal=scal,
+        hist=np.zeros((t, nb), np.int32),
+        ext_slots=np.zeros((m, w), np.int32),
+        ext_valid=np.zeros((m,), np.int32),
+        ext_dest=np.zeros((m,), np.int32))
+
+
+def with_ext(rng, st, m=14):
+    w = st["tx_buf"].shape[-1]
+    ext = rng.integers(0, 60, (m, w)).astype(np.int32)
+    ext[:, 0] = rng.integers(0, 12, (m,))
+    ext[:, 2] = rng.integers(0, 2, (m,)) << 16
+    st = dict(st)
+    st["ext_slots"] = ext
+    st["ext_valid"] = rng.integers(0, 2, (m,)).astype(np.int32)
+    st["ext_dest"] = rng.integers(-2, 5, (m,)).astype(np.int32)
+    return st
