@@ -5,26 +5,36 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the four CUDA fabric kernels from ``src/repro_torch/kernels/
-csrc`` and then runs, failing (non-zero exit, no result line) on any
-mismatch:
+It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, all at once) and then runs, failing (non-zero
+exit, no result line) on any mismatch:
 
 1. per-kernel checks: every kernel against its plain PyTorch version on
    the card, on random consistent states from a seeded
-   ``torch.Generator`` — small shapes, the full-size run's shapes,
-   sentinel rows, full rings and FIFOs — equal bit for bit;
+   ``torch.Generator`` — small shapes, the full-size runs' shapes,
+   sentinel rows, full rings and FIFOs, flags and fragment indices of
+   0x8000 and above, key words with the high bit set, raw and 1-flow
+   hashing, empty buckets, matches at several ways and out-of-range
+   buckets — equal bit for bit;
 2. quickstart parity: the README's echo pair (4 flows, 8 RPCs, 4 steps)
    through the kernels and through the plain path;
-3. full-size run: a 512-flow client/server loopback pair under open-loop
-   load at 0.8 x F*B requests/step for 2,000 steps with telemetry,
-   through the fused kernel route, the staged kernel route and the plain
-   path from one start state — completions, histograms, generator
-   accounting and end states equal, the conservation ledger balanced,
-   every kernel of each route launched;
-4. kernel summary: one JSON line with each kernel's launches on the
-   full-size run, its device time per call (``torch.profiler``), the
-   plain version's, and its byte bound, on inputs captured from the
-   full-size run.
+3. full-size loopback run: a 512-flow client/server pair under
+   open-loop load at 0.8 x F*B requests/step for ``FULL_STEPS`` steps
+   with telemetry, through the fused kernel route, the staged kernel
+   route and the plain path from one start state — completions,
+   histograms, generator accounting and end states equal, the
+   conservation ledger balanced, every kernel of each route launched;
+5. the MICA KVS tenant at full size: a 2^22-bucket x 4-way store
+   (704 MiB) loaded with 2^23 keys in 8 bulk SETs, one bulk GET of
+   2^20 Zipf keys, then ``KVSRig``'s loop (fig12_kvs.py) — 1,000
+   batches of 16 Zipf 0.99 GET/SETs per mix (50/50 and 5/95) over a
+   2-flow loopback pair with object-level steering — through the kernel
+   route and the plain route from one start state: stores, values,
+   hits, counters, telemetry and fabric states equal;
+4. kernel summary (run last): one JSON line with each kernel's launches
+   on the main paths (phases 3 and 5), its device time per call (CUDA
+   graph replay), the plain version's, and its byte bound, on inputs
+   captured from phase 3 (fabric kernels) and phase 5 (KVS kernels).
 
 Then it prints a ``details`` line (the whole report as JSON), the
 kernel summary line, the card's name and power limit and, last, the
@@ -51,6 +61,19 @@ FULL = dict(n_flows=512, ring_entries=64, slot_bytes=64, batch_size=4,
 FULL_STEPS = 2000
 LOAD = 0.8                          # offered load, fraction of F*B
 
+# full-size KVS tenant: a store of the size a MICA partition set holds
+# (2^22 buckets x 4 ways, 8-byte keys in 2 words, KVSRig's 8 value words:
+# tags 64 MiB + keys 128 MiB + values 512 MiB), loaded with 2^23 keys
+KVS_STORE = dict(n_buckets=2**22, ways=4, key_words=2, value_words=8)
+KVS_KEYS = 2**23
+KVS_CHUNK = 2**20                   # rows per bulk SET / GET
+# KVSRig's fabric (benchmarks/fig12_kvs.py) and its run loop
+KVS_FABRIC = dict(n_flows=2, ring_entries=64, batch_size=8,
+                  dynamic_batching=False, lb_scheme="object_level")
+KVS_MIXES = (("write_z99", 0.5), ("read_z99", 0.05))
+KVS_BATCHES = 1000
+KVS_BATCH = 16
+
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
                   "src/repro/kernels/ring_push.py:47"),
@@ -60,6 +83,12 @@ KERNELS = {
                           "src/repro/kernels/nic_deliver.py:157"),
     "switch_step_fused": ("src/repro_torch/kernels/csrc/switch_step.cu",
                           "src/repro/kernels/switch_step.py:307"),
+    "rpc_pack": ("src/repro_torch/kernels/csrc/rpc_pack.cu",
+                 "src/repro/kernels/rpc_pack.py:37"),
+    "hash_steer_static": ("src/repro_torch/kernels/csrc/hash_steer.cu",
+                          "src/repro/kernels/hash_steer.py:40"),
+    "kv_probe": ("src/repro_torch/kernels/csrc/kv_probe.cu",
+                 "src/repro/kernels/kv_probe.py:37"),
 }
 
 
@@ -179,6 +208,40 @@ def switch_inputs(rnd, t, f, e, w, r, d, c, b, nb, m=None, full=None):
     return args, include_fetch
 
 
+def pack_inputs(rnd, n, pw):
+    """Header fields [N] and payload [N, pw]; flags and frag_idx reach
+    0x8000 and beyond, the first rows pin the edges."""
+    torch = rnd.torch
+    fields = [rnd.ints(-2**31, 2**31 - 1, (n,)), rnd.ints(-2**31, 2**31 - 1,
+                                                         (n,)),
+              rnd.ints(0, 2**20, (n,)), rnd.ints(0, 2**17, (n,)),
+              rnd.ints(0, 2**17, (n,)), rnd.ints(0, 2**17, (n,)),
+              rnd.ints(-2**31, 2**31 - 1, (n,))]
+    edges = torch.tensor([[0x8000, 0xFFFF], [0xFFFF, 0x8000], [-1, -1],
+                          [0x10000, 0x18000]], dtype=torch.int32,
+                         device=rnd.dev)[:n]
+    fields[3][:len(edges)] = edges[:, 0]
+    fields[5][:len(edges)] = edges[:, 1]
+    return (*fields, rnd.ints(-2**31, 2**31 - 1, (n, pw)))
+
+
+def probe_inputs(rnd, nb, ways, vw, n):
+    """A store with tags from a small alphabet (matches at several ways),
+    bucket 0 empty and some high-bit tags; queries with buckets out of
+    range on both sides and tags including 0 (matches empty ways)."""
+    torch = rnd.torch
+    tags = rnd.ints(0, 4, (nb, ways))
+    tags[0] = 0
+    hi = rnd.ints(0, 5, (nb, ways)) == 0
+    tags = torch.where(hi, rnd.ints(-2**31, 0, (nb, ways)), tags)
+    q_bucket = rnd.ints(-nb - 3, nb + 3, (n,))
+    q_tag = rnd.ints(0, 5, (n,))
+    pick = rnd.ints(0, 5, (n,)) == 0
+    q_tag = torch.where(pick, tags[q_bucket.clamp(0, nb - 1).long(), 0],
+                        q_tag)
+    return tags, rnd.ints(-2**31, 2**31 - 1, (nb, ways, vw)), q_bucket, q_tag
+
+
 # --------------------------------------------------------------------------
 # timing
 # --------------------------------------------------------------------------
@@ -223,8 +286,11 @@ def same(torch, got, want):
 # --------------------------------------------------------------------------
 
 def phase_kernels(torch, dev):
+    from repro_torch.kernels import hash_steer as hs
+    from repro_torch.kernels import kv_probe as kp
     from repro_torch.kernels import nic_deliver as nd
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rpc_pack as pk
     from repro_torch.kernels import ring_copy as rc
     from repro_torch.kernels import ring_push as rp
     from repro_torch.kernels import switch_step as ss
@@ -285,6 +351,30 @@ def phase_kernels(torch, dev):
         run("switch_step_fused", ops.switch_step_fused,
             ss.switch_step_fused_plain, args, bmax=kw["b"],
             include_fetch=include_fetch)
+    # KVS kernels: small shapes with edges, then phase 5's shapes (the
+    # fabric's 16-row enqueues and the 2^20-row bulk calls on the store)
+    kb = KVS_FABRIC["n_flows"] * KVS_FABRIC["batch_size"]
+    for n_rows, pw, sw in ((9, 3, 16), (16, 11, 16), (5, 14, 16),
+                           (kb, 11, 16), (n, 11, 16), (KVS_CHUNK, 11, 16)):
+        run("rpc_pack", ops.rpc_pack, pk.rpc_pack_plain,
+            (*pack_inputs(rnd, n_rows, pw), sw))
+    kw_ = KVS_STORE["key_words"]
+    for n_rows, w_, key_words, n_flows in ((37, 5, 1, 0), (37, 5, 2, 1),
+                                           (37, 5, 4, 7), (kb, kw_, kw_, 0),
+                                           (KVS_CHUNK, kw_, kw_, 0)):
+        run("hash_steer_static", ops.hash_steer_static,
+            hs.hash_steer_static_plain,
+            (rnd.ints(-2**31, 2**31 - 1, (n_rows, w_)), n_flows, key_words))
+    for active in (3, 1, 0, -5):
+        run("hash_steer_static", ops.hash_steer, hs.hash_steer_plain,
+            (rnd.ints(-2**31, 2**31 - 1, (29, 3)),
+             torch.tensor(active, dtype=torch.int32, device=dev)))
+    nbk, ways, vw = (KVS_STORE["n_buckets"], KVS_STORE["ways"],
+                     KVS_STORE["value_words"])
+    for shape in ((8, 4, 8, 40), (3, 2, 1, 17), (nbk, ways, vw, kb),
+                  (nbk, ways, vw, KVS_CHUNK)):
+        run("kv_probe", ops.kv_probe, kp.kv_probe_plain,
+            probe_inputs(rnd, *shape))
     return cases
 
 
@@ -360,7 +450,8 @@ def phase_quickstart(torch, dev):
         n_done = sum(int(v.sum()) for _, v in done)
         check(n_done == 8, f"quickstart ({route}): {n_done} of 8 RPCs done")
         if route == "kernels":
-            check(counts["ring_push"] > 0 and counts["switch_step_fused"] > 0,
+            check(counts["ring_push"] > 0 and counts["switch_step_fused"] > 0
+                  and counts["rpc_pack"] > 0,
                   f"quickstart did not run through the kernels: {counts}")
         else:
             check(not any(counts.values()),
@@ -426,10 +517,10 @@ def phase_full(torch, dev):
             tree_equal(torch, runs["fused"][key], runs[route][key],
                        f"{route}.{key}")
     fused, staged = runs["fused"]["counts"], runs["staged"]["counts"]
-    check(fused["ring_push"] > 0 and fused["switch_step_fused"] > 0,
-          f"fused route missed a kernel: {fused}")
+    check(fused["ring_push"] > 0 and fused["switch_step_fused"] > 0
+          and fused["rpc_pack"] > 0, f"fused route missed a kernel: {fused}")
     check(staged["ring_push"] > 0 and staged["ring_gather"] > 0
-          and staged["nic_deliver_fused"] > 0,
+          and staged["nic_deliver_fused"] > 0 and staged["rpc_pack"] > 0,
           f"staged route missed a kernel: {staged}")
     check(not any(runs["plain"]["counts"].values()),
           f"plain route launched kernels: {runs['plain']['counts']}")
@@ -471,12 +562,35 @@ def device_events(torch, fn, reps):
             if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(torch, fn, reps=20):
-    """Device time of one call of ``fn`` in ms (None if the profiler saw
-    no device activity)."""
-    fn()
-    ev = device_events(torch, fn, reps)
-    return sum(us for _, us in ev) / reps / 1e3 if ev else None
+def graph_ms(torch, fn, n=20, reps=5):
+    """Device time of one call of ``fn`` in ms: ``n`` calls captured in
+    one CUDA graph, replayed ``reps`` times between CUDA events; the
+    median replay over ``n``.  Replay has no host launch cost, so this is
+    the device's time per call, launch gaps inside the graph included
+    (inputs warm in L2, as the main path leaves them)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
 
 
 def device_share(torch, runs, steps=20):
@@ -505,37 +619,274 @@ def device_share(torch, runs, steps=20):
     return out
 
 
-def capture_inputs(torch, runs):
-    """Record each kernel's inputs on 3 more steps of each kernel route,
-    from the end states of the full-size run (steady-state shapes and
-    data)."""
-    from repro_torch.kernels import ops
-    seen = {}
-    orig = {k: getattr(ops, k) for k in ops.KERNELS}
+class recording:
+    """Within the block, every ``ops`` kernel wrapper records the
+    arguments of its last call into ``seen[name]`` (and still runs)."""
 
-    def recorder(name):
-        def call(*args, **kw):
-            seen[name] = (args, kw)
-            return orig[name](*args, **kw)
-        return call
-    try:
-        for k in ops.KERNELS:
-            setattr(ops, k, recorder(k))
+    def __init__(self, seen):
+        self.seen = seen
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.orig = {k: getattr(ops, k) for k in ops.KERNELS}
+
+        def recorder(name, fn):
+            def call(*args, **kw):
+                self.seen[name] = (args, kw)
+                return fn(*args, **kw)
+            return call
+        for k, fn in self.orig.items():
+            setattr(ops, k, recorder(k, fn))
+        return self.seen
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for k, fn in self.orig.items():
+            setattr(ops, k, fn)
+        return False
+
+
+def capture_inputs(torch, runs, seen):
+    """Record each fabric kernel's inputs on 3 more steps of each kernel
+    route, from the end states of the full-size run (steady-state shapes
+    and data)."""
+    with recording(seen):
         for route in ("fused", "staged"):
             r = runs[route]
             r["eng"].run_steps(r["cst"], r["sst"], 3, tel=r["tel"],
                                gen=r["gst"])
-    finally:
-        for k, fn in orig.items():
-            setattr(ops, k, fn)
     torch.cuda.synchronize()
     return seen
 
 
-def phase_summary(torch, runs, seen):
+def kvs_key_words(torch, keys):
+    """``ZipfKVWorkload``'s key split: [N] int64 keys -> [N, 2] int32
+    words ``key & 0x7FFFFFFF`` and ``key >> 31``."""
+    return torch.stack([keys & 0x7FFFFFFF, keys >> 31], dim=1) \
+        .to(torch.int32)
+
+
+def kvs_requests(torch, dev, set_fraction, pw):
+    """``KVSRig.run``'s request batches for one mix, made in bulk and
+    moved to the card once: payloads [K, 16, pw] (key words, then value
+    words from word 2) and SET flags [K, 16]."""
+    import numpy as np
+    from repro_torch.data import ZipfKVWorkload
+    gen = ZipfKVWorkload(n_keys=KVS_KEYS, skew=0.99,
+                         set_fraction=set_fraction, key_bytes=8,
+                         value_bytes=8, seed=0).batches(KVS_BATCH)
+    pay = np.zeros((KVS_BATCHES, KVS_BATCH, pw), np.int32)
+    is_set = np.zeros((KVS_BATCHES, KVS_BATCH), np.int32)
+    for b in range(KVS_BATCHES):
+        _, s_, kw, vw = next(gen)
+        pay[b, :, :kw.shape[1]] = kw
+        pay[b, :, 2:2 + vw.shape[1]] = vw
+        is_set[b] = s_
+    return (torch.from_numpy(pay).to(dev), torch.from_numpy(is_set).to(dev))
+
+
+def kvs_serve(torch, dev, fab, eng, state, requests, n_batches):
+    """``KVSRig.run``'s loop: per batch, 16 requests stamped with the
+    current step go onto flows ``arange(16) % 2`` and ``run_until(16,
+    8)`` drains them with telemetry.  Returns the end state, per-batch
+    (done, steps), the telemetry and the host seconds."""
+    from repro_torch.core import serdes
+    from repro_torch.core import telemetry as tlm
+    cst, sst, db = state
+    pay, is_set = requests
+    lane = torch.arange(KVS_BATCH, dtype=torch.int32, device=dev)
+    ones = torch.ones_like(lane)
+    zeros = torch.zeros_like(lane)
+    flows = lane % KVS_FABRIC["n_flows"]
+    tel = tlm.create(device=dev)
+    counts, base, cur = [], 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(n_batches):
+        recs = serdes.make_records(ones, lane + base, is_set[b], zeros,
+                                   pay[b], timestamp=cur)
+        base += KVS_BATCH
+        cst, _ = fab.host_tx_enqueue(cst, recs, flows)
+        cst, sst, db, done, steps, tel = eng.run_until(
+            cst, sst, KVS_BATCH, 8, hstate=db, tel=tel)
+        counts.append((int(done), int(steps)))
+        cur += counts[-1][1]
+    torch.cuda.synchronize()
+    return (cst, sst, db), counts, tel, time.perf_counter() - t0
+
+
+def phase_kvs(torch, dev, seen):
+    """The MICA KVS tenant at full size, kernel route against plain
+    route from one start state.  Records the KVS kernels' inputs (bulk
+    GET, server enqueue) into ``seen`` for phase 4."""
+    import numpy as np
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import serdes
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.fabric import DaggerFabric, tree_map
+    from repro_torch.core.load_balancer import LB_OBJECT
+    from repro_torch.data import zipf_keys
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.kvs import DeviceKVS
+
+    cfg0 = FabricConfig(**KVS_FABRIC)
+    fab0 = DaggerFabric(cfg0)
+    pw = fab0.slot_words - serdes.HEADER_WORDS
+    c0, s0 = fab0.init_state(dev), fab0.init_state(dev)
+    start = (fab0.open_connection(c0, 1, 0, 1, LB_OBJECT),
+             fab0.open_connection(s0, 1, 0, 0, LB_OBJECT),
+             DeviceKVS(**KVS_STORE).init_state(dev))
+    mixes = {name: kvs_requests(torch, dev, sf, pw)
+             for name, sf in KVS_MIXES}
+    get_keys = torch.from_numpy(zipf_keys(
+        KVS_CHUNK, KVS_KEYS, 0.99, np.random.default_rng(1))).to(dev)
+    get_kw = kvs_key_words(torch, get_keys)
+    store_mib = sum(t.numel() * 4 for t in start[2].__dict__.values()) / 2**20
+    runs = {}
+    for route in ("kernels", "plain"):
+        use = route == "kernels"
+        kvs = DeviceKVS(**KVS_STORE, use_pallas=use)
+        fab = DaggerFabric(cfg0.replace(use_pallas=use))
+        eng = kvs.make_engine(fab, fab)
+        cst, sst, db = tree_map(torch.clone, start)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2024)
+        all_vals = []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(KVS_KEYS // KVS_CHUNK):
+            keys = torch.arange(i * KVS_CHUNK, (i + 1) * KVS_CHUNK,
+                                dtype=torch.int64, device=dev)
+            vals = torch.randint(0, 2**31 - 1,
+                                 (KVS_CHUNK, KVS_STORE["value_words"]),
+                                 generator=gen, dtype=torch.int32,
+                                 device=dev)
+            all_vals.append(vals)
+            db = kvs.set(db, kvs_key_words(torch, keys), vals)
+        torch.cuda.synchronize()
+        pop_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with recording(seen if use else {}):
+            db, gval, ghit = kvs.get(db, get_kw)
+        torch.cuda.synchronize()
+        get_s = time.perf_counter() - t0
+        bulk_counts = ops.launch_counts()
+        loaded = db
+        # the bulk GET against the values that were stored: every hit
+        # returns its key's value; misses are keys the lossy store evicted
+        want = torch.cat(all_vals)[get_keys]
+        check(torch.equal(gval[ghit], want[ghit]),
+              f"{route}: bulk GET returned a value other than its key's")
+        check(torch.equal(gval[~ghit], torch.zeros_like(gval[~ghit])),
+              f"{route}: bulk GET miss with a nonzero value")
+        check(int(db.n_set) == KVS_KEYS and int(db.n_get) == KVS_CHUNK
+              and int(db.n_hit) == int(ghit.sum()) > 0.5 * KVS_CHUNK,
+              f"{route}: store counters {int(db.n_set)} sets, "
+              f"{int(db.n_get)} gets, {int(db.n_hit)} hits")
+        del all_vals, want
+        state = (cst, sst, db)
+        serve = {}
+        ops.reset_launch_counts()
+        for name, _ in KVS_MIXES:
+            state, counts, tel, secs = kvs_serve(
+                torch, dev, fab, eng, state, mixes[name], KVS_BATCHES)
+            done = sum(d for d, _ in counts)
+            steps = sum(st_ for _, st_ in counts)
+            q = tlm.quantiles(tel.hist)
+            offered = KVS_BATCHES * KVS_BATCH
+            check(done >= 0.99 * offered and int(tel.n_done) == done
+                  == int(tel.hist.sum()),
+                  f"{route} {name}: {done} of {offered} ops completed, "
+                  f"telemetry {int(tel.n_done)}")
+            serve[name] = dict(counts=counts, tel=tel, secs=secs, done=done,
+                               steps=steps, p50=q[0.5], p99=q[0.99])
+            say(f"kvs {route} {name}: {done} ops in {steps} steps, "
+                f"{secs:.3f} s, {done / secs:.1f} ops/s, "
+                f"{steps / secs:.1f} steps/s, p50 {q[0.5]} / p99 {q[0.99]} "
+                f"steps")
+        serve_counts = ops.launch_counts()
+        say(f"kvs {route}: {store_mib:.0f} MiB store, populate {pop_s:.3f} s"
+            f", bulk GET {get_s:.4f} s ({int(ghit.sum())} of {KVS_CHUNK} "
+            f"hit, {int(loaded.n_evict)} evictions), launches bulk "
+            f"{bulk_counts} serve {serve_counts}")
+        runs[route] = dict(loaded=loaded, gval=gval, ghit=ghit, serve=serve,
+                           state=state, bulk_counts=bulk_counts,
+                           serve_counts=serve_counts, eng=eng, fab=fab,
+                           pop_s=pop_s, get_s=get_s,
+                           read_reqs=mixes[KVS_MIXES[-1][0]])
+        del loaded, db, state
+    k, p = runs["kernels"], runs["plain"]
+    tree_equal(torch, k["loaded"], p["loaded"], "kvs.loaded_store")
+    tree_equal(torch, (k["gval"], k["ghit"]), (p["gval"], p["ghit"]),
+               "kvs.bulk_get")
+    for name, _ in KVS_MIXES:
+        check(k["serve"][name]["counts"] == p["serve"][name]["counts"],
+              f"kvs {name}: per-batch done/steps differ between routes")
+        tree_equal(torch, k["serve"][name]["tel"], p["serve"][name]["tel"],
+                   f"kvs.{name}.telemetry")
+    tree_equal(torch, k["state"], p["state"], "kvs.end_state")
+    for key in ("bulk_counts", "serve_counts"):
+        check(k[key]["kv_probe"] > 0 and k[key]["hash_steer_static"] > 0,
+              f"kvs kernel route missed a KVS kernel: {k[key]}")
+        check(not any(p[key].values()),
+              f"kvs plain route launched kernels: {p[key]}")
+    sc = k["serve_counts"]
+    check(sc["rpc_pack"] > 0 and sc["ring_push"] > 0
+          and sc["switch_step_fused"] > 0,
+          f"kvs kernel route missed a fabric kernel: {sc}")
+    # phase 4 inputs: rpc_pack's from the 16-row enqueues of one more
+    # batch (kv_probe's and hash_steer's stay the bulk GET's)
+    pay, is_set = mixes[KVS_MIXES[-1][0]]
+    step_seen = {}
+    with recording(step_seen):
+        kvs_serve(torch, dev, k["fab"], k["eng"], k["state"],
+                  (pay[:1], is_set[:1]), 1)
+    seen["rpc_pack"] = step_seen["rpc_pack"]
+    return runs
+
+
+def kvs_share(torch, dev, runs, n_batches=8):
+    """Device time per KVS step (``torch.profiler`` over ``n_batches``
+    more read-mix batches from each route's end state) against the
+    unprofiled wall time per step of the read mix, and the kernels and
+    copies with the most device time."""
+    out = {}
+    for route, r in runs.items():
+        box = {}
+
+        def window():
+            box["res"] = kvs_serve(torch, dev, r["fab"], r["eng"],
+                                   r["state"], r["read_reqs"], n_batches)
+        ev = device_events(torch, window, 1)
+        steps = sum(st_ for _, st_ in box["res"][1])
+        read = r["serve"][KVS_MIXES[-1][0]]
+        wall_us = read["secs"] / read["steps"] * 1e6
+        dev_us = sum(us for _, us in ev) / steps
+        by_name = {}
+        for name, us in ev:
+            by_name[name[:70]] = by_name.get(name[:70], 0.0) + us / steps
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out[route] = {"device_us_per_step": dev_us,
+                      "wall_us_per_step": wall_us,
+                      "busy_share": dev_us / wall_us if ev else None,
+                      "activities_per_step": len(ev) / steps, "top": top}
+        say(f"kvs device time {route}: {dev_us:.1f} us/step of "
+            f"{wall_us:.1f} us/step wall ({len(ev) / steps:.0f} device "
+            f"activities/step)"
+            + ("" if ev else " (profiler saw no device activity)"))
+    return out
+
+
+def phase_summary(torch, paths, seen):
+    """``paths`` maps each main path to (launch counts, steps or None
+    for a path that takes no pipeline steps)."""
+    from repro_torch.kernels import hash_steer as hs
+    from repro_torch.kernels import kv_probe as kp
     from repro_torch.kernels import nic_deliver as nd
     from repro_torch.kernels import ring_copy as rc
     from repro_torch.kernels import ring_push as rp
+    from repro_torch.kernels import rpc_pack as pk
     from repro_torch.kernels import switch_step as ss
 
     impl = {
@@ -550,6 +901,13 @@ def phase_summary(torch, runs, seen):
             ss.switch_step_fused_cuda, ss.switch_step_fused_plain,
             lambda a, kw, o: ss.bytes_moved(
                 a[:20], o, kw.get("include_fetch", True))),
+        "rpc_pack": (pk.rpc_pack_cuda, pk.rpc_pack_plain,
+                     lambda a, kw, o: pk.bytes_moved(a[0], a[7], a[8])),
+        "hash_steer_static": (
+            hs.hash_steer_static_cuda, hs.hash_steer_static_plain,
+            lambda a, kw, o: hs.bytes_moved(a[0], kw.get("key_words", 2))),
+        "kv_probe": (kp.kv_probe_cuda, kp.kv_probe_plain,
+                     lambda a, kw, o: kp.bytes_moved(*a)),
     }
     rows = []
     for name, (src, replaces) in KERNELS.items():
@@ -561,14 +919,11 @@ def phase_summary(torch, runs, seen):
         err = same(torch, got, want)
         call_ms = time_ms(torch, lambda: kernel(*args, **kw))
         plain_call_ms = time_ms(torch, lambda: plain(*args, **kw))
-        ms = device_ms(torch, lambda: kernel(*args, **kw))
-        plain_ms = device_ms(torch, lambda: plain(*args, **kw))
-        if ms is None:          # no device trace: fall back to events
-            ms, plain_ms = call_ms, plain_call_ms
+        ms = graph_ms(torch, lambda: kernel(*args, **kw))
+        plain_ms = graph_ms(torch, lambda: plain(*args, **kw))
         outs = got if isinstance(got, tuple) else (got,)
         moved = nbytes(args, kw, outs)
-        launches = (runs["fused"]["counts"][name]
-                    + runs["staged"]["counts"][name])
+        launches = sum(c[name] for c, _ in paths.values())
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -576,9 +931,11 @@ def phase_summary(torch, runs, seen):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None, "bytes": moved, "call_ms": call_ms,
             "plain_call_ms": plain_call_ms,
-            "launches_per_step": {
-                route: runs[route]["counts"][name] / FULL_STEPS
-                for route in ("fused", "staged")}})
+            "shape": [list(a.shape) for a in args
+                      if hasattr(a, "shape")][:2],
+            "launches_per_step": {path: c[name] / steps
+                                  for path, (c, steps) in paths.items()
+                                  if steps}})
         check(launches > 0, f"{name} was never launched on the main path")
     return rows
 
@@ -620,10 +977,29 @@ def main():
     report["full"]["rate"] = rate
     say(f"phase 3: full-size routes equal ({time.perf_counter() - t0:.1f} s)")
     report["device_share"] = device_share(torch, runs)
+    seen = capture_inputs(torch, runs, {})
 
     t0 = time.perf_counter()
-    seen = capture_inputs(torch, runs)
-    rows = phase_summary(torch, runs, seen)
+    kvs = phase_kvs(torch, dev, seen)
+    report["kvs"] = {route: {
+        "populate_s": r["pop_s"], "bulk_get_s": r["get_s"],
+        "bulk_get_hits": int(r["ghit"].sum()),
+        "evictions": int(r["loaded"].n_evict),
+        "launches_bulk": r["bulk_counts"], "launches_serve": r["serve_counts"],
+        "mixes": {name: {k: m[k] for k in ("secs", "done", "steps", "p50",
+                                           "p99")}
+                  for name, m in r["serve"].items()}}
+        for route, r in kvs.items()}
+    say(f"phase 5: KVS routes equal ({time.perf_counter() - t0:.1f} s)")
+    report["kvs_device_share"] = kvs_share(torch, dev, kvs)
+
+    t0 = time.perf_counter()
+    kvs_steps = sum(m["steps"] for m in kvs["kernels"]["serve"].values())
+    paths = {"fused": (runs["fused"]["counts"], FULL_STEPS),
+             "staged": (runs["staged"]["counts"], FULL_STEPS),
+             "kvs_load": (kvs["kernels"]["bulk_counts"], None),
+             "kvs_serve": (kvs["kernels"]["serve_counts"], kvs_steps)}
+    rows = phase_summary(torch, paths, seen)
     report["kernels"] = rows
     say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")
 

@@ -13,9 +13,10 @@ Directions follow the paper's naming (as seen FROM the NIC):
 Every stage is a function from ``FabricState`` to a new ``FabricState``;
 inputs are never modified.  With ``cfg.use_pallas`` the stages run
 through the hand-written CUDA kernels of ``repro_torch.kernels`` (their
-plain versions on CPU tensors): ``ring_push`` in every ring push,
-``ring_gather`` in the emit, ``nic_deliver_fused`` for the deliver
-stage, and ``switch_step_fused`` for the whole fused pipeline.
+plain versions on CPU tensors): ``rpc_pack`` in the host's enqueue,
+``ring_push`` in every ring push, ``ring_gather`` in the emit,
+``nic_deliver_fused`` for the deliver stage, and ``switch_step_fused``
+for the whole fused pipeline.
 """
 from __future__ import annotations
 
@@ -112,8 +113,15 @@ class DaggerFabric:
     # ---------------------------------------------------------- host side
     def host_tx_enqueue(self, st: FabricState, records, flow_ids,
                         valid=None) -> Tuple[FabricState, torch.Tensor]:
-        """The host's single memory write: pack records into TX ring slots."""
-        slots = serdes.pack(records, self.slot_words)
+        """The host's single memory write: pack records into TX ring slots
+        (through the ``rpc_pack`` kernel wrapper with ``cfg.use_pallas``)."""
+        if self.cfg.use_pallas:
+            from repro_torch.kernels import ops as kops
+            slots = kops.rpc_pack(*serdes.header_fields(records),
+                                  records["payload"].to(I32).contiguous(),
+                                  self.slot_words)
+        else:
+            slots = serdes.pack(records, self.slot_words)
         dev = slots.device
         if valid is None:
             valid = torch.ones((slots.shape[0],), dtype=torch.bool,

@@ -7,7 +7,10 @@ extra sink row past the end of the destination, which is cut off
 afterwards, so no boolean indexing (and so no host sync) is needed.
 Targets of kept rows are unique wherever the fabric scatters, so
 ``index_put_`` without accumulation is deterministic on them; only the
-discarded sink row sees duplicate writes.
+discarded sink row sees duplicate writes.  Where kept rows can share a
+target (the KVS store's SETs), ``set_drop_last`` first keeps only the
+last kept row per target: the row JAX's scatter lets win on the CPU,
+and a choice that does not depend on the order CUDA's writes land in.
 """
 from __future__ import annotations
 
@@ -45,6 +48,23 @@ def set_drop(dst, idx, vals, keep):
     return flat[:nl].reshape(dst.shape)
 
 
+def set_drop_last(dsts, idx, vals, keep):
+    """``set_drop`` of each ``vals[k]`` into ``dsts[k]`` at the shared
+    index tuple ``idx`` (the same leading dims on every destination),
+    where among kept rows with one target only the LAST row writes.
+
+    The winners are found once for all destinations: each target takes
+    the ``amax`` of its kept rows' numbers (an order-free reduction), and
+    a row is kept if it is its target's maximum.  Returns a tuple.
+    """
+    lin, nl = _linear(dsts[0].shape, idx, keep)
+    rows = torch.arange(lin.numel(), dtype=torch.int64, device=lin.device)
+    last = torch.full((nl + 1,), -1, dtype=torch.int64, device=lin.device)
+    last.scatter_reduce_(0, lin, rows, reduce="amax")
+    won = (lin < nl) & (last[lin] == rows)
+    return tuple(set_drop(d, idx, v, won) for d, v in zip(dsts, vals))
+
+
 def add_drop(dst, idx, vals, keep):
     """``dst.at[idx].add(vals, mode="drop")`` restricted to ``keep`` rows
     (integer adds: exact in any order)."""
@@ -70,8 +90,14 @@ def get_fill(src, idx, fill: int = 0):
     return torch.where(mask, rows, torch.full_like(rows, fill))
 
 
+def clip_index(idx, n: int):
+    """JAX's default gather index rule for a dim of size ``n``: indices in
+    ``[-n, 0)`` count from the end, then every index is clamped into
+    ``[0, n - 1]``."""
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
 def get_clip(src, idx):
-    """``src[idx]`` with JAX's default gather semantics: out-of-range
-    indices are clamped into ``[0, n - 1]``."""
-    n = src.shape[0]
-    return src[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
+    """``src[idx]`` with JAX's default gather semantics (``clip_index``
+    over dim 0)."""
+    return src[clip_index(idx, src.shape[0])]

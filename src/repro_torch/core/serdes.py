@@ -101,26 +101,35 @@ def make_records(conn_id, rpc_id, fn_id, flags, payload, payload_len=None,
     }
 
 
+def header_fields(records):
+    """The seven header fields of a record batch in wire order —
+    ``(conn_id, rpc_id, fn_id, flags, payload_len, frag_idx,
+    timestamp)`` — as contiguous int32 [N] tensors (what the
+    ``rpc_pack`` kernel takes).  Record dicts predating the frag_idx /
+    timestamp fields give 0 for them."""
+    plen = records["payload_len"]
+    frag = records.get("frag_idx", torch.zeros_like(plen))
+    ts = torch.broadcast_to(records.get("timestamp", torch.zeros_like(plen)),
+                            plen.shape)
+    return tuple(x.to(torch.int32).contiguous() for x in (
+        records["conn_id"], records["rpc_id"], records["fn_id"],
+        records["flags"], plen, frag, ts))
+
+
 def pack(records, slot_words: int):
     """records -> slots [N, slot_words] int32."""
     pw = payload_words(slot_words)
-    plen = records["payload_len"]
-    w2 = (records["fn_id"] & 0xFFFF) | (records["flags"] << 16)
-    # record dicts predating the frag_idx / timestamp fields pack as 0
-    frag = records.get("frag_idx", torch.zeros_like(plen))
+    conn_id, rpc_id, fn_id, flags, plen, frag, ts = header_fields(records)
+    w2 = (fn_id & 0xFFFF) | (flags << 16)
     w3 = (plen & 0xFFFF) | ((frag & 0xFFFF) << 16)
-    ts = torch.broadcast_to(records.get("timestamp", torch.zeros_like(plen)),
-                            plen.shape)
     payload = records["payload"]
     if payload.shape[-1] < pw:
         payload = torch.nn.functional.pad(
             payload, (0, pw - payload.shape[-1]))
     else:
         payload = payload[:, :pw]
-    header = torch.stack([records["conn_id"], records["rpc_id"], w2, w3, ts],
-                         dim=-1)
-    return torch.cat([header.to(torch.int32), payload.to(torch.int32)],
-                     dim=-1)
+    header = torch.stack([conn_id, rpc_id, w2, w3, ts], dim=-1)
+    return torch.cat([header, payload.to(torch.int32)], dim=-1)
 
 
 def unpack(slots):

@@ -1,4 +1,4 @@
-"""Carry fabric, telemetry and load-generator state across packages.
+"""Carry fabric, telemetry, load-generator and KVS state across packages.
 
 The state of the dataplane is what a model's weights are elsewhere: two
 runs that start from the same state must end in the same state.  These
@@ -13,7 +13,10 @@ package importing the other:
   whose leaves ``np.asarray`` accepts.
 
 Every leaf must already have the reference's dtype (int32; bool for
-``force_flush``): a round trip never widens or narrows a type.
+``force_flush``): a round trip never widens or narrows a type.  The one
+exception is the KVS store's ``tags``: the reference keeps them as
+uint32, the port as int32 with the same bits, so ``kvs_state_from_numpy``
+takes either and ``kvs_state_to_numpy`` gives int32.
 """
 from __future__ import annotations
 
@@ -29,10 +32,12 @@ from repro_torch.core.loadgen import LoadGenState
 from repro_torch.core.rings import FreeFifo, Ring
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.device import resolve
+from repro_torch.runtime.kvs import KVSState
 
 _NESTED = {"tx": Ring, "rx": Ring, "free": FreeFifo, "flow_fifo": Ring,
            "conn": ConnTable, "soft": SoftConfig}
 _BOOL_FIELDS = {"force_flush"}
+_UINT32_BITS_FIELDS = {"tags"}      # KVSState.tags: uint32 bits as int32
 
 
 def _get(src, name):
@@ -41,6 +46,8 @@ def _get(src, name):
 
 def _leaf(x, dev, name):
     a = np.asarray(x)
+    if name in _UINT32_BITS_FIELDS and a.dtype == np.uint32:
+        a = a.view(np.int32)
     want = np.bool_ if name in _BOOL_FIELDS else np.int32
     if a.dtype != want:
         raise ValueError(f"{name}: dtype {a.dtype}, expected "
@@ -93,3 +100,11 @@ def loadgen_state_from_numpy(src, device="cuda") -> LoadGenState:
 
 def loadgen_state_to_numpy(gst: LoadGenState) -> dict:
     return _dump(gst)
+
+
+def kvs_state_from_numpy(src, device="cuda") -> KVSState:
+    return _load(KVSState, src, resolve(device))
+
+
+def kvs_state_to_numpy(st: KVSState) -> dict:
+    return _dump(st)

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc + ctypes).
 
-At first use every ``csrc/*.cu`` is compiled in ONE ``nvcc`` call for
-``sm_90a`` into a shared library with a plain C interface, under
-``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the sources so an edit rebuilds.  The
-library is then loaded with ``ctypes``.  Each C entry point returns the
+At first use every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own
+``nvcc`` process, all started together, and the objects are linked into
+one shared library with a plain C interface, under ``build/repro_torch/``
+at the root of the checkout (listed in ``.gitignore``), named by a hash
+of the sources so an edit rebuilds.  The library is then loaded with
+``ctypes``.  Each C entry point returns the
 ``cudaError_t`` of its launches; ``check`` raises on anything but 0.  A
 failed build or launch raises: there is no fallback.
 """
@@ -32,6 +33,9 @@ SIGNATURES = {
     "dg_ring_gather": [P] * 3 + [I] * 4 + [P],
     "dg_nic_deliver": [P] * 20 + [I] * 7 + [P],
     "dg_switch_step": [P] * 37 + [I] * 13 + [P],
+    "dg_rpc_pack": [P] * 9 + [I] * 3 + [P],
+    "dg_hash_steer": [P] * 2 + [I] * 4 + [P] * 2,
+    "dg_kv_probe": [P] * 6 + [I] * 4 + [P],
 }
 
 _LIB = None
@@ -65,21 +69,43 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the kernels (if this source hash is not built yet) and
-    return the library's path."""
+    return the library's path.  ``build/repro_torch/nvcc.log`` keeps every
+    command and its output (``-Xptxas -v``: registers, spills)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libdagger_{_digest()}.so"
+    digest = _digest()
+    lib = BUILD_DIR / f"libdagger_{digest}.so"
     if lib.exists():
         return lib
+    nvcc = _nvcc()
+    objdir = BUILD_DIR / f"obj_{digest}.{os.getpid()}"
+    objdir.mkdir(exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
-           "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
+    compiles = []
+    for src in sources():
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-I", str(CSRC), "-c",
+               "-o", str(objdir / f"{src.stem}.o"), str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, proc in compiles:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(objdir / f"{src.stem}.o") for src in sources())]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stdout}"
+                          f"{res.stderr}")
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    shutil.rmtree(objdir, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 

@@ -1,4 +1,4 @@
-"""Dispatching wrappers for the fabric kernels, with launch counts.
+"""Dispatching wrappers for the fabric and KVS kernels, with launch counts.
 
 Each wrapper takes its kernel's plain PyTorch version only because the
 tensors it was given lie on the CPU; for CUDA tensors it launches the
@@ -9,13 +9,20 @@ else, so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import hash_steer as _hs
+from repro_torch.kernels import kv_probe as _kv
 from repro_torch.kernels import nic_deliver as _nd
 from repro_torch.kernels import ring_copy as _rc
 from repro_torch.kernels import ring_push as _rp
+from repro_torch.kernels import rpc_pack as _pk
 from repro_torch.kernels import switch_step as _ss
 
+# ``hash_steer`` launches the ``hash_steer_static`` kernel (with a device
+# modulus) and counts under that name.
 KERNELS = ("ring_push", "ring_gather", "nic_deliver_fused",
-           "switch_step_fused")
+           "switch_step_fused", "rpc_pack", "hash_steer_static", "kv_probe")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -75,4 +82,41 @@ def switch_step_fused(tx_buf, tx_head, tx_tail, rx_buf, rx_head, rx_tail,
         return _ss.switch_step_fused_plain(*args, **kw)
     out = _ss.switch_step_fused_cuda(*args, **kw)
     _launches["switch_step_fused"] += 1
+    return out
+
+
+def rpc_pack(conn_id, rpc_id, fn_id, flags, payload_len, frag_idx,
+             timestamp, payload, slot_words):
+    args = (conn_id, rpc_id, fn_id, flags, payload_len, frag_idx,
+            timestamp, payload, slot_words)
+    if not _on_card(conn_id, "rpc_pack"):
+        return _pk.rpc_pack_plain(*args)
+    out = _pk.rpc_pack_cuda(*args)
+    _launches["rpc_pack"] += 1
+    return out
+
+
+def hash_steer_static(payload, n_flows, key_words=2):
+    if not _on_card(payload, "hash_steer_static"):
+        return _hs.hash_steer_static_plain(payload, n_flows, key_words)
+    out = _hs.hash_steer_static_cuda(payload, n_flows, key_words)
+    _launches["hash_steer_static"] += 1
+    return out
+
+
+def hash_steer(payload, active_flows):
+    if not _on_card(payload, "hash_steer"):
+        return _hs.hash_steer_plain(payload, active_flows)
+    flows = torch.as_tensor(active_flows, device=payload.device) \
+        .to(torch.int32).reshape(())
+    out = _hs.hash_steer_static_cuda(payload, 0, active_flows=flows)
+    _launches["hash_steer_static"] += 1
+    return out
+
+
+def kv_probe(tags, values, q_bucket, q_tag):
+    if not _on_card(tags, "kv_probe"):
+        return _kv.kv_probe_plain(tags, values, q_bucket, q_tag)
+    out = _kv.kv_probe_cuda(tags, values, q_bucket, q_tag)
+    _launches["kv_probe"] += 1
     return out

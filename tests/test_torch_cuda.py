@@ -16,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import nic_deliver, ops, ring_copy, ring_push
+from repro_torch.kernels import (hash_steer, kv_probe, nic_deliver, ops,
+                                 ring_copy, ring_push, rpc_pack)
 from repro_torch.kernels import switch_step
-from torch_cases import (deliver_inputs, gather_inputs, push_inputs,
+from torch_cases import (deliver_inputs, gather_inputs, hash_inputs,
+                         pack_inputs, probe_inputs, push_inputs,
                          switch_inputs, with_ext)
 
 pytestmark = pytest.mark.requires_cuda
@@ -83,3 +85,44 @@ def test_switch_step_kernel(cuda, ext):
     _launch_and_compare("switch_step_fused", ops.switch_step_fused,
                         switch_step.switch_step_fused_plain, args, bmax=4,
                         include_fetch=not ext)
+
+
+@pytest.mark.parametrize("n,pw,slot_words", [(9, 3, 16), (16, 11, 16),
+                                             (5, 14, 16), (2**20, 11, 16)])
+def test_rpc_pack_kernel(cuda, n, pw, slot_words):
+    """Flags and fragment indices of 0x8000 and above; short, exact and
+    long payloads."""
+    rng = np.random.default_rng(4)
+    args = _dev(pack_inputs(rng, n, pw), cuda)
+    _launch_and_compare("rpc_pack", ops.rpc_pack, rpc_pack.rpc_pack_plain,
+                        (*args, slot_words))
+
+
+@pytest.mark.parametrize("n,w,key_words,n_flows", [
+    (37, 5, 1, 0), (37, 5, 2, 1), (37, 5, 4, 7), (2**20, 2, 2, 0)])
+def test_hash_steer_static_kernel(cuda, n, w, key_words, n_flows):
+    """Key words with the high bit set; raw mode and n_flows 1."""
+    rng = np.random.default_rng(5)
+    (pay,) = _dev((hash_inputs(rng, n, w),), cuda)
+    _launch_and_compare("hash_steer_static", ops.hash_steer_static,
+                        hash_steer.hash_steer_static_plain, (pay, n_flows,
+                                                             key_words))
+
+
+@pytest.mark.parametrize("active", [3, 0, -5])
+def test_hash_steer_dynamic_kernel(cuda, active):
+    rng = np.random.default_rng(6)
+    (pay,) = _dev((hash_inputs(rng, 29, 3),), cuda)
+    flows = torch.tensor(active, dtype=torch.int32, device=cuda)
+    _launch_and_compare("hash_steer_static", ops.hash_steer,
+                        hash_steer.hash_steer_plain, (pay, flows))
+
+
+@pytest.mark.parametrize("nb,ways,vw,n", [(8, 4, 8, 40), (3, 2, 1, 17),
+                                          (2**16, 4, 8, 2**16)])
+def test_kv_probe_kernel(cuda, nb, ways, vw, n):
+    """Empty bucket, matches at several ways, buckets out of range."""
+    rng = np.random.default_rng(7)
+    args = _dev(probe_inputs(rng, nb, ways, vw, n), cuda)
+    _launch_and_compare("kv_probe", ops.kv_probe, kv_probe.kv_probe_plain,
+                        args)

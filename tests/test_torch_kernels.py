@@ -193,3 +193,36 @@ def test_kernel_launchers_check_shapes_before_launch():
     st["scal"] = st["scal"][:, :5].contiguous()
     with pytest.raises(ValueError, match="scal"):
         switch_step.switch_step_fused_cuda(*st.values(), bmax=4)
+
+
+# ------------------------------------------------------ kernel registry
+def test_every_kernel_has_plain_version_cpu_test_and_chip_case():
+    """Every name in ``ops.KERNELS`` has an ``ops`` wrapper, a
+    ``<name>_plain`` and ``<name>_cuda`` pair in a kernel module, a CPU
+    parity test that calls the plain version, a card test and a phase-1
+    kernel-vs-plain case in ``chip_smoke.py``."""
+    import importlib
+    import pkgutil
+    from pathlib import Path
+
+    import repro_torch.kernels as pkg
+
+    root = Path(__file__).resolve().parents[1]
+    mods = [importlib.import_module(f"repro_torch.kernels.{m.name}")
+            for m in pkgutil.iter_modules(pkg.__path__)]
+    tests = Path(__file__).resolve().parent
+    cpu_tests = "".join(p.read_text() for p in tests.glob("test_torch_*.py")
+                        if p.name != "test_torch_cuda.py")
+    card_tests = (tests / "test_torch_cuda.py").read_text()
+    smoke = (root / "chip_smoke.py").read_text()
+    phase1 = smoke[smoke.index("def phase_kernels"):
+                   smoke.index("def make_pair")]
+    assert len(ops.KERNELS) == len(set(ops.KERNELS))
+    for name in ops.KERNELS:
+        assert callable(getattr(ops, name, None)), name
+        homes = [m for m in mods if hasattr(m, f"{name}_plain")
+                 and hasattr(m, f"{name}_cuda")]
+        assert len(homes) == 1, f"{name}: plain/cuda pair in {homes}"
+        assert f"{name}_plain" in cpu_tests, f"{name}: no CPU parity test"
+        assert f"ops.{name}," in card_tests, f"{name}: no card test"
+        assert f"ops.{name}," in phase1, f"{name}: no chip_smoke case"

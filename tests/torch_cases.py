@@ -107,3 +107,44 @@ def with_ext(rng, st, m=14):
     st["ext_valid"] = rng.integers(0, 2, (m,)).astype(np.int32)
     st["ext_dest"] = rng.integers(-2, 5, (m,)).astype(np.int32)
     return st
+
+
+# ------------------------------------------------------------ KVS kernels
+def hash_inputs(rng, n, w):
+    """Key words over the whole int32 range (high bits set often)."""
+    return rng.integers(-2**31, 2**31, (n, w)).astype(np.int32)
+
+
+def pack_inputs(rng, n, pw):
+    """The seven header fields [N] and a payload [N, pw].  flags and
+    frag_idx reach 0x8000 and beyond (the sign bit after ``<< 16``) and
+    carry bits past their 16-bit field; the first rows pin the edges."""
+    conn = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    rpc = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    fn = rng.integers(0, 2**20, n).astype(np.int32)
+    flags = rng.integers(0, 2**17, n).astype(np.int32)
+    plen = rng.integers(0, 2**17, n).astype(np.int32)
+    frag = rng.integers(0, 2**17, n).astype(np.int32)
+    ts = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    edges = [(0x8000, 0xFFFF), (0xFFFF, 0x8000), (-1, -1), (0x10000, 0x18000)]
+    for i, (fl, fr) in enumerate(edges[:n]):
+        flags[i], frag[i] = fl, fr
+    payload = rng.integers(-2**31, 2**31, (n, pw)).astype(np.int32)
+    return conn, rpc, fn, flags, plen, frag, ts, payload
+
+
+def probe_inputs(rng, nb, ways, vw, n):
+    """A store whose tags come from a small alphabet (a query tag often
+    matches at several ways of its bucket), with bucket 0 empty and
+    some high-bit tags, and queries whose buckets run out of range on
+    both sides and whose tags include 0 (which matches empty ways)."""
+    tags = rng.integers(0, 4, (nb, ways)).astype(np.int32)
+    tags[0] = 0
+    hi = rng.random((nb, ways)) < 0.2
+    tags[hi] = rng.integers(-2**31, 0, int(hi.sum()))
+    values = rng.integers(-2**31, 2**31, (nb, ways, vw)).astype(np.int32)
+    q_bucket = rng.integers(-nb - 3, nb + 3, n).astype(np.int32)
+    q_tag = rng.integers(0, 5, n).astype(np.int32)
+    pick = rng.random(n) < 0.2
+    q_tag[pick] = tags[np.clip(q_bucket[pick], 0, nb - 1), 0]
+    return tags, values, q_bucket, q_tag
