@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
+It builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all at once) and then runs, failing (non-zero
 exit, no result line) on any mismatch:
 
@@ -15,7 +15,10 @@ exit, no result line) on any mismatch:
    sentinel rows, full rings and FIFOs, flags and fragment indices of
    0x8000 and above, key words with the high bit set, raw and 1-flow
    hashing, empty buckets, matches at several ways and out-of-range
-   buckets — equal bit for bit;
+   buckets — equal bit for bit; and decode attention in float32 and
+   bfloat16 at per-slot lengths 0, 1, split - 1, split, split + 1 and S,
+   cache lengths that are not a multiple of the split, and Qwen2-1.5B's
+   decode shapes, within the stated tolerance (``DA_TOL``);
 2. quickstart parity: the README's echo pair (4 flows, 8 RPCs, 4 steps)
    through the kernels and through the plain path;
 3. full-size loopback run: a 512-flow client/server pair under
@@ -26,15 +29,28 @@ exit, no result line) on any mismatch:
    conservation ledger balanced, every kernel of each route launched;
 5. the MICA KVS tenant at full size: a 2^22-bucket x 4-way store
    (704 MiB) loaded with 2^23 keys in 8 bulk SETs, one bulk GET of
-   2^20 Zipf keys, then ``KVSRig``'s loop (fig12_kvs.py) — 1,000
+   2^20 Zipf keys, then ``KVSRig``'s loop (fig12_kvs.py) — 250
    batches of 16 Zipf 0.99 GET/SETs per mix (50/50 and 5/95) over a
    2-flow loopback pair with object-level steering — through the kernel
    route and the plain route from one start state: stores, values,
    hits, counters, telemetry and fabric states equal;
+6. the LM decode tenant at full width: ``DecodeEngine`` serving
+   Qwen2-1.5B (28 layers, d_model 1536, bf16, weights from a seeded
+   ``torch.Generator``) from a 32-slot pool with 1,024 cache rows, fed
+   by Poisson arrivals at 0.065 requests/step over an 8-flow fabric pair,
+   for ``LM_STEPS`` steps from one start state through the kernel route
+   (``decode_attention`` and the fabric kernels) and the plain route —
+   slots, telemetry, generator state and every non-token word of the
+   completion tiles equal, the conservation ledgers balanced,
+   ``decode_attention`` launched 28 times a step, one step's logits
+   equal within ``LOGIT_TOL``; then ``launch.serve.main`` at full width
+   (4 sessions, 64 requests);
 4. kernel summary (run last): one JSON line with each kernel's launches
-   on the main paths (phases 3 and 5), its device time per call (CUDA
-   graph replay), the plain version's, and its byte bound, on inputs
-   captured from phase 3 (fabric kernels) and phase 5 (KVS kernels).
+   on the main paths (phases 3, 5 and 6), its device time per call (CUDA
+   graph replay), the plain version's, its bound and, for decode
+   attention, the time of ``F.scaled_dot_product_attention`` on the same
+   inputs, on inputs captured from phase 3 (fabric kernels), phase 5
+   (KVS kernels) and phase 6 (decode attention).
 
 Then it prints a ``details`` line (the whole report as JSON), the
 kernel summary line, the card's name and power limit and, last, the
@@ -58,7 +74,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 FULL = dict(n_flows=512, ring_entries=64, slot_bytes=64, batch_size=4,
             request_buffer_slots=2048, conn_cache_entries=256,
             dynamic_batching=False)
-FULL_STEPS = 2000
+FULL_STEPS = 500                    # cut from 2,000 to make room for phase 6
 LOAD = 0.8                          # offered load, fraction of F*B
 
 # full-size KVS tenant: a store of the size a MICA partition set holds
@@ -71,8 +87,31 @@ KVS_CHUNK = 2**20                   # rows per bulk SET / GET
 KVS_FABRIC = dict(n_flows=2, ring_entries=64, batch_size=8,
                   dynamic_batching=False, lb_scheme="object_level")
 KVS_MIXES = (("write_z99", 0.5), ("read_z99", 0.05))
-KVS_BATCHES = 1000
+KVS_BATCHES = 250                   # cut from 1,000 to make room for phase 6
 KVS_BATCH = 16
+
+# full-width LM decode tenant: Qwen2-1.5B, 32 slots x 1,024 cache rows
+# (prompts up to 512 tokens, generations up to 256), Poisson arrivals at
+# 0.065 requests/step: by Little's law about 0.065 x 385 steps of mean
+# lifetime = 25 of the 32 slots busy.  8 flows x B 4 let 32 tokens a step
+# leave the server.
+LM_ARCH = "qwen2-1.5b"
+LM_POOL = dict(n_slots=32, max_seq=1024, max_prompt=512, max_new_cap=256)
+LM_FLOWS = 8
+LM_RATE = 0.065
+LM_STEPS = 2000
+LM_BINS = 1024                      # TTFT reaches max_prompt + 1 and more
+LM_PROFILE_STEPS = 10              # profiled steps per route (slow to trace)
+# one decode step's logits, kernel route against plain route, from the
+# same state: bf16 activations round differently once an attention
+# output differs in its last bit; held at the reference's bf16
+# tolerance (3e-2), relative to the largest logit
+LOGIT_TOL = 3e-2
+# decode attention, kernel against plain version: both compute in float32
+# from the same inputs and differ in the order of their sums; the
+# reference's tolerances (tests/test_kernels.py), as rtol and atol
+DA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
@@ -89,6 +128,8 @@ KERNELS = {
                           "src/repro/kernels/hash_steer.py:40"),
     "kv_probe": ("src/repro_torch/kernels/csrc/kv_probe.cu",
                  "src/repro/kernels/kv_probe.py:37"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                         "src/repro/kernels/decode_attn.py:67"),
 }
 
 
@@ -126,6 +167,10 @@ class Rand:
 
     def one(self, lo, hi):
         return int(self.ints(lo, hi, (1,))[0])
+
+    def normal(self, shape, dtype):
+        return self.torch.randn(tuple(shape), generator=self.g,
+                                device=self.dev).to(dtype)
 
 
 def push_inputs(rnd, q, e, w, n, full=False):
@@ -281,11 +326,31 @@ def same(torch, got, want):
     return worst
 
 
+def close(torch, got, want, tol, what):
+    """``|got - want| <= tol + tol * |want|`` everywhere, finite, same
+    dtype and shape; returns the max absolute difference."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: {got.dtype}{tuple(got.shape)} vs "
+          f"{want.dtype}{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    diff = (got - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    check(bool((diff <= tol + tol * want.abs()).all()),
+          f"{what}: max |diff| {err} over tolerance {tol}")
+    return err
+
+
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
 
+def get_lm_config():
+    from repro_torch.configs import get_config
+    return get_config(LM_ARCH)
+
+
 def phase_kernels(torch, dev):
+    from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import hash_steer as hs
     from repro_torch.kernels import kv_probe as kp
     from repro_torch.kernels import nic_deliver as nd
@@ -302,13 +367,19 @@ def phase_kernels(torch, dev):
     rnd = Rand(torch, 1234, dev)
     cases = 0
 
-    def run(name, kernel, plain, args, **kw):
+    def run(name, kernel, plain, args, tol=None, **kw):
+        """Kernel against plain version: bit for bit, or within ``tol``
+        (float outputs)."""
         nonlocal cases
         got = kernel(*args, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
         try:
-            same(torch, got, want)
+            if tol is None:
+                same(torch, got, want)
+            else:
+                close(torch, got, want, tol,
+                      f"{args[1].dtype}{tuple(args[1].shape)}")
         except SmokeFailure as exc:
             raise SmokeFailure(f"{name}: kernel != plain: {exc}") from exc
         cases += 1
@@ -375,6 +446,23 @@ def phase_kernels(torch, dev):
                   (nbk, ways, vw, KVS_CHUNK)):
         run("kv_probe", ops.kv_probe, kp.kv_probe_plain,
             probe_inputs(rnd, *shape))
+    # decode attention: per-slot lengths at the split's edges, S not a
+    # multiple of the split, and phase 6's shapes (Qwen2-1.5B's pool)
+    lm = get_lm_config()
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for b_, nq, nkv, hd, s_ in ((6, 4, 2, 32, 200), (7, 8, 2, 64, 300),
+                                    (LM_POOL["n_slots"], lm.n_heads,
+                                     lm.n_kv_heads, lm.resolved_head_dim,
+                                     LM_POOL["max_seq"])):
+            edges = [0, 1, da.SPLIT - 1, da.SPLIT, da.SPLIT + 1, s_]
+            lengths = rnd.ints(0, s_ + 1, (b_,))
+            lengths[:len(edges)] = torch.tensor(edges[:b_], device=dev)
+            args = (rnd.normal((b_, nq, hd), dtype),
+                    rnd.normal((b_, s_, nkv, hd), dtype),
+                    rnd.normal((b_, s_, nkv, hd), dtype), lengths)
+            run("decode_attention", ops.decode_attention,
+                da.decode_attention_plain, args, tol=DA_TOL[dname])
     return cases
 
 
@@ -878,9 +966,213 @@ def kvs_share(torch, dev, runs, n_batches=8):
     return out
 
 
+def lm_engines(torch, dev):
+    """The kernel-route and plain-route decode engines of phase 6, with
+    one set of weights (the kernel engine's, copied into the plain one)."""
+    from repro_torch.apps.lm_decode import build_engine
+    from repro_torch.core import loadgen as lg
+    from repro_torch.runtime.decode import default_fabric_config
+
+    engines = {}
+    for route in ("kernels", "plain"):
+        use = route == "kernels"
+        engines[route] = build_engine(
+            cfg=get_lm_config(),
+            fabric_cfg=default_fabric_config(n_flows=LM_FLOWS,
+                                             use_pallas=use),
+            mode=lg.MODE_POISSON, seed=0, use_pallas=use, n_bins=LM_BINS,
+            device=dev, **LM_POOL)
+    engines["plain"].model.load_state_dict(
+        engines["kernels"].model.state_dict())
+    return engines
+
+
+def phase_lm(torch, dev, seen):
+    """The LM decode tenant at full width, kernel route against plain
+    route from one start state; then one step's logits from the same
+    state on both routes, a profiled window per route, phase 4's
+    ``decode_attention`` inputs and ``launch.serve.main`` at full width.
+    """
+    import dataclasses
+    from repro_torch.core import serdes
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.fabric import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime.decode import DecodeSlots
+
+    t0 = time.perf_counter()
+    engines = lm_engines(torch, dev)
+    k_eng = engines["kernels"]
+    cfg = k_eng.cfg
+    n_params = sum(p.numel() for p in k_eng.model.parameters())
+    start = k_eng.init_states(LM_RATE, seed=7)
+    torch.cuda.synchronize()
+    say(f"lm: {cfg.name} {n_params} parameters "
+        f"({n_params * 2 / 1e9:.3f} GB bf16), cache "
+        f"{sum(t.numel() * t.element_size() for c in start.cache for t in c.values()) / 2**30:.3f} GiB, "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for route, eng in engines.items():
+        st = tree_map(torch.clone, start)
+        run = eng.make_run_steps(LM_STEPS)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, (comp, valid) = run(st)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        sl = st.slots
+        recs = serdes.unpack(comp)
+        frag = valid & ((recs["flags"] & serdes.FLAG_FRAGMENT) != 0)
+        tokens = int(frag.sum())
+        qt, qi = tlm.quantiles(st.ttft.hist), tlm.quantiles(st.itl.hist)
+        r = dict(st=st, comp=comp, valid=valid, frag=frag, secs=secs,
+                 counts=counts, eng=eng, tokens=tokens,
+                 completed=int(sl.completed), rejected=int(sl.rejected),
+                 admitted=int(sl.admitted),
+                 active=int((sl.req_id >= 0).sum()),
+                 ttft_p50=qt[0.5], ttft_p99=qt[0.99], itl_p50=qi[0.5],
+                 itl_p99=qi[0.99])
+        runs[route] = r
+        say(f"lm {route}: {LM_STEPS} steps in {secs:.3f} s, "
+            f"{LM_STEPS / secs:.2f} steps/s, {tokens} tokens delivered, "
+            f"{tokens / secs:.1f} tokens/s; requests admitted "
+            f"{r['admitted']} completed {r['completed']} rejected "
+            f"{r['rejected']} active {r['active']}; TTFT p50 {qt[0.5]} / "
+            f"p99 {qt[0.99]} steps, ITL p50 {qi[0.5]} / p99 {qi[0.99]} "
+            f"steps; launches {counts}")
+    k, p = runs["kernels"], runs["plain"]
+    # what the tokens do not steer is equal bit for bit
+    for fld in dataclasses.fields(DecodeSlots):
+        if fld.name != "tok":
+            tree_equal(torch, getattr(k["st"].slots, fld.name),
+                       getattr(p["st"].slots, fld.name),
+                       f"lm.slots.{fld.name}")
+    for name in ("ttft", "itl", "gst"):
+        tree_equal(torch, getattr(k["st"], name), getattr(p["st"], name),
+                   f"lm.{name}")
+    check(torch.equal(k["valid"], p["valid"]),
+          "lm: completion valid masks differ between routes")
+    words = [w for w in range(k["comp"].shape[-1])
+             if w != serdes.HEADER_WORDS + 1]
+    check(torch.equal(k["comp"][k["valid"]][:, words],
+                      p["comp"][p["valid"]][:, words]),
+          "lm: a non-token word of the completion tiles differs")
+    tok_k = k["comp"][k["frag"]][:, serdes.HEADER_WORDS + 1]
+    tok_p = p["comp"][p["frag"]][:, serdes.HEADER_WORDS + 1]
+    same_share = float((tok_k == tok_p).float().mean()) if tok_k.numel() \
+        else float("nan")
+    # conservation: every admitted request completed, active or rejected;
+    # the generator's ledger
+    check(k["admitted"] == k["completed"] + k["active"] + k["rejected"],
+          f"lm: admitted {k['admitted']} != completed {k['completed']} + "
+          f"active {k['active']} + rejected {k['rejected']}")
+    g = k["st"].gst
+    check(int(g.offered) == int(g.injected) + int(g.dropped),
+          f"lm: offered {int(g.offered)} != injected {int(g.injected)} + "
+          f"dropped {int(g.dropped)}")
+    check(k["completed"] > 0 and k["tokens"] > 0,
+          "lm: no request completed")
+    # launches: decode_attention once per layer per step, on the kernel
+    # route only, beside the fabric kernels
+    kc = k["counts"]
+    check(kc["decode_attention"] == cfg.n_layers * LM_STEPS,
+          f"lm: decode_attention launched {kc['decode_attention']} times, "
+          f"expected {cfg.n_layers} x {LM_STEPS}")
+    check(kc["rpc_pack"] > 0 and kc["ring_push"] > 0
+          and kc["switch_step_fused"] > 0,
+          f"lm kernel route missed a fabric kernel: {kc}")
+    check(not any(p["counts"].values()),
+          f"lm plain route launched kernels: {p['counts']}")
+    # one decode step's logits from the kernel route's end state
+    st = k["st"]
+    logits = {}
+    for route, eng in engines.items():
+        logits[route], _ = eng.model.decode_step(
+            tree_map(torch.clone, st.cache), st.slots.tok[:, None],
+            st.slots.pos)
+    torch.cuda.synchronize()
+    lk, lp = logits["kernels"], logits["plain"]
+    logit_err = float((lk - lp).abs().max())
+    logit_scale = float(lp.abs().max())
+    argmax_share = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(lk).all()) and lk.shape == (
+        LM_POOL["n_slots"], cfg.vocab), "lm: logits not finite or misshapen")
+    check(logit_err <= LOGIT_TOL * logit_scale,
+          f"lm: logits differ by {logit_err} (largest |logit| "
+          f"{logit_scale})")
+    say(f"lm: routes equal (slots, telemetry, generator, completion "
+        f"headers); equal tokens {same_share:.4f} of {tok_k.numel()}; one "
+        f"step's logits max |diff| {logit_err:.4g} of max |logit| "
+        f"{logit_scale:.4g}, argmax equal on {argmax_share:.3f} of slots")
+    # device time per step over a profiled window from each end state
+    share = {}
+    for route, r in runs.items():
+        run = r["eng"].make_run_steps(LM_PROFILE_STEPS)
+        ev = device_events(torch, lambda: run(r["st"]), 1)
+        dev_us = sum(us for _, us in ev) / LM_PROFILE_STEPS
+        wall_us = r["secs"] / LM_STEPS * 1e6
+        by_name = {}
+        for name, us in ev:
+            by_name[name[:70]] = by_name.get(name[:70], 0.0) + \
+                us / LM_PROFILE_STEPS
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        share[route] = {"device_us_per_step": dev_us,
+                        "wall_us_per_step": wall_us,
+                        "busy_share": dev_us / wall_us if ev else None,
+                        "activities_per_step": len(ev) / LM_PROFILE_STEPS,
+                        "top": top}
+        say(f"lm device time {route}: {dev_us:.1f} us/step of "
+            f"{wall_us:.1f} us/step wall ({len(ev) / LM_PROFILE_STEPS:.0f} "
+            f"device activities/step); top "
+            + "; ".join(f"{n} {us:.1f}" for n, us in top[:5]))
+    # phase 4's decode_attention inputs: the last call of one more step
+    step_seen = {}
+    with recording(step_seen):
+        k_eng.make_run_steps(1)(k["st"])
+    torch.cuda.synchronize()
+    seen["decode_attention"] = step_seen["decode_attention"]
+    # the serving CLI once at full width
+    t0 = time.perf_counter()
+    served = serve.main(["--arch", LM_ARCH, "--full", "--sessions", "4",
+                         "--requests", "64", "--device", "cuda"])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    check(served == 64, f"serve: {served} of 64 requests served")
+    report = {route: {key: r[key] for key in (
+        "secs", "tokens", "completed", "rejected", "admitted", "active",
+        "ttft_p50", "ttft_p99", "itl_p50", "itl_p99", "counts")}
+        for route, r in runs.items()}
+    report.update(n_params=n_params, same_token_share=same_share,
+                  logit_err=logit_err, logit_scale=logit_scale,
+                  argmax_share=argmax_share, device_share=share,
+                  serve_served=served, serve_s=serve_s)
+    return report, k["counts"]
+
+
+def sdpa_call(torch, q, k, v, lengths):
+    """``F.scaled_dot_product_attention`` on decode attention's inputs —
+    the one PyTorch call that computes the same function, timed as a
+    yardstick only (the port never calls it).  q becomes [B, nq, 1, hd]
+    and K/V [B, nkv, S, hd] (strided views of the cache); the lengths
+    become a boolean mask [B, 1, 1, S], made once outside the call."""
+    import torch.nn.functional as F
+    mask = (torch.arange(k.shape[1], device=k.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qq, kk, vv = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+
+    def call():
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                              enable_gqa=True)
+    return call
+
+
 def phase_summary(torch, paths, seen):
     """``paths`` maps each main path to (launch counts, steps or None
     for a path that takes no pipeline steps)."""
+    from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import hash_steer as hs
     from repro_torch.kernels import kv_probe as kp
     from repro_torch.kernels import nic_deliver as nd
@@ -908,6 +1200,9 @@ def phase_summary(torch, paths, seen):
             lambda a, kw, o: hs.bytes_moved(a[0], kw.get("key_words", 2))),
         "kv_probe": (kp.kv_probe_cuda, kp.kv_probe_plain,
                      lambda a, kw, o: kp.bytes_moved(*a)),
+        "decode_attention": (da.decode_attention_cuda,
+                             da.decode_attention_plain,
+                             lambda a, kw, o: da.bytes_moved(*a)),
     }
     rows = []
     for name, (src, replaces) in KERNELS.items():
@@ -916,7 +1211,23 @@ def phase_summary(torch, paths, seen):
         got = kernel(*args, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
-        err = same(torch, got, want)
+        extra = {}
+        if name == "decode_attention":
+            dname = str(args[0].dtype).split(".")[-1]
+            err = close(torch, got, want, DA_TOL[dname], name)
+            lib = sdpa_call(torch, *args)
+            lib_out = lib()[:, :, 0].to(torch.float32)
+            extra = {"library": "F.scaled_dot_product_attention",
+                     "library_max_abs_err": close(
+                         torch, lib_out, want, DA_TOL["bfloat16"],
+                         "scaled_dot_product_attention"),
+                     "library_ms": graph_ms(torch, lib),
+                     "library_call_ms": time_ms(torch, lib),
+                     "ops_bound_ms": da.flops(*args) / PEAK_FLOPS[dname]
+                     * 1e3,
+                     "lengths_mean": float(args[3].float().mean())}
+        else:
+            err = same(torch, got, want)
         call_ms = time_ms(torch, lambda: kernel(*args, **kw))
         plain_call_ms = time_ms(torch, lambda: plain(*args, **kw))
         ms = graph_ms(torch, lambda: kernel(*args, **kw))
@@ -924,18 +1235,21 @@ def phase_summary(torch, paths, seen):
         outs = got if isinstance(got, tuple) else (got,)
         moved = nbytes(args, kw, outs)
         launches = sum(c[name] for c, _ in paths.values())
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = extra.get("ops_bound_ms", 0.0)
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "bytes": moved, "call_ms": call_ms,
             "plain_call_ms": plain_call_ms,
             "shape": [list(a.shape) for a in args
                       if hasattr(a, "shape")][:2],
             "launches_per_step": {path: c[name] / steps
                                   for path, (c, steps) in paths.items()
-                                  if steps}})
+                                  if steps}, **extra})
         check(launches > 0, f"{name} was never launched on the main path")
     return rows
 
@@ -994,11 +1308,17 @@ def main():
     report["kvs_device_share"] = kvs_share(torch, dev, kvs)
 
     t0 = time.perf_counter()
+    report["lm"], lm_counts = phase_lm(torch, dev, seen)
+    say(f"phase 6: LM decode routes equal ({time.perf_counter() - t0:.1f} "
+        f"s)")
+
+    t0 = time.perf_counter()
     kvs_steps = sum(m["steps"] for m in kvs["kernels"]["serve"].values())
     paths = {"fused": (runs["fused"]["counts"], FULL_STEPS),
              "staged": (runs["staged"]["counts"], FULL_STEPS),
              "kvs_load": (kvs["kernels"]["bulk_counts"], None),
-             "kvs_serve": (kvs["kernels"]["serve_counts"], kvs_steps)}
+             "kvs_serve": (kvs["kernels"]["serve_counts"], kvs_steps),
+             "lm_decode": (lm_counts, LM_STEPS)}
     rows = phase_summary(torch, paths, seen)
     report["kernels"] = rows
     say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")

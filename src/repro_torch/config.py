@@ -1,13 +1,152 @@
-"""Fabric configuration (``FabricConfig``), field for field.
+"""Model and fabric configuration (``ModelConfig``, ``FabricConfig``),
+field for field.
 
-Hard configuration (paper: SystemVerilog macros, needs re-synthesis) is
-every field below; soft configuration (paper: CSR writes) lives in the
-``SoftConfig`` device scalars of ``core.fabric.FabricState``.
+``ModelConfig`` describes any architecture of the reference (plus reduced
+smoke-test variants); the port's ``models.Model`` serves the dense GQA
+decoder of it and refuses the rest.  For ``FabricConfig``, hard
+configuration (paper: SystemVerilog macros, needs re-synthesis) is every
+field; soft configuration (paper: CSR writes) lives in the ``SoftConfig``
+device scalars of ``core.fabric.FabricState``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional, Tuple
+
+# Layer kinds used by hybrid stacks (jamba / xlstm / gemma patterns).
+ATTN_GLOBAL = 0
+ATTN_LOCAL = 1
+MAMBA = 2
+SLSTM = 3
+MLSTM = 4
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0              # routed experts
+    top_k: int = 0
+    n_shared: int = 0               # shared (always-on) experts
+    d_ff_expert: int = 0            # per-expert FFN width
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0
+    # which layers are MoE: "all", "every_other", or "after:N" (dense first N)
+    layer_pattern: str = "all"
+    decode_mode: str = "dense"      # dense | gather
+    fsdp_dim: str = "d"             # d | ff
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention dims."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16               # mamba state dim
+    d_conv: int = 4
+    expand: int = 2
+    xlstm_heads: int = 4
+    chunk: int = 256
+    scan_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"           # dense | moe | ssm | hybrid | encdec | vlm | audio
+    n_layers: int = 12
+    d_model: int = 1024
+    n_heads: int = 16
+    n_kv_heads: int = 16
+    head_dim: int = 0               # 0 -> d_model // n_heads
+    d_ff: int = 4096
+    vocab: int = 32000
+    max_seq: int = 131072
+
+    # attention details
+    attn_kind: str = "gqa"          # gqa | mla
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    local_window: int = 0           # >0 enables sliding-window layers
+    local_pattern: int = 0          # N local layers per 1 global (gemma 5:1)
+    logit_softcap: float = 0.0
+
+    # FFN
+    mlp_act: str = "swiglu"         # swiglu | geglu | gelu | sqrelu | relu
+    norm_kind: str = "rmsnorm"      # rmsnorm | layernorm
+    tie_embeddings: bool = False
+
+    # mixtures / recurrence
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid_pattern: Tuple[int, ...] = ()
+
+    # encoder-decoder
+    enc_layers: int = 0             # >0 -> enc-dec; n_layers is decoder depth
+
+    # multimodal frontend stub: "" | "audio" | "vision"
+    frontend: str = ""
+    frontend_tokens: int = 0
+    frontend_dim: int = 0
+
+    # multi-token prediction (deepseek MTP) — extra heads
+    mtp_depth: int = 0
+
+    # numerics / memory
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "dots"
+    fsdp: bool = False
+    use_pallas: bool = False        # route hot paths through the kernels
+    tp_axis: str = ""               # tensor-parallel axis name (not served)
+    # attention scores without f32 copies of Q/K/V (w rounded to v's dtype)
+    fast_attn: bool = False
+    flash_block: int = 0
+    seq_parallel: bool = False
+    batch_constraint: str = ""
+
+    # decode behaviour
+    supports_long_context: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def _layer_kinds(self):
+        """Return [(layer_kind, is_moe)] for the decoder stack."""
+        out = []
+        for i in range(self.n_layers):
+            if self.hybrid_pattern:
+                kind = self.hybrid_pattern[i % len(self.hybrid_pattern)]
+            elif self.family == "ssm":
+                kind = (SLSTM, MLSTM)[i % 2]
+            elif self.local_pattern:
+                kind = ATTN_GLOBAL if (i % (self.local_pattern + 1)
+                                       == self.local_pattern) else ATTN_LOCAL
+            else:
+                kind = ATTN_GLOBAL
+            is_moe = False
+            if self.moe is not None:
+                pat = self.moe.layer_pattern
+                if pat == "all":
+                    is_moe = True
+                elif pat == "every_other":
+                    is_moe = i % 2 == 1
+                elif pat.startswith("after:"):
+                    is_moe = i >= int(pat.split(":")[1])
+            out.append((kind, is_moe))
+        return out
 
 
 @dataclass(frozen=True)

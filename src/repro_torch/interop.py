@@ -1,4 +1,5 @@
-"""Carry fabric, telemetry, load-generator and KVS state across packages.
+"""Carry fabric, telemetry, load-generator, KVS and LM decode state, and
+model weights, across packages.
 
 The state of the dataplane is what a model's weights are elsewhere: two
 runs that start from the same state must end in the same state.  These
@@ -17,6 +18,13 @@ Every leaf must already have the reference's dtype (int32; bool for
 exception is the KVS store's ``tags``: the reference keeps them as
 uint32, the port as int32 with the same bits, so ``kvs_state_from_numpy``
 takes either and ``kvs_state_to_numpy`` gives int32.
+
+Model weights and KV caches are float: ``model_params_from_numpy`` loads
+the reference's parameter pytree (``{"embed", "decoder", "final_norm"}``,
+the decoder's layers stacked per segment along a leading dim) into a
+``models.Model``, and ``decode_cache_*`` convert the reference's stacked
+cache to the port's one-dict-per-layer list and back.  Their dtypes are
+carried exactly too (bfloat16 as its bits).
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ from repro_torch.core.loadgen import LoadGenState
 from repro_torch.core.rings import FreeFifo, Ring
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.device import resolve
+from repro_torch.models.transformer import segments_from_kinds
+from repro_torch.runtime.decode import DecodeSlots, DecodeStates
 from repro_torch.runtime.kvs import KVSState
 
 _NESTED = {"tx": Ring, "rx": Ring, "free": FreeFifo, "flow_fifo": Ring,
@@ -108,3 +118,132 @@ def kvs_state_from_numpy(src, device="cuda") -> KVSState:
 
 def kvs_state_to_numpy(st: KVSState) -> dict:
     return _dump(st)
+
+
+# ------------------------------------------------------------- LM decode
+def _float_tensor(x, name) -> torch.Tensor:
+    """A float numpy array (bfloat16 included, as its bits) as a CPU
+    tensor of the same dtype."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.int16), copy=True)) \
+            .view(torch.bfloat16)
+    if a.dtype not in (np.float32, np.float16):
+        raise ValueError(f"{name}: dtype {a.dtype}, expected a float type")
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _float_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes        # bfloat16 numpy dtype (JAX's dependency)
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
+
+
+def _layer_sources(cfg, tree):
+    """(layer index, the reference subtree of its pattern position, its
+    period in the stacked leading dim or None) for every decoder layer."""
+    i = 0
+    for si, (pat, reps) in enumerate(
+            segments_from_kinds(cfg._layer_kinds())):
+        for r in range(reps):
+            for j in range(len(pat)):
+                yield i, _get(_get(tree, f"seg{si}"), f"pos{j}"), \
+                    (r if reps > 1 else None)
+                i += 1
+
+
+def _assign(mod, tree, period, path):
+    """Copy the reference subtree ``tree`` into the parameters of
+    ``mod`` (``nn.ModuleDict`` / ``nn.ParameterDict``), same names."""
+    keys = set(tree.keys()) if isinstance(tree, dict) else None
+    if keys is not None and keys != set(mod.keys()):
+        raise ValueError(f"{path}: reference keys {sorted(keys)}, port "
+                         f"keys {sorted(mod.keys())}")
+    for name, child in mod.items():
+        src = _get(tree, name)
+        if isinstance(child, torch.nn.Parameter):
+            t = _float_tensor(src, f"{path}.{name}")
+            if period is not None:
+                t = t[period]
+            if t.dtype != child.dtype or t.shape != child.shape:
+                raise ValueError(
+                    f"{path}.{name}: reference {t.dtype}{tuple(t.shape)}, "
+                    f"port {child.dtype}{tuple(child.shape)}")
+            child.data.copy_(t)
+        else:
+            _assign(child, src, period, f"{path}.{name}")
+
+
+def model_params_from_numpy(model, params):
+    """Load the reference's parameter pytree (numpy arrays, or anything
+    ``np.asarray`` takes) into ``model`` in place; dtypes and shapes must
+    match exactly.  Layer ``i`` takes its slice of the stacked
+    ``decoder.seg<k>.pos<j>`` arrays.  Returns ``model``."""
+    _assign(model.embed, _get(params, "embed"), None, "embed")
+    _assign(model.final_norm, _get(params, "final_norm"), None,
+            "final_norm")
+    seen = 0
+    for i, sub, period in _layer_sources(model.cfg,
+                                         _get(params, "decoder")):
+        _assign(model.layers[i], sub, period, f"decoder.layer{i}")
+        seen += 1
+    if seen != len(model.layers):
+        raise ValueError(f"{seen} reference layers for "
+                         f"{len(model.layers)} port layers")
+    return model
+
+
+def decode_cache_from_numpy(cfg, src, device="cuda") -> list:
+    """The reference's decode cache pytree -> the port's list of
+    per-layer ``{"k", "v"}`` tensors."""
+    dev = resolve(device)
+    out = []
+    for i, sub, period in _layer_sources(cfg, src):
+        layer = {}
+        for name in ("k", "v"):
+            t = _float_tensor(_get(sub, name), f"cache.layer{i}.{name}")
+            layer[name] = (t[period] if period is not None else t) \
+                .contiguous().to(dev)
+        out.append(layer)
+    return out
+
+
+def decode_cache_to_numpy(cfg, cache) -> dict:
+    """The port's per-layer cache list -> the reference's pytree layout
+    (layers of a segment stacked along a leading dim)."""
+    out, i = {}, 0
+    for si, (pat, reps) in enumerate(
+            segments_from_kinds(cfg._layer_kinds())):
+        seg = {}
+        for j in range(len(pat)):
+            idx = [i + r * len(pat) + j for r in range(reps)]
+            seg[f"pos{j}"] = {
+                name: (np.stack([_float_numpy(cache[x][name]) for x in idx])
+                       if reps > 1 else _float_numpy(cache[idx[0]][name]))
+                for name in ("k", "v")}
+        out[f"seg{si}"] = seg
+        i += reps * len(pat)
+    return out
+
+
+def decode_states_from_numpy(src, cfg, device="cuda") -> DecodeStates:
+    """A reference ``DecodeStates`` (or nested dicts of the same names)
+    -> the port's; ``cfg`` is the model's ``ModelConfig``."""
+    dev = resolve(device)
+    return DecodeStates(
+        cst=_load(FabricState, _get(src, "cst"), dev),
+        sst=_load(FabricState, _get(src, "sst"), dev),
+        gst=_load(LoadGenState, _get(src, "gst"), dev),
+        slots=_load(DecodeSlots, _get(src, "slots"), dev),
+        cache=decode_cache_from_numpy(cfg, _get(src, "cache"), dev),
+        ttft=_load(Telemetry, _get(src, "ttft"), dev),
+        itl=_load(Telemetry, _get(src, "itl"), dev))
+
+
+def decode_states_to_numpy(st: DecodeStates, cfg) -> dict:
+    out = {f.name: _dump(getattr(st, f.name))
+           for f in dataclasses.fields(st) if f.name != "cache"}
+    out["cache"] = decode_cache_to_numpy(cfg, st.cache)
+    return out

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for the fabric and KVS hot spots (sm_90a).
+"""Hand-written CUDA kernels for the fabric, KVS and LM decode hot spots
+(sm_90a).
 
 Each kernel module holds the kernel's launch function, its plain PyTorch
 version and a note on what it replaces and what bounds it; ``csrc/``

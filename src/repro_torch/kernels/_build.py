@@ -36,6 +36,7 @@ SIGNATURES = {
     "dg_rpc_pack": [P] * 9 + [I] * 3 + [P],
     "dg_hash_steer": [P] * 2 + [I] * 4 + [P] * 2,
     "dg_kv_probe": [P] * 6 + [I] * 4 + [P],
+    "dg_decode_attention": [P] * 6 + [I] * 7 + [P],
 }
 
 _LIB = None
@@ -143,6 +144,25 @@ def require(name: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {key} is {t.dtype}, expected int32")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
+
+
+def require_float(name: str, device: torch.device, **tensors) -> None:
+    """Raise unless every tensor is a contiguous float32 or bfloat16
+    tensor on ``device``, all of one dtype — what the float kernels
+    take."""
+    dtypes = set()
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{name}: {key} is {t.dtype}, expected float32 "
+                             f"or bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+        dtypes.add(t.dtype)
+    if len(dtypes) > 1:
+        raise ValueError(f"{name}: inputs mix {sorted(map(str, dtypes))}")
 
 
 def require_shapes(name: str, **pairs) -> None:

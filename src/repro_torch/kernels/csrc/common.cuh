@@ -1,7 +1,7 @@
-// Shared device helpers for the fabric kernels (sm_90a).
+// Shared device helpers for the kernels (sm_90a).
 //
-// Every kernel here is int32 scatter/gather/arbitration code.  The
-// helpers give the two things the port needs beyond plain CUDA C:
+// The fabric and KVS kernels are int32 scatter/gather/arbitration code.
+// The helpers give the two things the port needs beyond plain CUDA C:
 // floor modulo (JAX and PyTorch `%` floor; CUDA `%` truncates) and
 // in-order block-wide arbitration (exclusive prefix counts, and the
 // per-key rank a serial arbiter would hand out).

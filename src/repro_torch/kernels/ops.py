@@ -1,4 +1,5 @@
-"""Dispatching wrappers for the fabric and KVS kernels, with launch counts.
+"""Dispatching wrappers for the fabric, KVS and LM decode kernels, with
+launch counts.
 
 Each wrapper takes its kernel's plain PyTorch version only because the
 tensors it was given lie on the CPU; for CUDA tensors it launches the
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import hash_steer as _hs
 from repro_torch.kernels import kv_probe as _kv
 from repro_torch.kernels import nic_deliver as _nd
@@ -22,7 +24,8 @@ from repro_torch.kernels import switch_step as _ss
 # ``hash_steer`` launches the ``hash_steer_static`` kernel (with a device
 # modulus) and counts under that name.
 KERNELS = ("ring_push", "ring_gather", "nic_deliver_fused",
-           "switch_step_fused", "rpc_pack", "hash_steer_static", "kv_probe")
+           "switch_step_fused", "rpc_pack", "hash_steer_static", "kv_probe",
+           "decode_attention")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -119,4 +122,12 @@ def kv_probe(tags, values, q_bucket, q_tag):
         return _kv.kv_probe_plain(tags, values, q_bucket, q_tag)
     out = _kv.kv_probe_cuda(tags, values, q_bucket, q_tag)
     _launches["kv_probe"] += 1
+    return out
+
+
+def decode_attention(q, k, v, lengths):
+    if not _on_card(q, "decode_attention"):
+        return _da.decode_attention_plain(q, k, v, lengths)
+    out = _da.decode_attention_cuda(q, k, v, lengths)
+    _launches["decode_attention"] += 1
     return out

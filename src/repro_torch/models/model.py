@@ -1,0 +1,92 @@
+"""Top-level ``Model``: embedding, decoder stack and head, in decode mode.
+
+``Model(cfg, device=..., generator=...)`` holds the weights as an
+``nn.Module`` (parameter names follow the reference's pytree:
+``embed.tok``, ``layers.<i>.attn.wq``, ``final_norm.scale``, ...):
+
+* ``cache_init(batch, max_seq)``          -> zeroed cache (one dict per layer)
+* ``decode_step(cache, tokens, pos)``     -> (logits [B, V] f32, cache)
+
+It serves the decoder-only dense GQA architectures (Qwen2, the in-house
+repro-100m) and raises ``NotImplementedError`` for every feature of the
+reference's ``ModelConfig`` that it does not serve, rather than taking
+another path.  ``prefill`` and ``loss`` wait for later slices.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import (embed_apply, embed_init, norm_apply,
+                                       norm_init, unembed_apply)
+
+
+def _refuse_unserved(cfg: ModelConfig) -> None:
+    unserved = {
+        "moe": cfg.moe is not None,
+        "mla": cfg.mla is not None or cfg.attn_kind != "gqa",
+        "ssm": (cfg.ssm is not None or cfg.family == "ssm"
+                or bool(cfg.hybrid_pattern)),
+        "local_window": bool(cfg.local_window or cfg.local_pattern),
+        "enc_layers": bool(cfg.enc_layers),
+        "frontend": bool(cfg.frontend),
+        "mtp_depth": bool(cfg.mtp_depth),
+        "logit_softcap": cfg.logit_softcap != 0,
+        "tp_axis": bool(cfg.tp_axis),
+    }
+    bad = [k for k, v in unserved.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: the port does not serve {bad} yet")
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, device="cuda", generator=None,
+                 seed: int = 0):
+        super().__init__()
+        _refuse_unserved(cfg)
+        dev = resolve(device)
+        if generator is None:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(seed)
+        if generator.device.type != dev.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{dev}")
+        self.cfg = cfg
+        self.dec_kinds = cfg._layer_kinds()
+        self.embed = embed_init(generator, cfg)
+        self.layers = nn.ModuleList(
+            tf.layer_init(generator, cfg, kind, is_moe)
+            for kind, is_moe in self.dec_kinds)
+        self.final_norm = norm_init(cfg, cfg.d_model, dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["tok"].device
+
+    def cache_init(self, batch: int, max_seq: int) -> list:
+        return tf.stack_cache_init(self.cfg, self.dec_kinds, batch, max_seq,
+                                   self.device)
+
+    def forward(self, tokens, mode: str = "decode", cache=None, pos=None):
+        """tokens [B, S] -> (final-norm hidden states, new cache)."""
+        cfg = self.cfg
+        x = embed_apply(cfg, self.embed, tokens)
+        if cfg.name.startswith("gemma"):
+            x = x * cfg.d_model ** 0.5
+        x, new_cache = tf.stack_apply(cfg, self.layers, x, self.dec_kinds,
+                                      mode=mode, cache=cache, pos=pos)
+        return norm_apply(cfg, self.final_norm, x), new_cache
+
+    def decode_step(self, cache, tokens, pos):
+        """One decode step. tokens: [B, 1] int; pos: scalar or [B] int32.
+
+        Writes the new K/V rows into ``cache`` in place.  Returns (logits
+        [B, V] float32, cache)."""
+        x, new_cache = self.forward(tokens, mode="decode", cache=cache,
+                                    pos=pos)
+        logits = unembed_apply(self.cfg, self.embed, x[:, -1:])
+        return logits[:, 0], new_cache

@@ -5,8 +5,11 @@ Every test here needs a CUDA device (marker ``requires_cuda``) and skips
 without one; the decision is taken inside the ``cuda`` fixture.  Inputs
 are seeded numpy arrays moved to the card; each kernel (through its
 ``ops`` wrapper, which must launch it) and its plain PyTorch version run
-on the same tensors.  The dataplane is int32: exact equality.  No JAX
-here — the card's machine has none.  Run on the card with
+on the same tensors.  The dataplane is int32: exact equality.  Decode
+attention is float: both compute in float32 from the same inputs and
+differ only in the order of their sums, held at 2e-5 (float32 inputs)
+and 3e-2 (bfloat16 inputs), the reference's tolerances.  No JAX here —
+the card's machine has none.  Run on the card with
 
     python -m pytest -q tests/test_torch_cuda.py
 """
@@ -16,12 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (hash_steer, kv_probe, nic_deliver, ops,
-                                 ring_copy, ring_push, rpc_pack)
+from repro_torch.kernels import (decode_attn, hash_steer, kv_probe,
+                                 nic_deliver, ops, ring_copy, ring_push,
+                                 rpc_pack)
 from repro_torch.kernels import switch_step
-from torch_cases import (deliver_inputs, gather_inputs, hash_inputs,
-                         pack_inputs, probe_inputs, push_inputs,
-                         switch_inputs, with_ext)
+from torch_cases import (decode_inputs, deliver_inputs, edge_lengths,
+                         gather_inputs, hash_inputs, pack_inputs,
+                         probe_inputs, push_inputs, switch_inputs, with_ext)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -126,3 +130,31 @@ def test_kv_probe_kernel(cuda, nb, ways, vw, n):
     args = _dev(probe_inputs(rng, nb, ways, vw, n), cuda)
     _launch_and_compare("kv_probe", ops.kv_probe, kv_probe.kv_probe_plain,
                         args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nkv,hd,s", [(6, 4, 2, 32, 96),
+                                           (3, 16, 4, 16, 200),
+                                           (32, 12, 2, 128, 1024)])
+def test_decode_attention_kernel(cuda, dtype, b, nq, nkv, hd, s):
+    """Every slot at its own length: the edges of the kernel's split of
+    ``decode_attn.SPLIT`` rows (0, 1, split - 1, split, split + 1, S) and
+    random lengths; S not a multiple of the split in the first two
+    shapes; the last is Qwen2-1.5B's decode pool (32 slots, 12 query / 2
+    kv heads, hd 128, 1,024 cache rows)."""
+    rng = np.random.default_rng(8)
+    q, k, v = (t.to(dtype) for t in _dev(decode_inputs(rng, b, nq, nkv, hd,
+                                                       s), cuda))
+    edges = edge_lengths(s, decode_attn.SPLIT)
+    lengths = rng.integers(0, s + 1, b).astype(np.int32)
+    lengths[:min(b, len(edges))] = edges[:b]
+    (lengths,) = _dev((lengths,), cuda)
+    wrapper, plain = ops.decode_attention, decode_attn.decode_attention_plain
+    before = ops.launch_counts()["decode_attention"]
+    got = wrapper(q, k, v, lengths)
+    want = plain(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)

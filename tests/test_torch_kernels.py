@@ -1,11 +1,14 @@
-"""Port parity for the four fabric kernel modules of ``repro_torch``.
+"""Port parity for the four fabric kernel modules and the decode
+attention kernel module of ``repro_torch``.
 
 Each kernel's plain PyTorch version (what the ``ops`` wrapper runs on CPU
 tensors) is held against the reference's ``repro.kernels.ref`` oracle on
-the same numpy-made inputs; ``switch_step_fused`` is also held against
-``repro.kernels.ops.switch_step_fused`` in interpret mode.  The
-dataplane is int32, so the tolerance is exact equality on every output.
-The CUDA kernels themselves run only on the card
+the same numpy-made inputs; ``switch_step_fused`` and
+``decode_attention`` are also held against the reference's Pallas
+kernels in interpret mode.  The dataplane is int32, so the tolerance
+there is exact equality on every output; decode attention is float, held
+at the reference's own tolerances (2e-5 in float32, 3e-2 with bfloat16
+inputs).  The CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 from __future__ import annotations
@@ -16,11 +19,13 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.kernels import ops as jops
 from repro.kernels import ref
-from repro_torch.kernels import nic_deliver, ops, ring_copy, ring_push
-from repro_torch.kernels import switch_step
+from repro_torch.kernels import decode_attn, nic_deliver, ops, ring_copy
+from repro_torch.kernels import ring_push, switch_step
 
-from torch_cases import deliver_inputs, push_inputs, switch_inputs, with_ext
+from torch_cases import (decode_inputs, deliver_inputs, edge_lengths,
+                         push_inputs, switch_inputs, with_ext)
 
 
 def _t(a):
@@ -159,6 +164,100 @@ def test_switch_step_full_rings_backpressure():
     for nm, g, x in zip(_OUT_NAMES, got, want):
         _eq(g, x, f"switch_step output '{nm}'")
     assert int(got[-1][:, switch_step.M_EMITTED].sum()) == 0
+
+
+# ------------------------------------------------------ decode_attention
+DA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _da_inputs(rng, b, nq, nkv, hd, s, dtype):
+    arrays = decode_inputs(rng, b, nq, nkv, hd, s)
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    return ([jnp.asarray(a, jd) for a in arrays],
+            [_t(a).to(dtype) for a in arrays])
+
+
+def _da_close(got, want, tol):
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nkv,hd,s,blk",
+                         [(1, 4, 4, 64, 128, 32), (2, 8, 2, 32, 64, 16),
+                          (3, 16, 4, 16, 96, 32), (1, 2, 1, 128, 256, 64)])
+def test_decode_attention_plain_matches_kernel_and_ref(dtype, b, nq, nkv,
+                                                       hd, s, blk):
+    """The sweep of ``tests/test_kernels.py``: the plain version against
+    the interpret-mode Pallas kernel and ``ref_decode_attn``."""
+    (jq, jk, jv), (q, k, v) = _da_inputs(np.random.default_rng(s + nq),
+                                         b, nq, nkv, hd, s, dtype)
+    for length in (1, s // 2 + 1, s):
+        got = decode_attn.decode_attention_plain(
+            q, k, v, torch.full((b,), length, dtype=torch.int32))
+        _da_close(got, jops.decode_attention(jq, jk, jv, length, s_blk=blk),
+                  DA_TOL[dtype])
+        _da_close(got, ref.ref_decode_attn(jq, jk, jv, length),
+                  DA_TOL[dtype])
+
+
+@pytest.mark.parametrize("which", range(6))
+def test_decode_attention_plain_edge_lengths(which):
+    """Block edges of the online-softmax scan, length 0 included: every
+    row masked by the finite -1e30 sentinel gives mean(v) in the
+    reference, its kernel and the plain version alike."""
+    b, nq, nkv, hd, s, blk = 2, 4, 2, 32, 96, 32
+    length = edge_lengths(s, blk)[which]
+    (jq, jk, jv), (q, k, v) = _da_inputs(np.random.default_rng(11), b, nq,
+                                         nkv, hd, s, torch.float32)
+    got = decode_attn.decode_attention_plain(
+        q, k, v, torch.full((b,), length, dtype=torch.int32))
+    _da_close(got, jops.decode_attention(jq, jk, jv, length, s_blk=blk),
+              2e-5)
+    _da_close(got, ref.ref_decode_attn(jq, jk, jv, length), 2e-5)
+    if length == 0:
+        mean_v = v.mean(dim=1).repeat_interleave(nq // nkv, dim=1)
+        _da_close(got, mean_v.numpy(), 2e-5)
+
+
+def test_decode_attention_plain_per_slot_lengths():
+    """One call with a length per slot equals slot-by-slot calls of the
+    reference's kernel and oracle (the reference ``vmap``s them)."""
+    n, nq, nkv, hd, s, blk = 5, 4, 2, 32, 64, 16
+    lengths = np.asarray([0, 1, blk, blk + 1, s], np.int32)
+    (jq, jk, jv), (q, k, v) = _da_inputs(np.random.default_rng(12), n, nq,
+                                         nkv, hd, s, torch.float32)
+    got = ops.decode_attention(q, k, v, _t(lengths))
+    for i, length in enumerate(lengths.tolist()):
+        one = (jq[i:i + 1], jk[i:i + 1], jv[i:i + 1])
+        _da_close(got[i:i + 1], jops.decode_attention(*one, length,
+                                                      s_blk=blk), 2e-5)
+        _da_close(got[i:i + 1], ref.ref_decode_attn(*one, length), 2e-5)
+
+
+def test_decode_attention_launcher_checks_before_launch():
+    """The CUDA launcher refuses what its kernel does not take before any
+    pointer reaches it (so these checks run on the CPU)."""
+    q, k, v = (_t(a) for a in decode_inputs(np.random.default_rng(13), 2,
+                                             4, 2, 16, 8))
+    lengths = torch.tensor([3, 8], dtype=torch.int32)
+    cases = [
+        ((q, k, v.to(torch.bfloat16), lengths), "mix"),
+        ((q, k, v, lengths.long()), "int32"),
+        ((q.to(torch.float16), k.to(torch.float16), v.to(torch.float16),
+          lengths), "bfloat16"),
+        ((q, k, v, lengths[:1]), "lengths"),
+        ((q, k[:, :, :1].contiguous(), v, lengths), "has shape"),
+        ((q, k.transpose(0, 1).contiguous().transpose(0, 1), v, lengths),
+         "contiguous"),
+        ((torch.zeros((2, 18, 16)), torch.zeros((2, 8, 2, 16)),
+          torch.zeros((2, 8, 2, 16)), lengths), "g <= 8"),
+        ((q[:, :3].contiguous(), k, v, lengths), "divide"),
+    ]
+    for args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            decode_attn.decode_attention_cuda(*args)
 
 
 # ------------------------------------------------------------ dispatching

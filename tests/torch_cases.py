@@ -148,3 +148,18 @@ def probe_inputs(rng, nb, ways, vw, n):
     pick = rng.random(n) < 0.2
     q_tag[pick] = tags[np.clip(q_bucket[pick], 0, nb - 1), 0]
     return tags, values, q_bucket, q_tag
+
+
+# ------------------------------------------------------ decode attention
+def decode_inputs(rng, b, nq, nkv, hd, s):
+    """q [B, nq, hd] and K/V [B, S, nkv, hd], standard normal float32
+    (the caller rounds to bfloat16 where it tests that type)."""
+    return (rng.standard_normal((b, nq, hd)).astype(np.float32),
+            rng.standard_normal((b, s, nkv, hd)).astype(np.float32),
+            rng.standard_normal((b, s, nkv, hd)).astype(np.float32))
+
+
+def edge_lengths(s, tile):
+    """The lengths that stress a tiled scan: 0 (every row masked), 1,
+    tile - 1, tile, tile + 1 and S."""
+    return [0, 1, tile - 1, tile, tile + 1, s]
