@@ -15,10 +15,16 @@ exit, no result line) on any mismatch:
    sentinel rows, full rings and FIFOs, flags and fragment indices of
    0x8000 and above, key words with the high bit set, raw and 1-flow
    hashing, empty buckets, matches at several ways and out-of-range
-   buckets — equal bit for bit; and decode attention in float32 and
-   bfloat16 at per-slot lengths 0, 1, split - 1, split, split + 1 and S,
-   cache lengths that are not a multiple of the split, and Qwen2-1.5B's
-   decode shapes, within the stated tolerance (``DA_TOL``);
+   buckets — equal bit for bit (the switch step, which updates its state
+   in place, runs on clones and must return the clones themselves; its
+   cases include a full free FIFO with leaks, full flow FIFOs and rx
+   rings, three tiers with mixed destinations and candidate lists that
+   are not a multiple of its CTA); and decode attention in float32 and
+   bfloat16 at per-slot lengths 0, 1, tile - 1, tile, tile + 1, S,
+   2 tiles - 1, 2 tiles + 1 and 4 tiles + 1, 1, 6 and 8 query heads a kv
+   head at head dims 64, 128 and 256, a batch of length 0 only, cache
+   lengths that are not a multiple of the tile, and Qwen2-1.5B's decode
+   shapes, within the stated tolerance (``DA_TOL``);
 2. quickstart parity: the README's echo pair (4 flows, 8 RPCs, 4 steps)
    through the kernels and through the plain path;
 3. full-size loopback run: a 512-flow client/server pair under
@@ -50,7 +56,12 @@ exit, no result line) on any mismatch:
    graph replay), the plain version's, its bound and, for decode
    attention, the time of ``F.scaled_dot_product_attention`` on the same
    inputs, on inputs captured from phase 3 (fabric kernels), phase 5
-   (KVS kernels) and phase 6 (decode attention).
+   (KVS kernels) and phase 6 (decode attention); the switch step's graph
+   restores its captured state before every call, and its time is that
+   graph's less a graph of the restores.  The two redesigned kernels'
+   inputs are saved to ``build/phase4_inputs.pt`` (``kernel_ab.py
+   --inputs`` times other checkouts on them), and their device
+   activities per call counted in a CUDA graph of one call.
 
 Then it prints a ``details`` line (the whole report as JSON), the
 kernel summary line, the card's name and power limit and, last, the
@@ -228,7 +239,8 @@ def switch_inputs(rnd, t, f, e, w, r, d, c, b, nb, m=None, full=None):
     from repro_torch.kernels import switch_step as ss
     scal = torch.zeros((t, ss.SCAL_COLS), dtype=i32, device=rnd.dev)
     scal[:, 0] = fh
-    scal[:, 1] = fh + (0 if full == "free" else rnd.ints(2, r + 1, (t,)))
+    scal[:, 1] = fh + (0 if full == "free" else r if full == "free_full"
+                       else rnd.ints(2, r + 1, (t,)))
     scal[:, 2] = rnd.ints(0, f, (t,))
     scal[:, 3] = rnd.ints(1, b + 2, (t,))
     scal[:, 4] = rnd.ints(1, f + 1, (t,))
@@ -240,7 +252,11 @@ def switch_inputs(rnd, t, f, e, w, r, d, c, b, nb, m=None, full=None):
     ext_slots[:, 0] = rnd.ints(0, 12, (m,))
     ext_slots[:, 2] = rnd.ints(0, 2, (m,)) << 16
     rx_tail = rx_head + (e if full == "rx" else rnd.ints(0, 3, (t, f)))
-    ff_tail = ffh + (d if full == "fifo" else rnd.ints(0, 4, (t, f)))
+    # "free_full": every slot free, even flows' FIFOs full and odd flows'
+    # one short, so grants leak onto the entries grants read
+    short = torch.arange(f, dtype=i32, device=rnd.dev) % 2
+    ff_tail = ffh + (d if full == "fifo" else d - short
+                     if full == "free_full" else rnd.ints(0, 4, (t, f)))
     args = (tx_buf, tx_head, tx_head + rnd.ints(0, 6, (t, f)),
             rnd.ints(0, 100, (t, f, e, w)), rx_head, rx_tail.to(i32),
             rnd.ints(0, 100, (t, r, w)), fifo, rnd.ints(0, r, (t, f, d)),
@@ -367,12 +383,18 @@ def phase_kernels(torch, dev):
     rnd = Rand(torch, 1234, dev)
     cases = 0
 
-    def run(name, kernel, plain, args, tol=None, **kw):
+    def run(name, kernel, plain, args, tol=None, in_place=None, **kw):
         """Kernel against plain version: bit for bit, or within ``tol``
-        (float outputs)."""
+        (float outputs).  ``in_place`` maps outputs to the arguments the
+        kernel updates in place: it then runs on clones and must return
+        those clones."""
         nonlocal cases
-        got = kernel(*args, **kw)
+        work = tuple(a.clone() for a in args) if in_place else args
+        got = kernel(*work, **kw)
         want = plain(*args, **kw)
+        for k, i in (in_place or {}).items():
+            check(got[k] is work[i], f"{name}: output {k} is not argument "
+                  f"{i}, updated in place")
         torch.cuda.synchronize()
         try:
             if tol is None:
@@ -417,11 +439,26 @@ def phase_kernels(torch, dev):
                      (dict(t=1, f=f, e=e, w=w, r=r, d=d, c=c, b=b, nb=nb,
                            m=n), "free"),
                      (dict(t=1, f=f, e=e, w=w, r=r, d=d, c=c, b=b, nb=nb,
-                           m=n), "fifo")):
+                           m=n), "fifo"),
+                     # in-place hazards and cluster edges
+                     (dict(t=1, f=f, e=e, w=w, r=r, d=d, c=c, b=b, nb=nb,
+                           m=n), "free_full"),
+                     (dict(t=3, f=2, e=8, w=16, r=8, d=8, c=16, b=4, nb=16),
+                      "free_full"),
+                     (dict(t=1, f=f, e=16, w=w, r=r, d=d, c=c, b=b, nb=nb),
+                      "free_full"),
+                     (dict(t=3, f=f, e=16, w=w, r=r, d=d, c=c, b=b, nb=nb),
+                      None),
+                     (dict(t=3, f=f, e=16, w=w, r=r, d=d, c=c, b=b, nb=nb,
+                           m=2049), None),
+                     (dict(t=1, f=f, e=16, w=w, r=r, d=d, c=c, b=b, nb=nb,
+                           m=300), "rx")):
         args, include_fetch = switch_inputs(rnd, full=full, **kw)
         run("switch_step_fused", ops.switch_step_fused,
             ss.switch_step_fused_plain, args, bmax=kw["b"],
-            include_fetch=include_fetch)
+            include_fetch=include_fetch,
+            in_place={**ss.IN_PLACE, **({} if include_fetch
+                                        else ss.EXT_PASSED)})
     # KVS kernels: small shapes with edges, then phase 5's shapes (the
     # fabric's 16-row enqueues and the 2^20-row bulk calls on the store)
     kb = KVS_FABRIC["n_flows"] * KVS_FABRIC["batch_size"]
@@ -446,18 +483,26 @@ def phase_kernels(torch, dev):
                   (nbk, ways, vw, KVS_CHUNK)):
         run("kv_probe", ops.kv_probe, kp.kv_probe_plain,
             probe_inputs(rnd, *shape))
-    # decode attention: per-slot lengths at the split's edges, S not a
-    # multiple of the split, and phase 6's shapes (Qwen2-1.5B's pool)
+    # decode attention: per-slot lengths at the tile's edges, S not a
+    # multiple of the tile, 1, 6 and 8 query heads a kv head at head dims
+    # 64, 128 and 256, a batch of length 0 only, and phase 6's shapes
+    # (Qwen2-1.5B's pool)
     lm = get_lm_config()
+    shapes = [(6, 4, 2, 32, 200), (7, 8, 2, 64, 300)]
+    shapes += [(8, g_ * 2, 2, hd_, 300) for g_ in (1, 6, 8)
+               for hd_ in (64, 128, 256)]
+    shapes += [(5, 12, 2, 128, 333, "zero"),
+               (LM_POOL["n_slots"], lm.n_heads, lm.n_kv_heads,
+                lm.resolved_head_dim, LM_POOL["max_seq"])]
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
-        for b_, nq, nkv, hd, s_ in ((6, 4, 2, 32, 200), (7, 8, 2, 64, 300),
-                                    (LM_POOL["n_slots"], lm.n_heads,
-                                     lm.n_kv_heads, lm.resolved_head_dim,
-                                     LM_POOL["max_seq"])):
-            edges = [0, 1, da.SPLIT - 1, da.SPLIT, da.SPLIT + 1, s_]
+        for b_, nq, nkv, hd, s_, *zero in shapes:
+            edges = [0, 1, da.TILE - 1, da.TILE, da.TILE + 1, s_,
+                     2 * da.TILE - 1, 2 * da.TILE + 1, 4 * da.TILE + 1]
             lengths = rnd.ints(0, s_ + 1, (b_,))
             lengths[:len(edges)] = torch.tensor(edges[:b_], device=dev)
+            if zero:
+                lengths.zero_()
             args = (rnd.normal((b_, nq, hd), dtype),
                     rnd.normal((b_, s_, nkv, hd), dtype),
                     rnd.normal((b_, s_, nkv, hd), dtype), lengths)
@@ -635,6 +680,15 @@ def phase_full(torch, dev):
     return runs, rate
 
 
+def fresh(torch, state):
+    """A copy of a state to run from: on the card the fused switch step
+    updates the state it is given in place, so a state that is read
+    again afterwards (an end state compared, profiled and captured) is
+    never run itself."""
+    from repro_torch.core.fabric import tree_map
+    return tree_map(torch.clone, state)
+
+
 def device_events(torch, fn, reps):
     """CUDA activity (kernels, copies, memsets) of ``reps`` calls of
     ``fn`` under ``torch.profiler``: [(name, microseconds)]."""
@@ -648,6 +702,39 @@ def device_events(torch, fn, reps):
         torch.cuda.synchronize()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == DeviceType.CUDA]
+
+
+def graph_activities(torch, fn):
+    """Device activities of one call of ``fn``: the kernel, memcpy and
+    memset nodes of a CUDA graph that captures the call (read with
+    libcuda's ``cuGraphGetNodes``; the profiler can miss launches late in
+    a long process)."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    count = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                 ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        count += kind.value in (0, 1, 2)   # kernel, memcpy, memset
+    del graph
+    return count
 
 
 def graph_ms(torch, fn, n=20, reps=5):
@@ -689,8 +776,10 @@ def device_share(torch, runs, steps=20):
     time."""
     out = {}
     for route, r in runs.items():
+        cst, sst, tel, gst = fresh(torch, (r["cst"], r["sst"], r["tel"],
+                                           r["gst"]))
         ev = device_events(torch, lambda: r["eng"].run_steps(
-            r["cst"], r["sst"], steps, tel=r["tel"], gen=r["gst"]), 1)
+            cst, sst, steps, tel=tel, gen=gst), 1)
         dev_us = sum(us for _, us in ev) / steps
         wall_us = r["secs"] / FULL_STEPS * 1e6
         by_name = {}
@@ -720,7 +809,11 @@ class recording:
 
         def recorder(name, fn):
             def call(*args, **kw):
-                self.seen[name] = (args, kw)
+                # the switch step updates its arguments in place: keep
+                # them as they were before the call
+                kept = (tuple(a.clone() for a in args)
+                        if name == "switch_step_fused" else args)
+                self.seen[name] = (kept, kw)
                 return fn(*args, **kw)
             return call
         for k, fn in self.orig.items():
@@ -741,8 +834,9 @@ def capture_inputs(torch, runs, seen):
     with recording(seen):
         for route in ("fused", "staged"):
             r = runs[route]
-            r["eng"].run_steps(r["cst"], r["sst"], 3, tel=r["tel"],
-                               gen=r["gst"])
+            cst, sst, tel, gst = fresh(torch, (r["cst"], r["sst"],
+                                               r["tel"], r["gst"]))
+            r["eng"].run_steps(cst, sst, 3, tel=tel, gen=gst)
     torch.cuda.synchronize()
     return seen
 
@@ -928,7 +1022,7 @@ def phase_kvs(torch, dev, seen):
     pay, is_set = mixes[KVS_MIXES[-1][0]]
     step_seen = {}
     with recording(step_seen):
-        kvs_serve(torch, dev, k["fab"], k["eng"], k["state"],
+        kvs_serve(torch, dev, k["fab"], k["eng"], fresh(torch, k["state"]),
                   (pay[:1], is_set[:1]), 1)
     seen["rpc_pack"] = step_seen["rpc_pack"]
     return runs
@@ -942,10 +1036,11 @@ def kvs_share(torch, dev, runs, n_batches=8):
     out = {}
     for route, r in runs.items():
         box = {}
+        state = fresh(torch, r["state"])
 
         def window():
-            box["res"] = kvs_serve(torch, dev, r["fab"], r["eng"],
-                                   r["state"], r["read_reqs"], n_batches)
+            box["res"] = kvs_serve(torch, dev, r["fab"], r["eng"], state,
+                                   r["read_reqs"], n_batches)
         ev = device_events(torch, window, 1)
         steps = sum(st_ for _, st_ in box["res"][1])
         read = r["serve"][KVS_MIXES[-1][0]]
@@ -1111,7 +1206,8 @@ def phase_lm(torch, dev, seen):
     share = {}
     for route, r in runs.items():
         run = r["eng"].make_run_steps(LM_PROFILE_STEPS)
-        ev = device_events(torch, lambda: run(r["st"]), 1)
+        st = fresh(torch, r["st"])
+        ev = device_events(torch, lambda: run(st), 1)
         dev_us = sum(us for _, us in ev) / LM_PROFILE_STEPS
         wall_us = r["secs"] / LM_STEPS * 1e6
         by_name = {}
@@ -1131,7 +1227,7 @@ def phase_lm(torch, dev, seen):
     # phase 4's decode_attention inputs: the last call of one more step
     step_seen = {}
     with recording(step_seen):
-        k_eng.make_run_steps(1)(k["st"])
+        k_eng.make_run_steps(1)(fresh(torch, k["st"]))
     torch.cuda.synchronize()
     seen["decode_attention"] = step_seen["decode_attention"]
     # the serving CLI once at full width
@@ -1191,7 +1287,7 @@ def phase_summary(torch, paths, seen):
                               lambda a, kw, o: nd.bytes_moved(*a)),
         "switch_step_fused": (
             ss.switch_step_fused_cuda, ss.switch_step_fused_plain,
-            lambda a, kw, o: ss.bytes_moved(
+            lambda a, kw, o: ss.bytes_touched(
                 a[:20], o, kw.get("include_fetch", True))),
         "rpc_pack": (pk.rpc_pack_cuda, pk.rpc_pack_plain,
                      lambda a, kw, o: pk.bytes_moved(a[0], a[7], a[8])),
@@ -1204,34 +1300,65 @@ def phase_summary(torch, paths, seen):
                              da.decode_attention_plain,
                              lambda a, kw, o: da.bytes_moved(*a)),
     }
+    redesigned = ("switch_step_fused", "decode_attention")
+    save = ROOT / "build" / "phase4_inputs.pt"
+    save.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({name: seen[name] for name in redesigned}, save)
     rows = []
     for name, (src, replaces) in KERNELS.items():
         kernel, plain, nbytes = impl[name]
         args, kw = seen[name]
-        got = kernel(*args, **kw)
+        call = (lambda: kernel(*args, **kw))
+        restore = None
+        if name == "switch_step_fused":
+            # in place: run on a working copy, restored before each call
+            work = tuple(a.clone() for a in args)
+
+            def restore():
+                for i in ss.IN_PLACE.values():
+                    work[i].copy_(args[i])
+
+            def call():
+                restore()
+                return kernel(*work, **kw)
+        got = call()
         want = plain(*args, **kw)
         torch.cuda.synchronize()
         extra = {}
-        if name == "decode_attention":
-            dname = str(args[0].dtype).split(".")[-1]
-            err = close(torch, got, want, DA_TOL[dname], name)
-            lib = sdpa_call(torch, *args)
-            lib_out = lib()[:, :, 0].to(torch.float32)
-            extra = {"library": "F.scaled_dot_product_attention",
-                     "library_max_abs_err": close(
-                         torch, lib_out, want, DA_TOL["bfloat16"],
-                         "scaled_dot_product_attention"),
-                     "library_ms": graph_ms(torch, lib),
-                     "library_call_ms": time_ms(torch, lib),
-                     "ops_bound_ms": da.flops(*args) / PEAK_FLOPS[dname]
-                     * 1e3,
-                     "lengths_mean": float(args[3].float().mean())}
-        else:
-            err = same(torch, got, want)
-        call_ms = time_ms(torch, lambda: kernel(*args, **kw))
+        try:
+            if name == "decode_attention":
+                dname = str(args[0].dtype).split(".")[-1]
+                err = close(torch, got, want, DA_TOL[dname], name)
+                lib = sdpa_call(torch, *args)
+                lib_out = lib()[:, :, 0].to(torch.float32)
+                extra = {"library": "F.scaled_dot_product_attention",
+                         "library_max_abs_err": close(
+                             torch, lib_out, want, DA_TOL["bfloat16"],
+                             "scaled_dot_product_attention"),
+                         "library_ms": graph_ms(torch, lib),
+                         "library_call_ms": time_ms(torch, lib),
+                         "ops_bound_ms": da.flops(*args)
+                         / PEAK_FLOPS[dname] * 1e3,
+                         "lengths_mean": float(args[3].float().mean())}
+            else:
+                err = same(torch, got, want)
+        except SmokeFailure as exc:
+            raise SmokeFailure(f"{name} (phase 4 inputs): {exc}") from exc
+        if name in redesigned:
+            # after the comparison: these calls update ``work`` in place
+            if restore:
+                restore()
+            extra["activities_per_call"] = graph_activities(
+                torch, lambda: kernel(*(work if restore else args), **kw))
+        call_ms = time_ms(torch, call)
         plain_call_ms = time_ms(torch, lambda: plain(*args, **kw))
-        ms = graph_ms(torch, lambda: kernel(*args, **kw))
+        ms = graph_ms(torch, call)
         plain_ms = graph_ms(torch, lambda: plain(*args, **kw))
+        if restore:
+            extra["restore_ms"] = graph_ms(torch, restore)
+            extra["restore_call_ms"] = time_ms(torch, restore)
+            ms -= extra["restore_ms"]
+            call_ms -= extra["restore_call_ms"]
         outs = got if isinstance(got, tuple) else (got,)
         moved = nbytes(args, kw, outs)
         launches = sum(c[name] for c, _ in paths.values())

@@ -11,7 +11,11 @@ Directions follow the paper's naming (as seen FROM the NIC):
   ring is full.
 
 Every stage is a function from ``FabricState`` to a new ``FabricState``;
-inputs are never modified.  With ``cfg.use_pallas`` the stages run
+the stage API never modifies its inputs.  The fused pipeline
+(``nic_pipeline`` on a ``use_pallas`` fabric, ``fused_switch_front``)
+updates the state it is given in place on the card, as the reference's
+donated state allows: a caller that needs that state afterwards clones
+it first.  With ``cfg.use_pallas`` the stages run
 through the hand-written CUDA kernels of ``repro_torch.kernels`` (their
 plain versions on CPU tensors): ``rpc_pack`` in the host's enqueue,
 ``ring_push`` in every ring push, ``ring_gather`` in the emit,
@@ -261,8 +265,10 @@ class DaggerFabric:
         Semantically ``nic_deliver; nic_sched_emit; host_rx_drain(B)``;
         with ``use_pallas`` (default: ``cfg.use_pallas``) the whole back
         half runs as the single ``switch_step_fused`` kernel (a one-tier
-        stack with every row destined here).  Returns ``(state', records
-        [F, B, ...], valid [F, B])`` like ``host_rx_drain``."""
+        stack with every row destined here), which on the card updates
+        ``st``'s rings, request table, free and flow FIFOs in place (see
+        ``fused_switch_front``).  Returns ``(state', records [F, B, ...],
+        valid [F, B])`` like ``host_rx_drain``."""
         c = self.cfg
         fused = c.use_pallas if use_pallas is None else use_pallas
         if not fused:
@@ -314,6 +320,15 @@ def fused_switch_front(fab: DaggerFabric, stacked: FabricState, tel,
 
     Returns ``(stacked', records [T, F*B, ...], valid [T, F*B],
     telemetry')``.
+
+    In place on the card: the kernel updates the rx rings, request table,
+    free FIFO, flow FIFOs and their cursors of ``stacked`` (and
+    ``tel.hist``) where they lie, and ``stacked'`` holds those same
+    tensors; ``stacked`` is dead after the call (a view of a state, as
+    ``nic_pipeline`` passes, updates that state).  A caller that needs
+    the state it passed — a start state reused across routes, a test's
+    inputs — clones it first (``tree_map(torch.clone, st)``).  On CPU
+    tensors the plain version runs and leaves its inputs untouched.
     """
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.switch_step import (S_FREE_HEAD, S_FREE_TAIL,

@@ -32,11 +32,11 @@ SIGNATURES = {
     "dg_ring_push": [P] * 5 + [I] * 4 + [P],
     "dg_ring_gather": [P] * 3 + [I] * 4 + [P],
     "dg_nic_deliver": [P] * 20 + [I] * 7 + [P],
-    "dg_switch_step": [P] * 37 + [I] * 13 + [P],
+    "dg_switch_step": [P] * 28 + [I] * 14 + [P],
     "dg_rpc_pack": [P] * 9 + [I] * 3 + [P],
     "dg_hash_steer": [P] * 2 + [I] * 4 + [P] * 2,
     "dg_kv_probe": [P] * 6 + [I] * 4 + [P],
-    "dg_decode_attention": [P] * 6 + [I] * 7 + [P],
+    "dg_decode_attention": [P] * 5 + [I] * 6 + [P],
 }
 
 _LIB = None

@@ -10,19 +10,30 @@ the mean of v over all S), then the weighted sum of v.  The output is
 float32 [B, nq, hd]; the caller casts.  The reference takes one scalar
 length and is ``vmap``ped per slot; one launch here serves all slots.
 
-Kernel (``csrc/decode_attn.cu``): split-KV.  One block of four warps per
-(split of ``SPLIT`` positions, slot, kv head) runs the online softmax
-over its part of the valid prefix — each warp one position at a time,
-its lanes holding hd/32 columns of the g query rows — merges its warps'
-(m, l, acc) and writes one partial; a second kernel merges a slot's
-partials in split order.  The TPU kernel carried (m, l, acc) across an
-in-order grid axis; CUDA blocks have no order, hence the two passes.
+Kernel (``csrc/decode_attn.cu``): one launch.  Each (slot, kv head) is
+a thread-block cluster of C CTAs of four warps (C <= 4, from the shapes
+and the SM count, so the CTAs cover the card once); CTA j reads the
+j-th of C contiguous runs of the valid prefix's 64-row tiles, so a
+slot's rows stream through C SMs at once.  bf16 with hd a multiple of 16
+(the main path) runs on tensor cores: K and V tiles staged in shared
+memory by 16-byte ``cp.async`` (a two-stage ring; K and V in separate
+groups), scores by ``mma.sync.m16n8k16`` with the cache rows as M and
+the g <= 8 query rows as N, the online softmax per query column, and
+P V on tensor cores with P cast to bf16 (as SDPA does).  float32 runs on
+CUDA cores (a warp a row, 16-byte loads at hd 128): TF32 would miss the
+float32 tolerance.  The warps merge in shared memory, the cluster's
+CTAs through distributed shared memory, in order; nothing but the
+inputs and the output touches device memory.  The TPU kernel carried
+(m, l, acc) across an in-order grid axis; CUDA blocks have no order,
+hence the merges.
 
 Bound on the card: bytes.  The call must read the valid K/V prefix of
 every (slot, kv head) once — at Qwen2-1.5B's shapes (nkv 2, hd 128,
 bf16) about 1 KiB per valid position per slot and layer — plus q, the
 lengths and the output (``bytes_moved``); the arithmetic is about 4g
-flops per K/V element pair (``flops``).
+flops per K/V element pair (``flops``).  Tolerance against the plain
+version: 2e-5 in float32; 3e-2 with bf16 inputs (the reference's bf16
+tolerance, which also covers P's cast to bf16).
 """
 from __future__ import annotations
 
@@ -31,7 +42,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-SPLIT = 64           # positions per block of the split kernel
+TILE = 64            # rows of a staged K/V tile
 MAX_G = 8            # query heads per kv head the kernel holds
 MAX_HD = 256
 
@@ -77,7 +88,7 @@ def decode_attention_plain(q, k, v, lengths):
 
 
 def decode_attention_cuda(q, k, v, lengths):
-    """Launch the CUDA kernels; same contract as ``decode_attention_plain``
+    """Launch the CUDA kernel; same contract as ``decode_attention_plain``
     with ``lengths`` an int32 [B] tensor, q/k/v of one dtype, g <= 8 and
     hd <= 256."""
     b, nq, hd, s, nkv, g = _shapes(q, k, v, lengths)
@@ -87,16 +98,14 @@ def decode_attention_cuda(q, k, v, lengths):
         raise ValueError(f"decode_attention: the kernel takes g <= {MAX_G}, "
                          f"hd <= {MAX_HD} and S >= 1; got g {g}, hd {hd}, "
                          f"S {s}")
-    nsplit = -(-s // SPLIT)
-    dev = q.device
-    out = torch.empty((b, nq, hd), dtype=torch.float32, device=dev)
-    work = torch.empty((b * nkv * nsplit * g * (hd + 2),),
-                       dtype=torch.float32, device=dev)
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("decode_attention: q, k and v must start on a "
+                         "16-byte boundary")
+    out = torch.empty((b, nq, hd), dtype=torch.float32, device=q.device)
     lib = _build.library()
     rc = lib.dg_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 lengths.data_ptr(), out.data_ptr(),
-                                 work.data_ptr(), b, s, nkv, g, hd, SPLIT,
-                                 int(q.dtype == torch.bfloat16),
+                                 lengths.data_ptr(), out.data_ptr(), b, s,
+                                 nkv, g, hd, int(q.dtype == torch.bfloat16),
                                  _build.stream_of(q))
     _build.check(rc, "decode_attention")
     return out

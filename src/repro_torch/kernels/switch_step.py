@@ -12,22 +12,38 @@ back to back over a [T]-tier stacked state:
 
 Every serial arbitration register is an exclusive prefix count over the
 global candidate order, so the result equals the serial arbiter's bit
-for bit.  ``scal`` [T, SCAL_COLS] is the per-tier register file and
+for bit.  Every array is int32; there is no other dtype path.  ``scal`` [T, SCAL_COLS] is the per-tier register file and
 ``mon`` [T, MON_COLS] the monitor deltas.  With ``include_fetch=False``
 phase A is skipped and the ``ext_*`` candidate list is consumed (the
 loopback pipeline hands its wire tile in that way, T = 1).
 
-Kernel (``csrc/switch_step.cu``): a fetch kernel (one thread per
-candidate) and then one 1024-thread block per destination tier running
-phases B-D separated by ``__syncthreads()``; the prefix counts are
-block-wide scans, the per-(tier, flow) push rank an ordered per-flow rank
-in shared memory, the histogram add an int32 ``atomicAdd``.  Floor
-modulo throughout.  Out of place: the scattered outputs start as copies.
+Kernel (``csrc/switch_step.cu``): ONE launch, one thread-block cluster
+of up to eight 256-thread CTAs per destination tier (one CTA for the
+small KVS and LM tiers).  Candidate i is thread i of the cluster; the
+grant, RR and leak ranks are CTA scans plus the lower CTAs' totals, and
+the ordered per-flow push rank the CTA's rank plus the lower CTAs'
+per-flow counts, read from distributed shared memory between
+``cluster.sync()`` rounds.  Phases C and D split the flows over the
+cluster after one cluster-wide prefix of the emit take; the histogram
+takes one atomic per warp and bin; rows move as int4.  Phase A (fetch)
+runs in the same launch.  Floor modulo throughout.
 
-Bound on the card: bytes — the rx ring, request table, free FIFO and
-flow FIFOs read and written once each, plus the candidate list and the
-drained tile; a few integer ops per candidate.  One block per tier is
-what this slice needs (T = 1 in the loopback); the copies run grid-wide.
+In place (the reference's contract: ``LoopbackEngine`` donates its
+state): on the card the call updates rx_buf, rx_head, rx_tail,
+req_table, fifo, ffbuf, ff_head, ff_tail, scal and hist where they lie
+and returns those very tensors; tx_head' (fetch route), the candidate
+list (fetch route), drained, dvalid and mon are new tensors, and on the
+ext route tx_head and the ``ext_*`` tensors come back as they were
+given.  A state passed in is dead after the call: a caller that needs
+it afterwards clones it first.  The plain version (the CPU path and the
+card's yardstick) leaves its inputs untouched and returns new tensors.
+
+Bound on the card: bytes, at a few integer operations a candidate.
+``bytes_touched`` counts what the step must move — the candidate rows,
+the granted, emitted and drained rows, the per-flow cursors, FIFO
+entries, registers and histogram, each once — well under a megabyte in
+the loopback, a bound of a fraction of a microsecond; the kernel waits
+instead on its chain of arbitration rounds and barriers.
 """
 from __future__ import annotations
 
@@ -50,7 +66,13 @@ SCAL_COLS = 9
  M_FIFO_FULL, M_BATCHES) = range(7)
 MON_COLS = 7
 
-MAX_FLOWS = 2048          # four per-flow arrays live in shared memory
+MAX_FLOWS = 2048          # per-flow arrays live in shared memory
+# outputs that are arguments updated in place on the card: output index ->
+# argument index (rx_buf, rx_head, rx_tail, req_table, fifo, ffbuf,
+# ff_head, ff_tail, scal, hist); on the ext route tx_head and the ext
+# candidate list also come back as given
+IN_PLACE = {1: 3, 2: 4, 3: 5, 4: 6, 5: 7, 6: 8, 7: 9, 8: 10, 9: 15, 10: 16}
+EXT_PASSED = {0: 1, 11: 17, 12: 18, 13: 19}
 
 
 def _rank_at(onehot, col):
@@ -244,6 +266,8 @@ def switch_step_fused_cuda(tx_buf, tx_head, tx_tail, rx_buf, rx_head,
                            conn_tag, conn_src, conn_dest, conn_lb, scal,
                            hist, ext_slots, ext_valid, ext_dest, bmax: int,
                            include_fetch: bool = True, key_words: int = 2):
+    """Launch the kernel; the contract of ``switch_step_fused_plain``,
+    except that the state is updated in place (module docstring)."""
     t, f, e, w = tx_buf.shape
     e_rx = rx_buf.shape[2]
     r = fifo.shape[1]
@@ -280,22 +304,52 @@ def switch_step_fused_cuda(tx_buf, tx_head, tx_tail, rx_buf, rx_head,
 
     def new(*shape):
         return torch.empty(shape, dtype=I32, device=dev)
-    outs = (new(t, f), new(t, f, e_rx, w), new(t, f), new(t, f),
-            new(t, r, w), new(t, r), new(t, f, d), new(t, f), new(t, f),
-            new(t, SCAL_COLS), new(t, nb), new(m, w), new(m), new(m),
-            new(t, f * bmax, w), new(t, f * bmax), new(t, MON_COLS))
+    if include_fetch:
+        txh, cand = new(t, f), (new(m, w), new(m), new(m))
+    else:
+        txh, cand = tx_head, (ext_slots, ext_valid, ext_dest)
+    drained, dvalid, mon = new(t, f * bmax, w), new(t, f * bmax), \
+        new(t, MON_COLS)
+    scratch = new(max(2 * t * m, 1))   # per-tier leak list
+    rows = (tx_buf, rx_buf, req_table, ext_slots, cand[0], drained)
+    vec = w % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in rows)
+    outs = (txh, rx_buf, rx_head, rx_tail, req_table, fifo, ffbuf, ff_head,
+            ff_tail, scal, hist, *cand, drained, dvalid, mon)
     lib = _build.library()
-    rc = lib.dg_switch_step(*(x.data_ptr() for x in ins + outs),
+    rc = lib.dg_switch_step(*(x.data_ptr() for x in ins),
+                            txh.data_ptr(), *(x.data_ptr() for x in cand),
+                            drained.data_ptr(), dvalid.data_ptr(),
+                            mon.data_ptr(), scratch.data_ptr(),
                             t, f, e, e_rx, w, r, d, c, nb, m, bmax,
-                            int(include_fetch), key_words,
+                            int(include_fetch), key_words, int(vec),
                             _build.stream_of(tx_buf))
     _build.check(rc, "switch_step_fused")
     return outs
 
 
-def bytes_moved(args, outs, include_fetch: bool) -> int:
-    """Every input the call reads once (the tx ring only with fetch, the
-    ext list only without) and every output written once."""
-    skip = {17, 18, 19} if include_fetch else {0}
-    ins = sum(x.numel() for k, x in enumerate(args) if k not in skip)
-    return 4 * (ins + sum(x.numel() for x in outs))
+def bytes_touched(args, outs, include_fetch: bool) -> int:
+    """Least bytes the step must move, each once, for these inputs: the
+    candidate rows with their valid and dest words (on the fetch route
+    also written out, with the tx cursors read and tx_head written), the
+    connection tables, each granted row (request row written, free-FIFO
+    entry read, flow-FIFO or leak entry written), each emitted row
+    (request row read, rx row written, flow-FIFO entry read, release
+    written), the drained tile (rx rows read, rows and valid words
+    written), the four per-flow cursors read and written, the register
+    rows read and written, the monitor row written and the histogram
+    read and written.  Data-dependent counts come from ``outs``' monitor
+    row."""
+    t, f, _, w = args[0].shape
+    m = args[18].shape[0]
+    c = args[11].shape[1]
+    nb = args[16].shape[1]
+    mon = outs[16]
+    granted = int((mon[:, M_DELIVERED] + mon[:, M_FIFO_FULL]).sum())
+    emitted = int(mon[:, M_EMITTED].sum())
+    drained = outs[14].shape[0] * outs[14].shape[1]
+    words = (m * (w + 2) + 4 * t * c + granted * (w + 2)
+             + emitted * (2 * w + 2) + drained * (2 * w + 1) + 8 * t * f
+             + 2 * t * SCAL_COLS + t * MON_COLS + 2 * t * nb)
+    if include_fetch:
+        words += m * (w + 2) + 3 * t * f
+    return 4 * words

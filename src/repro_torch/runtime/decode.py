@@ -368,8 +368,9 @@ class DecodeEngine:
     def make_run_steps(self, n_steps: int):
         """Single-tenant loop: ``run(st) -> (st, (comp_slots [K, N, W],
         comp_valid [K, N]))`` for K = ``n_steps`` steps, no host sync
-        inside.  The cache of ``st`` is updated in place; the other
-        states of ``st`` are left intact."""
+        inside.  The cache of ``st`` is updated in place, and on the card
+        with ``use_pallas`` fabrics so are the fabric states (the fused
+        switch step's in-place contract); clone ``st`` to keep it."""
         step = self.make_decode_step()
 
         def run(st):

@@ -23,9 +23,10 @@ from repro_torch.kernels import (decode_attn, hash_steer, kv_probe,
                                  nic_deliver, ops, ring_copy, ring_push,
                                  rpc_pack)
 from repro_torch.kernels import switch_step
-from torch_cases import (decode_inputs, deliver_inputs, edge_lengths,
-                         gather_inputs, hash_inputs, pack_inputs,
-                         probe_inputs, push_inputs, switch_inputs, with_ext)
+from torch_cases import (SWITCH_HAZARDS, decode_inputs, deliver_inputs,
+                         edge_lengths, gather_inputs, hash_inputs,
+                         pack_inputs, probe_inputs, push_inputs,
+                         switch_hazard, switch_inputs, with_ext)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -53,6 +54,27 @@ def _launch_and_compare(name, wrapper, plain, args, **kw):
     for k, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype and g.shape == w.shape, f"output {k}"
         assert torch.equal(g, w), f"{name} output {k} differs"
+
+
+def _switch_and_compare(args, ext, bmax=4):
+    """The kernel on clones of ``args`` (it updates them in place), the
+    plain version on ``args``: every output equal bit for bit, and the
+    in-place outputs are the clones themselves."""
+    wrapper, plain = ops.switch_step_fused, switch_step.switch_step_fused_plain
+    work = tuple(a.clone() for a in args)
+    before = ops.launch_counts()["switch_step_fused"]
+    got = wrapper(*work, bmax=bmax, include_fetch=not ext)
+    want = plain(*args, bmax=bmax, include_fetch=not ext)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["switch_step_fused"] == before + 1
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, f"output {k}"
+        assert torch.equal(g, w), f"switch_step_fused output {k} differs"
+    same = {**switch_step.IN_PLACE, **(switch_step.EXT_PASSED if ext
+                                       else {})}
+    for k, i in same.items():
+        assert got[k] is work[i], f"output {k} is not argument {i}"
+    return got
 
 
 @pytest.mark.parametrize("shape", [(4, 8, 16, 12), (512, 64, 16, 2048)])
@@ -85,10 +107,36 @@ def test_switch_step_kernel(cuda, ext):
     st = switch_inputs(rng)
     if ext:
         st = with_ext(rng, st)
-    args = _dev(st.values(), cuda)
-    _launch_and_compare("switch_step_fused", ops.switch_step_fused,
-                        switch_step.switch_step_fused_plain, args, bmax=4,
-                        include_fetch=not ext)
+    _switch_and_compare(_dev(st.values(), cuda), ext)
+
+
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("kind", SWITCH_HAZARDS)
+@pytest.mark.parametrize("f", [2, 512])
+def test_switch_step_kernel_hazards(cuda, kind, ext, f):
+    """The in-place hazards (a full free FIFO with leaks, avail == R,
+    full flow FIFOs, full rx rings), T = 3 tiers with mixed destinations,
+    at 2 flows (a one-CTA cluster) and 512 (eight CTAs; the fetch route's
+    6,144 candidates take three chunks of 2,048)."""
+    rng = np.random.default_rng(60 + f + SWITCH_HAZARDS.index(kind))
+    shape = {} if f == 2 else dict(f=f, e=16, r=2048, d=2048, c=64)
+    st = switch_hazard(rng, kind, **shape)
+    if ext:
+        st = with_ext(rng, st, m=19 if f == 2 else 2049)
+    got = _switch_and_compare(_dev(st.values(), cuda), ext)
+    if kind in ("free_full_leaks", "flow_fifo_full"):
+        assert int(got[-1][:, switch_step.M_FIFO_FULL].sum()) > 0
+
+
+@pytest.mark.parametrize("m", [1, 255, 257, 2047, 2048, 2049, 4500])
+def test_switch_step_kernel_ext_row_counts(cuda, m):
+    """Candidate lists that are not a multiple of the CTA (256 rows) or
+    of the cluster (2,048 rows), one tier of 512 flows."""
+    rng = np.random.default_rng(70 + m)
+    st = switch_inputs(rng, t=1, f=512, e=16, r=2048, d=2048, c=64)
+    st = with_ext(rng, st, m=m)
+    st["ext_dest"] = np.where(rng.random(m) < 0.9, 0, -1).astype(np.int32)
+    _switch_and_compare(_dev(st.values(), cuda), True)
 
 
 @pytest.mark.parametrize("n,pw,slot_words", [(9, 3, 16), (16, 11, 16),
@@ -137,15 +185,15 @@ def test_kv_probe_kernel(cuda, nb, ways, vw, n):
                                            (3, 16, 4, 16, 200),
                                            (32, 12, 2, 128, 1024)])
 def test_decode_attention_kernel(cuda, dtype, b, nq, nkv, hd, s):
-    """Every slot at its own length: the edges of the kernel's split of
-    ``decode_attn.SPLIT`` rows (0, 1, split - 1, split, split + 1, S) and
-    random lengths; S not a multiple of the split in the first two
-    shapes; the last is Qwen2-1.5B's decode pool (32 slots, 12 query / 2
-    kv heads, hd 128, 1,024 cache rows)."""
+    """Every slot at its own length: the edges of the kernel's tiles of
+    ``decode_attn.TILE`` rows (0, 1, tile - 1, tile, tile + 1, S) and
+    random lengths; S not a multiple of the tile in the first two shapes;
+    the last is Qwen2-1.5B's decode pool (32 slots, 12 query / 2 kv
+    heads, hd 128, 1,024 cache rows)."""
     rng = np.random.default_rng(8)
     q, k, v = (t.to(dtype) for t in _dev(decode_inputs(rng, b, nq, nkv, hd,
                                                        s), cuda))
-    edges = edge_lengths(s, decode_attn.SPLIT)
+    edges = edge_lengths(s, decode_attn.TILE)
     lengths = rng.integers(0, s + 1, b).astype(np.int32)
     lengths[:min(b, len(edges))] = edges[:b]
     (lengths,) = _dev((lengths,), cuda)
@@ -158,3 +206,48 @@ def test_decode_attention_kernel(cuda, dtype, b, nq, nkv, hd, s):
     assert got.dtype == torch.float32 and got.shape == want.shape
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 6, 8])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_decode_attention_kernel_groups_and_head_dims(cuda, dtype, g, hd):
+    """One, six and eight query heads a kv head at head dims 64, 128 and
+    256 (the tensor-core path's fragments in bf16, the CUDA-core path in
+    float32), per-slot lengths 0, 1, tile - 1, tile, tile + 1 and S, and
+    2 tiles - 1, 2 tiles + 1 and 4 tiles + 1, which end the runs of tiles
+    of a cluster's CTAs at other places."""
+    rng = np.random.default_rng(9 + g + hd)
+    nkv, s = 2, 300
+    tile = decode_attn.TILE
+    edges = edge_lengths(s, tile) + [2 * tile - 1, 2 * tile + 1,
+                                     4 * tile + 1]
+    b = len(edges) + 2
+    q, k, v = (t.to(dtype) for t in _dev(decode_inputs(rng, b, g * nkv,
+                                                       nkv, hd, s), cuda))
+    lengths = np.asarray(edges + list(rng.integers(0, s + 1, 2)), np.int32)
+    (lengths,) = _dev((lengths,), cuda)
+    before = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(q, k, v, lengths)
+    want = decode_attn.decode_attention_plain(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_all_lengths_zero(cuda, dtype):
+    """Every slot at length 0: every row masked, mean(v) over all S rows
+    from every split, merged by the last split to arrive."""
+    rng = np.random.default_rng(10)
+    q, k, v = (t.to(dtype) for t in _dev(decode_inputs(rng, 5, 12, 2, 128,
+                                                       333), cuda))
+    lengths = torch.zeros(5, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lengths)
+    want = decode_attn.decode_attention_plain(q, k, v, lengths)
+    mean_v = v.float().mean(dim=1).repeat_interleave(6, dim=1)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(got, mean_v, rtol=tol, atol=tol)

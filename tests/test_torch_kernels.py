@@ -24,8 +24,9 @@ from repro.kernels import ref
 from repro_torch.kernels import decode_attn, nic_deliver, ops, ring_copy
 from repro_torch.kernels import ring_push, switch_step
 
-from torch_cases import (decode_inputs, deliver_inputs, edge_lengths,
-                         push_inputs, switch_inputs, with_ext)
+from torch_cases import (SWITCH_HAZARDS, decode_inputs, deliver_inputs,
+                         edge_lengths, push_inputs, switch_hazard,
+                         switch_inputs, with_ext)
 
 
 def _t(a):
@@ -166,6 +167,92 @@ def test_switch_step_full_rings_backpressure():
     assert int(got[-1][:, switch_step.M_EMITTED].sum()) == 0
 
 
+def _hazard_state(kind, ext):
+    rng = np.random.default_rng(40 + SWITCH_HAZARDS.index(kind) + 10 * ext)
+    st = switch_hazard(rng, kind)
+    return with_ext(rng, st, m=19) if ext else st
+
+
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("kind", SWITCH_HAZARDS)
+def test_switch_step_plain_hazard_states(kind, ext):
+    """The states whose in-place update on the card is ordered by the
+    kernel's barriers — a full free FIFO with leaks, avail == R, full
+    flow FIFOs, full rx rings — through the plain version and the
+    reference's jnp oracle, on the fetch and the ext route."""
+    st = _hazard_state(kind, ext)
+    want = ref.ref_switch_step_fused(*map(jnp.asarray, st.values()), bmax=4,
+                                     include_fetch=not ext)
+    got = switch_step.switch_step_fused_plain(
+        *map(_t, st.values()), bmax=4, include_fetch=not ext)
+    for nm, g, x in zip(_OUT_NAMES, got, want):
+        _eq(g, x, f"switch_step output '{nm}'")
+    mon = got[-1]
+    if kind in ("free_full_leaks", "flow_fifo_full"):
+        assert int(mon[:, switch_step.M_FIFO_FULL].sum()) > 0, "no leak"
+    if kind == "rx_full":
+        assert int(mon[:, switch_step.M_EMITTED].sum()) == 0
+
+
+@pytest.mark.requires_pallas
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("kind", SWITCH_HAZARDS)
+def test_switch_step_plain_hazard_states_interpret_kernel(kind, ext):
+    """The hazard states against the reference's Pallas kernel itself
+    (interpret mode)."""
+    st = _hazard_state(kind, ext)
+    want = jops.switch_step_fused(*map(jnp.asarray, st.values()), bmax=4,
+                                  include_fetch=not ext)
+    got = switch_step.switch_step_fused_plain(
+        *map(_t, st.values()), bmax=4, include_fetch=not ext)
+    for nm, g, x in zip(_OUT_NAMES, got, want):
+        _eq(g, x, f"switch_step output '{nm}'")
+
+
+def test_switch_step_bytes_touched_counts_the_work():
+    """``bytes_touched``: the fixed part (candidate list, connection
+    tables, drained tile, cursors, registers, monitor row, histogram) on
+    a step with no valid candidate, and 4 (W + 2) bytes a granted row
+    plus 4 (2W + 2) an emitted row on top of it."""
+    st = with_ext(np.random.default_rng(7), switch_inputs(
+        np.random.default_rng(6)), m=19)
+    t, f, _, w = st["tx_buf"].shape
+    c, nb, m = st["conn_tag"].shape[1], st["hist"].shape[1], 19
+    idle = dict(st, ext_valid=np.zeros_like(st["ext_valid"]),
+                rx_tail=st["rx_head"].copy(), ff_tail=st["ff_head"].copy())
+    args = [_t(x) for x in idle.values()]
+    outs = switch_step.switch_step_fused_plain(*args, bmax=4,
+                                               include_fetch=False)
+    assert int(outs[-1][:, 1:].sum()) == 0          # nothing moved
+    fixed = 4 * (m * (w + 2) + 4 * t * c + t * f * 4 * (2 * w + 1)
+                 + 8 * t * f + 2 * t * switch_step.SCAL_COLS
+                 + t * switch_step.MON_COLS + 2 * t * nb)
+    assert switch_step.bytes_touched(args, outs, False) == fixed
+    args = [_t(x) for x in st.values()]
+    outs = switch_step.switch_step_fused_plain(*args, bmax=4,
+                                               include_fetch=False)
+    mon = outs[-1]
+    granted = int((mon[:, switch_step.M_DELIVERED]
+                   + mon[:, switch_step.M_FIFO_FULL]).sum())
+    emitted = int(mon[:, switch_step.M_EMITTED].sum())
+    assert granted > 0 and emitted > 0
+    assert switch_step.bytes_touched(args, outs, False) == fixed + 4 * (
+        granted * (w + 2) + emitted * (2 * w + 2))
+    # the fetch route also writes the candidate list and tx_head
+    args = [_t(x) for x in switch_inputs(np.random.default_rng(6)).values()]
+    outs = switch_step.switch_step_fused_plain(*args, bmax=4)
+    m_f = t * f * 4
+    mon = outs[-1]
+    granted = int((mon[:, switch_step.M_DELIVERED]
+                   + mon[:, switch_step.M_FIFO_FULL]).sum())
+    emitted = int(mon[:, switch_step.M_EMITTED].sum())
+    assert switch_step.bytes_touched(args, outs, True) == 4 * (
+        2 * m_f * (w + 2) + 3 * t * f + 4 * t * c
+        + t * f * 4 * (2 * w + 1) + 8 * t * f
+        + 2 * t * switch_step.SCAL_COLS + t * switch_step.MON_COLS
+        + 2 * t * nb + granted * (w + 2) + emitted * (2 * w + 2))
+
+
 # ------------------------------------------------------ decode_attention
 DA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -219,6 +306,22 @@ def test_decode_attention_plain_edge_lengths(which):
     if length == 0:
         mean_v = v.mean(dim=1).repeat_interleave(nq // nkv, dim=1)
         _da_close(got, mean_v.numpy(), 2e-5)
+
+
+@pytest.mark.parametrize("g,hd", [(1, 64), (1, 256), (8, 64), (8, 256)])
+def test_decode_attention_plain_group_and_head_dim_edges(g, hd):
+    """The kernel's limits — one and eight query heads a kv head, head
+    dims 64 and 256 — with per-slot lengths at the 64-row tile's edges,
+    slot by slot against ``ref_decode_attn``."""
+    nkv, s = 2, 130
+    lengths = np.asarray(edge_lengths(s, decode_attn.TILE), np.int32)
+    (jq, jk, jv), (q, k, v) = _da_inputs(np.random.default_rng(g * hd),
+                                         len(lengths), g * nkv, nkv, hd, s,
+                                         torch.float32)
+    got = decode_attn.decode_attention_plain(q, k, v, _t(lengths))
+    for i, length in enumerate(lengths.tolist()):
+        one = (jq[i:i + 1], jk[i:i + 1], jv[i:i + 1])
+        _da_close(got[i:i + 1], ref.ref_decode_attn(*one, length), 2e-5)
 
 
 def test_decode_attention_plain_per_slot_lengths():

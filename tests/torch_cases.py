@@ -109,6 +109,41 @@ def with_ext(rng, st, m=14):
     return st
 
 
+# In-place hazards of the fused switch step (the card updates the state
+# where it lies, so the order of reads and writes inside the kernel must
+# reproduce the reference's out-of-place result).
+SWITCH_HAZARDS = ("free_full_leaks", "avail_r", "flow_fifo_full", "rx_full")
+
+
+def switch_hazard(rng, kind, **kw):
+    """``switch_inputs`` with one hazard forced:
+
+    * ``free_full_leaks``: every slot free (free_tail - free_head == R),
+      even flows' FIFOs full and odd flows' one entry short, so grants
+      leak back to ``free_tail + rank`` — the entries grants read at
+      ``free_head + rank`` (mod R);
+    * ``avail_r``: avail == R, flow FIFOs as drawn;
+    * ``flow_fifo_full``: every flow FIFO full (every grant leaks);
+    * ``rx_full``: every rx ring full (nothing is emitted).
+    """
+    st = switch_inputs(rng, **kw)
+    r = st["fifo"].shape[1]
+    d = st["ffbuf"].shape[2]
+    e = st["rx_buf"].shape[2]
+    if kind in ("free_full_leaks", "avail_r"):
+        st["scal"][:, 1] = st["scal"][:, 0] + r
+    if kind == "free_full_leaks":
+        short = np.arange(st["ff_head"].shape[1]) % 2
+        st["ff_tail"] = (st["ff_head"] + d - short).astype(np.int32)
+    elif kind == "flow_fifo_full":
+        st["ff_tail"] = (st["ff_head"] + d).astype(np.int32)
+    elif kind == "rx_full":
+        st["rx_tail"] = (st["rx_head"] + e).astype(np.int32)
+    elif kind != "avail_r":
+        raise ValueError(kind)
+    return st
+
+
 # ------------------------------------------------------------ KVS kernels
 def hash_inputs(rng, n, w):
     """Key words over the whole int32 range (high bits set often)."""
