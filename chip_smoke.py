@@ -15,7 +15,10 @@ exit, no result line) on any mismatch:
    sentinel rows, full rings and FIFOs, flags and fragment indices of
    0x8000 and above, key words with the high bit set, raw and 1-flow
    hashing, empty buckets, matches at several ways and out-of-range
-   buckets — equal bit for bit (the switch step, which updates its state
+   buckets, both paths of ``kv_probe`` (tables off a 16-byte boundary
+   take the scalar one) — equal bit for bit (``nic_deliver_fused`` at
+   the edges of its cluster, and leaving its inputs as they were; the
+   switch step, which updates its state
    in place, runs on clones and must return the clones themselves; its
    cases include a full free FIFO with leaks, full flow FIFOs and rx
    rings, three tiers with mixed destinations and candidate lists that
@@ -58,10 +61,12 @@ exit, no result line) on any mismatch:
    inputs, on inputs captured from phase 3 (fabric kernels), phase 5
    (KVS kernels) and phase 6 (decode attention); the switch step's graph
    restores its captured state before every call, and its time is that
-   graph's less a graph of the restores.  The two redesigned kernels'
-   inputs are saved to ``build/phase4_inputs.pt`` (``kernel_ab.py
-   --inputs`` times other checkouts on them), and their device
-   activities per call counted in a CUDA graph of one call.
+   graph's less a graph of the restores; ``kv_probe`` is also timed on
+   the serve loop's 16-query GET.  The redesigned kernels' device
+   activities per call are counted in a CUDA graph of one call, and the
+   inputs of ``switch_step_fused``, ``decode_attention`` and
+   ``nic_deliver_fused`` saved to ``build/phase4_inputs.pt``
+   (``kernel_ab.py --inputs`` times other checkouts on them).
 
 Then it prints a ``details`` line (the whole report as JSON), the
 kernel summary line, the card's name and power limit and, last, the
@@ -206,7 +211,8 @@ def deliver_inputs(rnd, n, f, d, r, w, c, full=None):
     valid = rnd.ints(0, 2, (n,))
     fifo = rnd.perm(r)
     head = rnd.one(0, r)
-    avail = 0 if full == "free" else rnd.one(0, r + 1)
+    avail = (0 if full == "free" else r if full == "all_free"
+             else rnd.one(0, r + 1))
     ffspace = (torch.zeros((f,), dtype=torch.int32, device=rnd.dev)
                if full == "fifo" else rnd.ints(0, d + 1, (f,)))
     scal = torch.tensor([head, avail, head + avail, rnd.one(0, 50),
@@ -303,6 +309,15 @@ def probe_inputs(rnd, nb, ways, vw, n):
     return tags, rnd.ints(-2**31, 2**31 - 1, (nb, ways, vw)), q_bucket, q_tag
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes off a 16-byte
+    boundary (a view one element into a larger allocation)."""
+    flat = t.new_empty(t.numel() + 1)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 # --------------------------------------------------------------------------
 # timing
 # --------------------------------------------------------------------------
@@ -383,19 +398,24 @@ def phase_kernels(torch, dev):
     rnd = Rand(torch, 1234, dev)
     cases = 0
 
-    def run(name, kernel, plain, args, tol=None, in_place=None, **kw):
+    def run(name, kernel, plain, args, tol=None, in_place=None, pure=False,
+            **kw):
         """Kernel against plain version: bit for bit, or within ``tol``
         (float outputs).  ``in_place`` maps outputs to the arguments the
         kernel updates in place: it then runs on clones and must return
-        those clones."""
+        those clones.  ``pure``: every argument must equal its pre-call
+        clone afterwards."""
         nonlocal cases
         work = tuple(a.clone() for a in args) if in_place else args
+        kept = tuple(a.clone() for a in args) if pure else ()
         got = kernel(*work, **kw)
         want = plain(*args, **kw)
         for k, i in (in_place or {}).items():
             check(got[k] is work[i], f"{name}: output {k} is not argument "
                   f"{i}, updated in place")
         torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(args, kept)):
+            check(torch.equal(a, b), f"{name}: wrote its input {k}")
         try:
             if tol is None:
                 same(torch, got, want)
@@ -419,9 +439,18 @@ def phase_kernels(torch, dev):
                         ((n, f, d, r, w, c), None),
                         ((n, 8, 4, r, w, 4), None),
                         ((n, f, d, r, w, c), "free"),
-                        ((n, f, d, r, w, c), "fifo")):
+                        ((n, f, d, r, w, c), "fifo"),
+                        # the cluster's edges: a row past one chunk, three
+                        # chunks, one CTA, MAX_FLOWS flows; every slot free
+                        # and short flow FIFOs, so every chunk grants and
+                        # leaks
+                        ((n + 1, f, 8, 2 * r, w, c), "all_free"),
+                        ((5000, f, 8, 4 * r, w, c), "all_free"),
+                        ((200, 64, 8, 256, w, 16), "all_free"),
+                        ((n, nd.MAX_FLOWS, 4, r, w, c), "all_free")):
         run("nic_deliver_fused", ops.nic_deliver_fused,
-            nd.nic_deliver_fused_plain, deliver_inputs(rnd, *shape, full=full))
+            nd.nic_deliver_fused_plain, deliver_inputs(rnd, *shape, full=full),
+            pure=True)
     for kw, full in ((dict(t=3, f=2, e=8, w=16, r=8, d=8, c=16, b=4, nb=16),
                       None),
                      (dict(t=3, f=2, e=8, w=16, r=8, d=8, c=16, b=4, nb=16,
@@ -479,10 +508,26 @@ def phase_kernels(torch, dev):
              torch.tensor(active, dtype=torch.int32, device=dev)))
     nbk, ways, vw = (KVS_STORE["n_buckets"], KVS_STORE["ways"],
                      KVS_STORE["value_words"])
-    for shape in ((8, 4, 8, 40), (3, 2, 1, 17), (nbk, ways, vw, kb),
-                  (nbk, ways, vw, KVS_CHUNK)):
-        run("kv_probe", ops.kv_probe, kp.kv_probe_plain,
-            probe_inputs(rnd, *shape))
+    # both paths: vector (4 ways, whole 16-byte value rows; N not a
+    # multiple of its block of 256 queries; VW 4 and 0) and scalar (2
+    # ways, VW 3, tables off a 16-byte boundary)
+    for shape, vec in (((8, 4, 8, 40), True), ((3, 2, 1, 17), False),
+                       ((64, 4, 8, 1001), True), ((64, 4, 4, 37), True),
+                       ((16, 4, 0, 9), True), ((64, 2, 8, 1001), False),
+                       ((64, 4, 3, 77), False), ((4096, 4, 8, 3001), "tags"),
+                       ((4096, 4, 8, 3001), "values"),
+                       ((nbk, ways, vw, kb), True),
+                       ((nbk, ways, vw, KVS_CHUNK), True)):
+        args = list(probe_inputs(rnd, *shape))
+        if vec in ("tags", "values"):
+            i = 0 if vec == "tags" else 1
+            args[i] = misaligned(args[i])
+            vec = False
+        out = torch.empty((shape[3], shape[2]), dtype=torch.int32,
+                          device=dev)
+        check(kp.vector_path(args[0], args[1], out) is vec,
+              f"kv_probe {shape}: vector path {not vec}, expected {vec}")
+        run("kv_probe", ops.kv_probe, kp.kv_probe_plain, tuple(args))
     # decode attention: per-slot lengths at the tile's edges, S not a
     # multiple of the tile, 1, 6 and 8 query heads a kv head at head dims
     # 64, 128 and 256, a batch of length 0 only, and phase 6's shapes
@@ -1024,7 +1069,10 @@ def phase_kvs(torch, dev, seen):
     with recording(step_seen):
         kvs_serve(torch, dev, k["fab"], k["eng"], fresh(torch, k["state"]),
                   (pay[:1], is_set[:1]), 1)
+    check("rpc_pack" in step_seen and "kv_probe" in step_seen,
+          f"kvs serve batch missed rpc_pack or kv_probe: {sorted(step_seen)}")
     seen["rpc_pack"] = step_seen["rpc_pack"]
+    seen["kv_probe_serve"] = step_seen["kv_probe"]
     return runs
 
 
@@ -1300,10 +1348,13 @@ def phase_summary(torch, paths, seen):
                              da.decode_attention_plain,
                              lambda a, kw, o: da.bytes_moved(*a)),
     }
-    redesigned = ("switch_step_fused", "decode_attention")
+    redesigned = ("switch_step_fused", "decode_attention",
+                  "nic_deliver_fused", "kv_probe")
+    # kernel_ab.py --inputs times other checkouts on these (kv_probe's
+    # 576 MiB store is not saved: kernel_ab.py fills its own)
     save = ROOT / "build" / "phase4_inputs.pt"
     save.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({name: seen[name] for name in redesigned}, save)
+    torch.save({name: seen[name] for name in redesigned[:3]}, save)
     rows = []
     for name, (src, replaces) in KERNELS.items():
         kernel, plain, nbytes = impl[name]
@@ -1350,6 +1401,17 @@ def phase_summary(torch, paths, seen):
                 restore()
             extra["activities_per_call"] = graph_activities(
                 torch, lambda: kernel(*(work if restore else args), **kw))
+        if name == "kv_probe":
+            # the serve loop's GET (16 queries a batch), beside the bulk
+            # GET's 2^20
+            sargs, skw = seen["kv_probe_serve"]
+            err = max(err, same(torch, kernel(*sargs, **skw),
+                                plain(*sargs, **skw)))
+            extra.update(serve_queries=int(sargs[2].shape[0]),
+                         serve_ms=graph_ms(torch, lambda: kernel(*sargs,
+                                                                 **skw)),
+                         serve_call_ms=time_ms(torch, lambda: kernel(
+                             *sargs, **skw)))
         call_ms = time_ms(torch, call)
         plain_call_ms = time_ms(torch, lambda: plain(*args, **kw))
         ms = graph_ms(torch, call)

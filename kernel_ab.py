@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""A/B measurement of ``switch_step_fused`` and ``decode_attention`` on
-one CUDA card, across checkouts of this repository.
+"""A/B measurement of the redesigned kernels — ``switch_step_fused``,
+``decode_attention``, ``nic_deliver_fused`` and ``kv_probe`` — on one
+CUDA card, across checkouts of this repository.
 
     python3 kernel_ab.py [--tree DIR]... [--inputs FILE] [--stamps]
                          [--out FILE]
@@ -13,15 +14,22 @@ tree it reports:
 
 - per kernel: the device activities of one call (the nodes of a CUDA
   graph of the call, and ``torch.profiler``'s count) and their durations
-  (``torch.profiler``), and its device time per call in a CUDA graph
-  (20 calls, median of 5 replays).  ``switch_step_fused`` updates its
-  state in place in newer trees, so every call of that graph first
-  restores the captured state with ``copy_``; the kernel's time is the
-  graph's time less that of a graph of the restores alone.
-- activities per step of the fused loopback route (the 512-flow pair of
-  ``chip_smoke.py`` phase 3) and of the LM decode kernel route
-  (Qwen2-1.5B at full width, the pool of phase 6), each from a profiled
-  window of steps.
+  (``torch.profiler``), its device time per call in a CUDA graph (20
+  calls, median of 5 replays), one eager call's time (``call_ms``,
+  median of 25 event-timed calls) and, where the tree has one, its
+  bound's bytes.  ``switch_step_fused`` updates its state in place in
+  newer trees, so every call of that graph first restores the captured
+  state with ``copy_``; the kernel's time is the graph's time less that
+  of a graph of the restores alone.  ``kv_probe`` runs at two shapes, the bulk GET of 2^20 Zipf 0.99 keys and the
+  KVS serve loop's 16 queries, on a 2^22-bucket x 4-way store the
+  script fills itself as ``chip_smoke.py`` phase 5 does (2^23 keys in
+  bulk SETs of 2^20, values from a seeded generator), and as a control
+  on 2^20 queries of consecutive buckets that all hit way 0 (the same
+  work with every sector read in order, none at random).
+- activities and device time per step of the fused and the staged
+  loopback routes (the 512-flow pair of ``chip_smoke.py`` phase 3) and
+  activities per step of the LM decode kernel route (Qwen2-1.5B at full
+  width, the pool of phase 6), each from a profiled window of steps.
 - decode attention with every slot at one length (1, 64, 256, 290 and
   1,024 rows) beside ``F.scaled_dot_product_attention`` on the same
   inputs, a yardstick only: the fixed cost of a call and the cost of its
@@ -31,11 +39,12 @@ tree it reports:
   ``switch_step.cu`` built beside it (cycles from one marker to the next).
 
 Inputs: ``--inputs`` names the file ``chip_smoke.py`` writes with the
-inputs its phase 4 captured (``build/phase4_inputs.pt``); without it the
-switch step's inputs are the last call of 60 further fused loopback
-steps at phase 3's load, and decode attention's are seeded bf16 tensors
-at phase 6's shapes with lengths uniform in [1, 580).  The JSON result
-goes to ``--out`` (default ``build/kernel_ab.json``) and a summary
+inputs its phase 4 captured (``build/phase4_inputs.pt``); without it (or
+for a kernel the file lacks) the switch step's and the delivery stage's
+inputs are the last call of 60 further steps of the fused and the staged
+loopback at phase 3's load, and decode attention's are seeded bf16
+tensors at phase 6's shapes with lengths uniform in [1, 580).  The JSON
+result goes to ``--out`` (default ``build/kernel_ab.json``) and a summary
 to standard output.  Needs a CUDA card; exits 2 without one.
 """
 from __future__ import annotations
@@ -67,6 +76,11 @@ LM_STEPS = 3
 SWITCH_IN_PLACE = (3, 4, 5, 6, 7, 8, 9, 10, 15, 16)
 MARKERS = ("phase B", "phase C", "phase D", "register write-back")
 DECODE_LENGTHS = (1, 64, 256, 290, 1024)
+# the KVS store and bulk GET of chip_smoke.py phase 5
+KVS_STORE = dict(n_buckets=2**22, ways=4, key_words=2, value_words=8)
+KVS_KEYS = 2**23
+KVS_CHUNK = 2**20
+KVS_SERVE_QUERIES = 16
 
 
 def graph_ms(torch, fn, n=20, reps=5):
@@ -93,6 +107,23 @@ def graph_ms(torch, fn, n=20, reps=5):
         b.synchronize()
         times.append(a.elapsed_time(b) / n)
     del graph
+    return statistics.median(times)
+
+
+def call_ms(torch, fn, reps=25):
+    """Median of ``reps`` eager calls of ``fn``, each between CUDA events
+    (host launch cost included), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
@@ -158,9 +189,10 @@ def per_call_activities(torch, fn, calls=10):
             "us": {n: statistics.median(v) for n, v in times.items()}}
 
 
-def loopback(torch, dev):
-    """The fused 512-flow loopback of chip_smoke phase 3 after
-    ``WARM_STEPS`` steps, and the arguments of its next switch step."""
+def loopback(torch, dev, stages=False, record="switch_step_fused"):
+    """The 512-flow loopback of chip_smoke phase 3 (the fused route, or
+    the staged one) after ``WARM_STEPS`` steps, and the arguments of the
+    next step's last call of the ``ops`` kernel ``record``."""
     from repro_torch.config import FabricConfig
     from repro_torch.core import loadgen as lg
     from repro_torch.core import telemetry as tlm
@@ -174,26 +206,121 @@ def loopback(torch, dev):
     cst, sst = fab.init_state(dev), fab.init_state(dev)
     sst = fab.open_connection(sst, 1, 0, 0, LB_ROUND_ROBIN)
     gen = lg.LoadGen(fab, mode=lg.MODE_DETERMINISTIC)
-    eng = LoopbackEngine(fab, fab, lambda r, v: dict(r), loadgen=gen)
+    eng = LoopbackEngine(fab, fab, lambda r, v: dict(r), loadgen=gen,
+                         stages=stages)
     tel = tlm.create(device=dev)
     gst = gen.init_state(LOAD * cfg.n_flows * cfg.batch_size, seed=7,
                          device=dev)
     cst, sst, _, tel, gst = eng.run_steps(cst, sst, WARM_STEPS, tel=tel,
                                           gen=gst)
     seen = {}
-    orig = ops.switch_step_fused
+    orig = getattr(ops, record)
 
-    def record(*args, **kw):
+    def recorder(*args, **kw):
         seen["args"] = (tuple(a.clone() for a in args), dict(kw))
         return orig(*args, **kw)
-    ops.switch_step_fused = record
+    setattr(ops, record, recorder)
     try:
         cst, sst, _, tel, gst = eng.run_steps(cst, sst, 1, tel=tel, gen=gst)
     finally:
-        ops.switch_step_fused = orig
+        setattr(ops, record, orig)
     torch.cuda.synchronize()
     state = {"cst": cst, "sst": sst, "tel": tel, "gst": gst}
     return eng, state, seen["args"]
+
+
+def route_profile(torch, eng, state):
+    """Device activities and device microseconds (the sum of activity
+    durations) per step over ``PROFILE_STEPS`` steps, run on a copy of
+    ``state`` (the fused route updates its state in place)."""
+    from repro_torch.core.fabric import tree_map
+    st = tree_map(torch.clone, state)
+    ev = device_events(torch, lambda: eng.run_steps(
+        st["cst"], st["sst"], PROFILE_STEPS, tel=st["tel"], gen=st["gst"]))
+    return {"activities_per_step": len(ev) / PROFILE_STEPS,
+            "device_us_per_step": sum(us for _, us in ev) / PROFILE_STEPS}
+
+
+def kernel_times(torch, fn):
+    """Activities per call, CUDA-graph ms and eager call ms of ``fn``."""
+    res = per_call_activities(torch, fn)
+    res["ms"] = graph_ms(torch, fn)
+    res["call_ms"] = call_ms(torch, fn)
+    return res
+
+
+def nic_deliver(torch, args, kw):
+    """``nic_deliver_fused`` on the staged route's inputs."""
+    from repro_torch.kernels import nic_deliver as nd
+    res = kernel_times(torch, lambda: nd.nic_deliver_fused_cuda(*args, **kw))
+    res["bytes"] = nd.bytes_moved(*args)
+    res["n"] = int(args[0].shape[0])
+    return res
+
+
+def kv_probe_calls(torch, dev):
+    """``kv_probe``'s arguments at the bulk GET (2^20 Zipf 0.99 keys), at
+    the serve loop's 16 queries and on 2^20 consecutive buckets, on a
+    store filled as phase 5 fills it; the first two are recorded from
+    ``DeviceKVS.get``.  Returns {shape: (tags, values, q_bucket, q_tag)}."""
+    import numpy as np
+    from repro_torch.data import zipf_keys
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.kvs import DeviceKVS
+
+    def key_words(keys):
+        return torch.stack([keys & 0x7FFFFFFF, keys >> 31], dim=1) \
+            .to(torch.int32)
+
+    kvs = DeviceKVS(**KVS_STORE, use_pallas=True)
+    db = kvs.init_state(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2024)
+    for i in range(KVS_KEYS // KVS_CHUNK):
+        keys = torch.arange(i * KVS_CHUNK, (i + 1) * KVS_CHUNK,
+                            dtype=torch.int64, device=dev)
+        vals = torch.randint(0, 2**31 - 1,
+                             (KVS_CHUNK, KVS_STORE["value_words"]),
+                             generator=gen, dtype=torch.int32, device=dev)
+        db = kvs.set(db, key_words(keys), vals)
+    get_keys = torch.from_numpy(zipf_keys(
+        KVS_CHUNK, KVS_KEYS, 0.99, np.random.default_rng(1))).to(dev)
+    calls = []
+    orig = ops.kv_probe
+
+    def recorder(*args):
+        calls.append(args)
+        return orig(*args)
+    ops.kv_probe = recorder
+    try:
+        kvs.get(db, key_words(get_keys))
+        kvs.get(db, key_words(get_keys[:KVS_SERVE_QUERIES]))
+    finally:
+        ops.kv_probe = orig
+    # control: as many queries on consecutive buckets, each hitting way 0
+    # (every tag and value sector read in order, none at random)
+    tags, values = calls[0][:2]
+    calls.append((tags, values, torch.arange(
+        KVS_CHUNK, dtype=torch.int32, device=dev),
+        tags[:KVS_CHUNK, 0].contiguous()))
+    torch.cuda.synchronize()
+    return dict(zip(("bulk", "serve", "sequential"), calls))
+
+
+def kv_probe(torch, dev):
+    """``kv_probe``'s times at the three shapes of ``kv_probe_calls``."""
+    from repro_torch.kernels import kv_probe as kp
+    out = {}
+    for shape, args in kv_probe_calls(torch, dev).items():
+        res = kernel_times(torch, lambda: kp.kv_probe_cuda(*args))
+        res["bytes"] = kp.bytes_moved(*args)
+        res["n"] = int(args[2].shape[0])
+        if hasattr(kp, "vector_path"):
+            res["vector_path"] = kp.vector_path(
+                args[0], args[1], torch.empty((res["n"], args[1].shape[-1]),
+                                              dtype=torch.int32, device=dev))
+        out[shape] = res
+    return out
 
 
 def decode_inputs(torch, dev):
@@ -332,11 +459,14 @@ def worker(opts):
     res = {"tree": opts.tree[0], "build_s": time.perf_counter() - t0,
            "device": torch.cuda.get_device_name(0)}
     eng, state, sw = loopback(torch, dev)
+    seng, sstate, nd_args = loopback(torch, dev, stages=True,
+                                     record="nic_deliver_fused")
     dec = decode_inputs(torch, dev)
     if opts.inputs:
         saved = torch.load(opts.inputs, map_location=dev)
         sw = saved.get("switch_step_fused", sw)
         dec = saved.get("decode_attention", dec)
+        nd_args = saved.get("nic_deliver_fused", nd_args)
     res["inputs"] = opts.inputs or "synthesized"
 
     # switch step: restore the captured state, then call
@@ -378,12 +508,17 @@ def worker(opts):
     da_res["by_length"] = decode_profile(torch, da, *dargs[:3])
     res["decode_attention"] = da_res
 
-    # activities per step on the two main paths
+    res["nic_deliver_fused"] = nic_deliver(torch, *nd_args)
+    res["kv_probe"] = kv_probe(torch, dev)
+
+    # activities (and device time) per step on the main paths
     ops.reset_launch_counts()
-    ev = device_events(torch, lambda: eng.run_steps(
-        state["cst"], state["sst"], PROFILE_STEPS, tel=state["tel"],
-        gen=state["gst"]))
-    res["fused_activities_per_step"] = len(ev) / PROFILE_STEPS
+    fused = route_profile(torch, eng, state)
+    staged = route_profile(torch, seng, sstate)
+    res["fused_activities_per_step"] = fused["activities_per_step"]
+    res["fused_device_us_per_step"] = fused["device_us_per_step"]
+    res["staged_activities_per_step"] = staged["activities_per_step"]
+    res["staged_device_us_per_step"] = staged["device_us_per_step"]
     res["lm_activities_per_step"] = lm_activities(torch, dev)
     print(json.dumps(res))
     return 0
@@ -421,12 +556,21 @@ def main():
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         results.append(res)
         sw, da = res["switch_step_fused"], res["decode_attention"]
+        nd, kv = res["nic_deliver_fused"], res["kv_probe"]
         print(f"{tree}: switch_step_fused {sw['ms']:.5f} ms "
               f"({sw['activities_per_call']} activities/call), "
               f"decode_attention {da['ms']:.5f} ms "
               f"({da['activities_per_call']} activities/call, SDPA "
-              f"{da['sdpa_ms']:.5f} ms), activities "
-              f"per step fused {res['fused_activities_per_step']:.1f}, "
+              f"{da['sdpa_ms']:.5f} ms), nic_deliver_fused "
+              f"{nd['ms']:.5f} ms ({nd['activities_per_call']} "
+              f"activities/call, call {nd['call_ms']:.5f} ms), kv_probe "
+              f"{kv['bulk']['ms']:.5f} ms at {kv['bulk']['n']}, "
+              f"{kv['serve']['ms']:.5f} ms at {kv['serve']['n']}, "
+              f"{kv['sequential']['ms']:.5f} ms in order; "
+              f"per step fused {res['fused_activities_per_step']:.1f} "
+              f"activities {res['fused_device_us_per_step']:.1f} us, "
+              f"staged {res['staged_activities_per_step']:.1f} activities "
+              f"{res['staged_device_us_per_step']:.1f} us, "
               f"lm {res['lm_activities_per_step']:.1f}", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

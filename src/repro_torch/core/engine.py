@@ -8,12 +8,17 @@ Python loops over the step; the done counter stays a device scalar, so
 target`` — the reference's while-loop predicate — and so stops on the
 same step.
 
-Memory: nothing is updated in place.  Each step builds the next states
-and the previous ones are freed as soon as they are dropped, so at most
-two generations of state are alive; the reference's buffer donation buys
-the same bound, and a state is small (about 8 MB per NIC at 512 flows,
-mostly the flow FIFOs and the two rings).  Inputs passed to the engine are
-therefore left intact.
+In place on the card: on a ``use_pallas`` fabric with CUDA tensors the
+fused route's ``nic_pipeline`` (one ``switch_step_fused``) updates the
+fabric state it is given where it lies, as the reference's donated state
+allows, so ``run_steps`` and ``run_until`` consume the ``cst``/``sst``
+they are passed: clone a state you reuse (``tree_map(torch.clone,
+st)``) and rebind to the returned states.  On CPU tensors, on the plain
+route and on the staged route (``stages=True``, whose stage API never
+modifies its inputs) the inputs are left untouched; each step then
+builds the next states and frees the previous ones, so at most two
+generations of state are alive (about 8 MB per NIC at 512 flows, mostly
+the flow FIFOs and the two rings).
 """
 from __future__ import annotations
 

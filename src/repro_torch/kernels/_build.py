@@ -31,11 +31,11 @@ I = ctypes.c_int
 SIGNATURES = {
     "dg_ring_push": [P] * 5 + [I] * 4 + [P],
     "dg_ring_gather": [P] * 3 + [I] * 4 + [P],
-    "dg_nic_deliver": [P] * 20 + [I] * 7 + [P],
+    "dg_nic_deliver": [P] * 20 + [I] * 8 + [P],
     "dg_switch_step": [P] * 28 + [I] * 14 + [P],
     "dg_rpc_pack": [P] * 9 + [I] * 3 + [P],
     "dg_hash_steer": [P] * 2 + [I] * 4 + [P] * 2,
-    "dg_kv_probe": [P] * 6 + [I] * 4 + [P],
+    "dg_kv_probe": [P] * 6 + [I] * 5 + [P],
     "dg_decode_attention": [P] * 5 + [I] * 6 + [P],
 }
 
@@ -163,6 +163,12 @@ def require_float(name: str, device: torch.device, **tensors) -> None:
         dtypes.add(t.dtype)
     if len(dtypes) > 1:
         raise ValueError(f"{name}: inputs mix {sorted(map(str, dtypes))}")
+
+
+def aligned(*tensors, to: int = 16) -> bool:
+    """Whether every tensor's data starts on a ``to``-byte boundary (what
+    the kernels' int4 paths load and store)."""
+    return all(t.data_ptr() % to == 0 for t in tensors)
 
 
 def require_shapes(name: str, **pairs) -> None:

@@ -26,7 +26,8 @@
 //     per-flow push rank is the CTA's rank plus the lower CTAs' per-flow
 //     counts, all read from distributed shared memory; cluster.sync()
 //     separates the dependent rounds.  The results are the serial
-//     arbiter's, bit for bit.
+//     arbiter's, bit for bit (dg::arbitrate_chunk in arbiter.cuh, which
+//     nic_deliver.cu shares).
 //   * phases C and D split the flows across the cluster's CTAs after one
 //     cluster-wide prefix of the emit take over flows.
 //   * the histogram add is one atomic per warp and bin (__match_any_sync
@@ -56,7 +57,7 @@
 //     place.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "arbiter.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -71,9 +72,10 @@ enum {
   M_INGESTED = 0, M_DELIVERED, M_EMITTED, M_COMPLETED, M_NO_SLOT,
   M_FIFO_FULL, M_BATCHES, MON_COLS
 };
-// values each CTA publishes in shared memory for the cluster
+// values each CTA publishes in shared memory for the cluster (the first
+// dg::ARB_WORDS are the arbiter's)
 enum {
-  P_V = 0, P_RR, P_LK, P_TAKE, R_GR, R_DNS, R_DELIV, R_BATCH, R_ING,
+  P_TAKE = dg::ARB_WORDS, R_GR, R_DNS, R_DELIV, R_BATCH, R_ING,
   R_COMPL, R_DONE, R_SUM, N_PUB
 };
 constexpr int HEADER_WORDS = 5;
@@ -187,12 +189,11 @@ __global__ void __launch_bounds__(kThreads) switch_step_kernel(Args a) {
   for (int f = tid; f < F; f += kThreads) gcar[f] = 0;
   if (tid < N_PUB) pub[tid] = 0;
   int my_gr = 0, my_dns = 0;
-  int base_v = 0, base_rr = 0, base_lk = 0;  // equal in every thread
+  dg::ArbCarry car{0, 0, 0};
   const int chunk = nc * kThreads;
 
   // ---- phase B: deliver (allocate + steer + flow-FIFO scatter) ----------
   for (int c0 = 0; c0 < d.M; c0 += chunk) {
-    for (int f = tid; f < F; f += kThreads) cnt[f] = 0;
     const int i = c0 + rank * kThreads + tid;
     const bool in = i < d.M;
     const int* row;
@@ -238,98 +239,57 @@ __global__ void __launch_bounds__(kThreads) switch_step_kernel(Args a) {
     const bool is_resp = ((((unsigned)row[2]) >> 16) & 0x1u) != 0u;
     const bool is_rr = mine && lbv == LB_RR;
 
-    // round 1: grant rank and RR rank (two 16-bit counts in one scan)
-    int tot1;
-    const int ex1 =
-        dg::block_excl_scan((mine ? 1 : 0) | (is_rr ? 0x10000 : 0), &tot1);
-    if (tid == 0) {
-      pub[P_V] = tot1 & 0xFFFF;
-      pub[P_RR] = tot1 >> 16;
-    }
-    cluster.sync();
-    int off_v = 0, off_rr = 0, all_v = 0, all_rr = 0;
-    for (int q = 0; q < nc; ++q) {
-      const int* p = cluster.map_shared_rank(pub, q);
-      const int pv = p[P_V], prr = p[P_RR];
-      if (q < rank) {
-        off_v += pv;
-        off_rr += prr;
-      }
-      all_v += pv;
-      all_rr += prr;
-    }
-    const int vrank = base_v + off_v + (ex1 & 0xFFFF);
-    const bool granted = mine && vrank < avail;
-    const int sid =
-        granted ? a.fifo[(long long)t * R + dg::fmod_i(free_head + vrank, R)]
-                : R;
-    const int sw = sid < 0 ? sid + R : sid;
-    if (granted && sw >= 0 && sw < R) {
-      copy_row(a.req + ((long long)t * R + sw) * d.W, row, d.W, d.vec);
-    }
-    int flow = 0;
-    if (mine) {
-      const int rrrank = base_rr + off_rr + (ex1 >> 16);
-      if (lbv == LB_STATIC) {
-        flow = dg::fmod_i(srcf, active);
-      } else if (lbv == LB_OBJECT) {
-        flow = (int)(dg::fnv1a(row + HEADER_WORDS, d.key_words) %
-                     (uint32_t)active);
-      } else {
-        flow = dg::fmod_i(rr0 + rrrank, active);
-      }
-      if (is_resp && hit) flow = dg::fmod_i(srcf, active);
-      // flow < F whenever active <= F (the caller's contract); the clamp
-      // only keeps a broken contract inside the arrays
-      flow = flow < F ? flow : F - 1;
-    }
-
-    // round 2: ordered per-flow push rank (space from the pre-push cursors)
-    const int local = dg::ordered_group_rank(granted, flow, cnt);
-    cluster.sync();
-    bool accepted = false;
-    if (granted) {
-      int frank = gcar[flow] + local;
-      for (int q = 0; q < rank; ++q)
-        frank += cluster.map_shared_rank(cnt, q)[flow];
-      const int ft = a.ff_tail[tF + flow];
-      const int space = d.D - (ft - a.ff_head[tF + flow]);
-      accepted = frank < space;
-      if (accepted) {
-        a.ffbuf[(tF + flow) * d.D + dg::fmod_i(ft + frank, d.D)] = sid;
-      }
-    }
-
-    // round 3: leak rank (flow FIFO full: the slot goes back to the free
-    // FIFO, written once every grant of every chunk has been read)
-    const bool leaked = granted && !accepted;
-    int tot_lk;
-    const int ex2 = dg::block_excl_scan(leaked ? 1 : 0, &tot_lk);
-    if (tid == 0) pub[P_LK] = tot_lk;
+    // the arbiter's rounds (arbiter.cuh); space from the pre-push
+    // cursors, leaks through the scratch list (written once every grant
+    // of every chunk has been read)
+    int sid = R;
+    bool granted = false;
+    dg::arbitrate_chunk(
+        cluster, pub, cnt, gcar, F, car, mine, is_rr,
+        [&](int vrank, int rrrank, int* key) {
+          granted = mine && vrank < avail;
+          if (granted)
+            sid = a.fifo[(long long)t * R + dg::fmod_i(free_head + vrank, R)];
+          const int sw = sid < 0 ? sid + R : sid;
+          if (granted && sw >= 0 && sw < R) {
+            copy_row(a.req + ((long long)t * R + sw) * d.W, row, d.W, d.vec);
+          }
+          int flow = 0;
+          if (mine) {
+            if (lbv == LB_STATIC) {
+              flow = dg::fmod_i(srcf, active);
+            } else if (lbv == LB_OBJECT) {
+              flow = (int)(dg::fnv1a(row + HEADER_WORDS, d.key_words) %
+                           (uint32_t)active);
+            } else {
+              flow = dg::fmod_i(rr0 + rrrank, active);
+            }
+            if (is_resp && hit) flow = dg::fmod_i(srcf, active);
+            // flow < F whenever active <= F (the caller's contract); the
+            // clamp only keeps a broken contract inside the arrays
+            flow = flow < F ? flow : F - 1;
+          }
+          *key = flow;
+          return granted;
+        },
+        [&](int flow, int frank) {
+          const int ft = a.ff_tail[tF + flow];
+          const int space = d.D - (ft - a.ff_head[tF + flow]);
+          const bool accepted = frank < space;
+          if (accepted) {
+            a.ffbuf[(tF + flow) * d.D + dg::fmod_i(ft + frank, d.D)] = sid;
+          }
+          return accepted;
+        },
+        [&](bool leaked, int lrank) {
+          if (in) {
+            const long long li = (long long)t * d.M + i;
+            a.lk_sid[li] = sid;
+            a.lk_pos[li] = leaked ? dg::fmod_i(free_tail + lrank, R) : -1;
+          }
+        });
     my_gr += granted ? 1 : 0;
     my_dns += (mine && !granted) ? 1 : 0;
-    cluster.sync();
-    int off_lk = 0, all_lk = 0;
-    for (int q = 0; q < nc; ++q) {
-      const int plk = cluster.map_shared_rank(pub, q)[P_LK];
-      if (q < rank) off_lk += plk;
-      all_lk += plk;
-    }
-    if (in) {
-      const long long li = (long long)t * d.M + i;
-      a.lk_sid[li] = sid;
-      a.lk_pos[li] =
-          leaked ? dg::fmod_i(free_tail + base_lk + off_lk + ex2, R) : -1;
-    }
-    for (int f = tid; f < F; f += kThreads) {
-      int s = 0;
-      for (int q = 0; q < nc; ++q) s += cluster.map_shared_rank(cnt, q)[f];
-      gcar[f] += s;
-    }
-    base_v += all_v;
-    base_rr += all_rr;
-    base_lk += all_lk;
-    cluster.sync();  // remote reads done before the next chunk's writes
   }
 
   // leak write-back, after every grant read of the cluster
@@ -393,7 +353,7 @@ __global__ void __launch_bounds__(kThreads) switch_step_kernel(Args a) {
   int off_take = 0;
   for (int q = 0; q < rank; ++q)
     off_take += cluster.map_shared_rank(pub, q)[P_TAKE];
-  const int ft_mid = free_tail + base_lk;
+  const int ft_mid = free_tail + car.lk;
   const int lq = d.vec ? d.W / 4 : 1;  // lanes per row
   const int n_rows = nf * d.bmax;
   for (int u = tid; u < n_rows * lq; u += kThreads) {
@@ -483,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) switch_step_kernel(Args a) {
     int* so = a.scal + t * SCAL_COLS;
     so[S_FREE_HEAD] = free_head + tot[R_GR];
     so[S_FREE_TAIL] = ft_mid + tot[P_TAKE];
-    so[S_RR] = dg::fmod_i(rr0 + base_rr, active);
+    so[S_RR] = dg::fmod_i(rr0 + car.rr, active);
     so[S_TSTEP] = tstep + 1;
     so[S_TNDONE] = tndone + tot[R_DONE];
     so[S_TSUM] = (int)((unsigned)tsum + (unsigned)tot[R_SUM]);
@@ -493,7 +453,7 @@ __global__ void __launch_bounds__(kThreads) switch_step_kernel(Args a) {
     mo[M_EMITTED] = tot[P_TAKE];
     mo[M_COMPLETED] = tot[R_COMPL];
     mo[M_NO_SLOT] = tot[R_DNS];
-    mo[M_FIFO_FULL] = base_lk;
+    mo[M_FIFO_FULL] = car.lk;
     mo[M_BATCHES] = tot[R_BATCH];
   }
   cluster.sync();  // no CTA leaves while rank 0 reads its shared memory

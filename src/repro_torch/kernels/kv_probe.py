@@ -9,9 +9,12 @@ gather rule, ``core.indexing.clip_index``), and a query tag of 0 matches
 an empty way — both as in the oracle ``ref_kv_probe``.
 ``DeviceKVS.get`` probes through it on the kernel route.
 
-Kernel (``csrc/kv_probe.cu``): one thread per (query, value word); the
-threads of a query read the bucket's tags together and copy one word
-each of the matched row.
+Kernel (``csrc/kv_probe.cu``), two paths chosen from shapes and
+alignment (``vector_path``): with 4 ways, whole 16-byte value rows and
+16-byte aligned tables, one thread a query — the tag line as one 16-byte
+load, the value row as 16-byte loads and stores; otherwise one thread
+per (query, value word), the threads of a query reading the bucket's
+tags together and copying one word each of the matched row.
 
 Bound on the card: bytes, at random addresses.  A query needs the
 32-byte sector holding its bucket's tags and, on a hit, the sector
@@ -40,6 +43,14 @@ def kv_probe_plain(tags, values, q_bucket, q_tag):
     return torch.where(hit[:, None], val, 0), hit
 
 
+def vector_path(tags, values, val) -> bool:
+    """Whether the kernel takes its vector path for these tables and the
+    output ``val``: 4 ways, a value row of whole 16-byte words, every
+    table 16-byte aligned."""
+    return (tags.shape[1] == 4 and values.shape[-1] % 4 == 0
+            and _build.aligned(tags, values, val))
+
+
 def kv_probe_cuda(tags, values, q_bucket, q_tag):
     """Launch the CUDA kernel; same contract as ``kv_probe_plain``."""
     nb, ways = tags.shape
@@ -53,11 +64,12 @@ def kv_probe_cuda(tags, values, q_bucket, q_tag):
                    q_bucket=q_bucket, q_tag=q_tag)
     val = torch.empty((n, vw), dtype=torch.int32, device=tags.device)
     hit = torch.empty((n,), dtype=torch.bool, device=tags.device)
+    vec = vector_path(tags, values, val)
     lib = _build.library()
     rc = lib.dg_kv_probe(tags.data_ptr(), values.data_ptr(),
                          q_bucket.data_ptr(), q_tag.data_ptr(),
                          val.data_ptr(), hit.data_ptr(), nb, ways, vw, n,
-                         _build.stream_of(tags))
+                         int(vec), _build.stream_of(tags))
     _build.check(rc, "kv_probe")
     return val, hit
 

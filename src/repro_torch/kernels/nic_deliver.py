@@ -9,16 +9,23 @@ leak-back of granted-but-rejected slots — one pass over the request tile.
 Kernel (``csrc/nic_deliver.cu``): the Pallas kernel is a serial
 ``fori_loop`` carrying arbitration registers; this one does not port the
 loop.  Each register is a closed form over the candidate order — grant
-rank, RR position and leak rank are block-wide exclusive prefix counts,
-the push rank an ordered per-flow rank (warps in turn, lanes grouped by
-``__match_any_sync``) — the form ``switch_step.py``'s phase B proves
-bit-exact.  Modulo is floor modulo throughout (``dg::fmod_i``): cursors
-may be anything the caller carries, and ``%`` in JAX and PyTorch floors.
+rank, RR position and leak rank are prefix counts, the push rank an
+ordered per-flow rank — computed by one thread-block cluster of up to
+eight CTAs, a thread a candidate, through the arbiter's rounds that
+``switch_step_fused``'s phase B shares (``csrc/arbiter.cuh``).  Modulo is
+floor modulo throughout (``dg::fmod_i``): cursors may be anything the
+caller carries, and ``%`` in JAX and PyTorch floors.
 
-Bound on the card: bytes.  Out of place, it reads and writes the request
-table, the free FIFO and the flow FIFOs once each ([R, W], [R], [F, D])
-plus the tile; the arithmetic is a few integer ops per row.  One block
-walks the tile (N = F*B rows): correct first, not yet wide.
+Out of place, as the stage API is pure: the inputs are never written.  A
+call is two launches: one copy of the three tables into the outputs,
+spread over the card, and the cluster, launched as a programmatic
+dependent of the copy: it reads only inputs until it waits for the copy
+and then writes the granted request rows, the flow-FIFO pushes and the
+leaks into the copies.
+
+Bound on the card: bytes.  It reads and writes the request table, the
+free FIFO and the flow FIFOs once each ([R, W], [R], [F, D]) plus the
+tile; the arithmetic is a few integer ops per row.
 """
 from __future__ import annotations
 
@@ -101,8 +108,9 @@ def nic_deliver_fused_cuda(slots, valid, fifo, req_table, ffbuf, conn_tag,
     r = fifo.shape[0]
     f, d = ffbuf.shape
     c = conn_tag.shape[0]
-    if f > MAX_FLOWS:
-        raise ValueError(f"nic_deliver_fused: {f} flows > {MAX_FLOWS}")
+    if not 1 <= f <= MAX_FLOWS:
+        raise ValueError(f"nic_deliver_fused: {f} flows, not in [1, "
+                         f"{MAX_FLOWS}]")
     if w < HEADER_WORDS + key_words:
         raise ValueError("nic_deliver_fused: slots too narrow for the key")
     _build.require_shapes(
@@ -123,9 +131,10 @@ def nic_deliver_fused_cuda(slots, valid, fifo, req_table, ffbuf, conn_tag,
             torch.empty((3,), dtype=I32, device=dev))
     ins = (slots, valid, fifo, req_table, ffbuf, conn_tag, conn_src, conn_lb,
            fftail, ffspace, scal)
+    vec = w % 4 == 0 and _build.aligned(slots, outs[0])
     lib = _build.library()
     rc = lib.dg_nic_deliver(*(t.data_ptr() for t in ins + outs),
-                            n, w, r, f, d, c, key_words,
+                            n, w, r, f, d, c, key_words, int(vec),
                             _build.stream_of(slots))
     _build.check(rc, "nic_deliver_fused")
     return outs

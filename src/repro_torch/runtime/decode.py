@@ -39,8 +39,11 @@ generator state and completion headers are exact int32 functions of the
 start state, whatever the logits.
 
 PyTorch runs eagerly: ``make_run_steps`` is a Python loop over the step.
-The KV cache is updated in place (``models.attention.gqa_decode``); the
-rest of the state is rebuilt each step and never written in place.
+The KV cache is updated in place (``models.attention.gqa_decode``).  On
+the card with ``use_pallas`` fabrics the client and server fabric states
+are updated in place too (the fused switch step's contract,
+``core.fabric``); on CPU tensors the rest of the state is rebuilt each
+step and left untouched.  Clone a state you reuse.
 """
 from __future__ import annotations
 

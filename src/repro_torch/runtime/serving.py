@@ -75,7 +75,10 @@ class ServingEngine:
 
         ``in_*`` is the wire-ingress tile, ``out_*`` the wire-egress tile
         (responses fetched from the server TX rings).  The cache is
-        updated in place.  Among several requests of one tile for one
+        updated in place, and on the card with a ``use_pallas`` fabric
+        so is ``fabric_state`` (``fab.nic_pipeline`` is the in-place
+        fused switch step); on CPU tensors the fabric state is left
+        untouched.  Clone a state you reuse.  Among several requests of one tile for one
         slot, the last one's session, position and token stick (JAX's
         scatter on the CPU; ``core.indexing.set_drop_last``)."""
         model, fab, n_slots = self.model, self.fabric, self.n_slots

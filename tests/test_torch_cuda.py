@@ -23,9 +23,10 @@ from repro_torch.kernels import (decode_attn, hash_steer, kv_probe,
                                  nic_deliver, ops, ring_copy, ring_push,
                                  rpc_pack)
 from repro_torch.kernels import switch_step
-from torch_cases import (SWITCH_HAZARDS, decode_inputs, deliver_inputs,
+from torch_cases import (DELIVER_EDGES, PROBE_PATHS, SWITCH_HAZARDS,
+                         decode_inputs, deliver_edge, deliver_inputs,
                          edge_lengths, gather_inputs, hash_inputs,
-                         pack_inputs, probe_inputs, push_inputs,
+                         misaligned, pack_inputs, probe_inputs, push_inputs,
                          switch_hazard, switch_inputs, with_ext)
 
 pytestmark = pytest.mark.requires_cuda
@@ -93,12 +94,31 @@ def test_ring_gather_kernel(cuda, shape):
                         ring_copy.ring_gather_plain, args)
 
 
+def _deliver_and_compare(args):
+    """The kernel against its plain version, and every one of its eleven
+    inputs equal to its pre-call clone afterwards (the stage API is
+    pure; the kernel writes only its outputs)."""
+    kept = tuple(a.clone() for a in args)
+    _launch_and_compare("nic_deliver_fused", ops.nic_deliver_fused,
+                        nic_deliver.nic_deliver_fused_plain, args)
+    for k, (a, b) in enumerate(zip(args, kept)):
+        assert torch.equal(a, b), f"nic_deliver_fused wrote input {k}"
+
+
 @pytest.mark.parametrize("shape", [(17, 3, 4, 6), (2048, 512, 2048, 2048)])
 def test_nic_deliver_kernel(cuda, shape):
     rng = np.random.default_rng(2)
-    args = _dev(deliver_inputs(rng, *shape), cuda)
-    _launch_and_compare("nic_deliver_fused", ops.nic_deliver_fused,
-                        nic_deliver.nic_deliver_fused_plain, args)
+    _deliver_and_compare(_dev(deliver_inputs(rng, *shape), cuda))
+
+
+@pytest.mark.parametrize("kind", sorted(DELIVER_EDGES))
+def test_nic_deliver_kernel_cluster_edges(cuda, kind):
+    """A row past one chunk of 2,048 (N 2,049), three chunks (N 5,000), a
+    one-CTA cluster (N 200) and ``MAX_FLOWS`` flows (48 KiB of shared
+    memory), every slot free and flow FIFOs of 8 (4) entries, so grants
+    and leaks run through every chunk."""
+    rng = np.random.default_rng(20 + sorted(DELIVER_EDGES).index(kind))
+    _deliver_and_compare(_dev(deliver_edge(rng, kind), cuda))
 
 
 @pytest.mark.parametrize("ext", [False, True])
@@ -178,6 +198,90 @@ def test_kv_probe_kernel(cuda, nb, ways, vw, n):
     args = _dev(probe_inputs(rng, nb, ways, vw, n), cuda)
     _launch_and_compare("kv_probe", ops.kv_probe, kv_probe.kv_probe_plain,
                         args)
+
+
+@pytest.mark.parametrize("kind", sorted(PROBE_PATHS))
+def test_kv_probe_kernel_paths(cuda, kind):
+    """Both paths: the vector path with N not a multiple of its block of
+    256 queries, at VW 8, 4 and 0; the scalar path at 2 ways and at VW
+    3."""
+    (nb, ways, vw, n), vec = PROBE_PATHS[kind]
+    rng = np.random.default_rng(40 + sorted(PROBE_PATHS).index(kind))
+    args = _dev(probe_inputs(rng, nb, ways, vw, n), cuda)
+    out = torch.empty((n, vw), dtype=torch.int32, device=cuda)
+    assert kv_probe.vector_path(args[0], args[1], out) is vec
+    _launch_and_compare("kv_probe", ops.kv_probe, kv_probe.kv_probe_plain,
+                        args)
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_kv_probe_kernel_misaligned_view(cuda, which):
+    """Tags or values 4 bytes off a 16-byte boundary (a contiguous view
+    into a larger allocation) take the scalar path, with the same
+    results."""
+    rng = np.random.default_rng(46 + which)
+    args = list(_dev(probe_inputs(rng, 4096, 4, 8, 3001), cuda))
+    args[which] = misaligned(args[which])
+    out = torch.empty((3001, 8), dtype=torch.int32, device=cuda)
+    assert not kv_probe.vector_path(args[0], args[1], out)
+    _launch_and_compare("kv_probe", ops.kv_probe, kv_probe.kv_probe_plain,
+                        tuple(args))
+
+
+def test_loopback_engine_in_place_from_clone(cuda):
+    """A ``use_pallas`` ``LoopbackEngine`` on the card consumes the state
+    it runs from: run from a clone, it equals the plain route run from the
+    original bit for bit, and the returned states' tables are the clone's
+    own storage (updated in place)."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core.engine import LoopbackEngine
+    from repro_torch.core.fabric import DaggerFabric, tree_map
+    from repro_torch.core.load_balancer import LB_ROUND_ROBIN
+
+    base = FabricConfig(n_flows=8, ring_entries=8, batch_size=4,
+                        dynamic_batching=False)
+    runs = {}
+    start = None
+    for use in (False, True):
+        fab = DaggerFabric(base.replace(use_pallas=use))
+        if start is None:
+            cst, sst = fab.init_state(cuda), fab.init_state(cuda)
+            start = (cst, fab.open_connection(sst, 1, 0, 0, LB_ROUND_ROBIN))
+        gen = lg.LoadGen(fab, mode=lg.MODE_DETERMINISTIC)
+        eng = LoopbackEngine(fab, fab, lambda r, v: dict(r), loadgen=gen)
+        gst = gen.init_state(20.0, seed=3, device=cuda)
+        cst, sst = tree_map(torch.clone, start)
+        before = ops.launch_counts()["switch_step_fused"]
+        out = eng.run_steps(cst, sst, 6, gen=gst)
+        torch.cuda.synchronize()
+        runs[use] = (cst, sst, out)
+        assert (ops.launch_counts()["switch_step_fused"] > before) is use
+    (_, _, plain), (cst, sst, fused) = runs[False], runs[True]
+    for k, (a, b) in enumerate(zip(fused, plain)):
+        for x, y in zip(_leaves(a), _leaves(b)):
+            assert x.dtype == y.dtype and torch.equal(x, y), f"return {k}"
+    assert int(fused[2]) > 0
+    tables = {"req_table": lambda st: st.req_table,
+              "rx.buf": lambda st: st.rx.buf,
+              "free.fifo": lambda st: st.free.fifo,
+              "flow_fifo.buf": lambda st: st.flow_fifo.buf}
+    for mine, got in ((cst, fused[0]), (sst, fused[1])):
+        for name, get in tables.items():
+            assert (get(mine).untyped_storage().data_ptr()
+                    == get(got).untyped_storage().data_ptr()), name
+
+
+def _leaves(x):
+    import dataclasses
+    if dataclasses.is_dataclass(x):
+        return [v for f in dataclasses.fields(x)
+                for v in _leaves(getattr(x, f.name))]
+    if isinstance(x, dict):
+        return [v for k in sorted(x) for v in _leaves(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [v for y in x for v in _leaves(y)]
+    return [x]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -24,9 +24,9 @@ from repro.kernels import ref
 from repro_torch.kernels import decode_attn, nic_deliver, ops, ring_copy
 from repro_torch.kernels import ring_push, switch_step
 
-from torch_cases import (SWITCH_HAZARDS, decode_inputs, deliver_inputs,
-                         edge_lengths, push_inputs, switch_hazard,
-                         switch_inputs, with_ext)
+from torch_cases import (DELIVER_EDGES, SWITCH_HAZARDS, decode_inputs,
+                         deliver_edge, deliver_inputs, edge_lengths,
+                         push_inputs, switch_hazard, switch_inputs, with_ext)
 
 
 def _t(a):
@@ -114,6 +114,29 @@ def test_nic_deliver_plain_exhaustion(full):
     got = nic_deliver.nic_deliver_fused_plain(*map(_t, args))
     for k, (g, x) in enumerate(zip(got, want)):
         _eq(g, x, f"nic_deliver output {k}")
+
+
+@pytest.mark.parametrize("kind", sorted(DELIVER_EDGES))
+def test_nic_deliver_plain_cluster_edges_and_pure(kind):
+    """The shapes at the edges of the kernel's cluster (a row past one
+    chunk, three chunks, one CTA, ``MAX_FLOWS`` flows) with every slot
+    free and short flow FIFOs: equal to the oracle, and neither the plain
+    version nor the ``ops`` wrapper writes any of its eleven inputs (the
+    stage API is pure)."""
+    rng = np.random.default_rng(11 + sorted(DELIVER_EDGES).index(kind))
+    args = deliver_edge(rng, kind)
+    assert DELIVER_EDGES[kind][1] <= nic_deliver.MAX_FLOWS
+    want = ref.ref_nic_deliver_fused(*map(jnp.asarray, args))
+    ins = tuple(map(_t, args))
+    kept = tuple(t.clone() for t in ins)
+    for fn in (nic_deliver.nic_deliver_fused_plain, ops.nic_deliver_fused):
+        got = fn(*ins)
+        for k, (g, x) in enumerate(zip(got, want)):
+            _eq(g, x, f"{kind} output {k}")
+        for k, (a, b) in enumerate(zip(ins, kept)):
+            assert torch.equal(a, b), f"{kind}: input {k} was written"
+    ctr = np.asarray(want[-1])
+    assert ctr[0] > 0 and ctr[1] > 0, f"{kind}: no grant or no leak {ctr}"
 
 
 # ---------------------------------------------------- switch_step_fused

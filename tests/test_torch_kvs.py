@@ -46,7 +46,8 @@ from repro_torch.data import ZipfKVWorkload, zipf_keys
 from repro_torch.kernels import hash_steer, kv_probe, ops, rpc_pack
 from repro_torch.runtime.kvs import DeviceKVS
 
-from torch_cases import hash_inputs, pack_inputs, probe_inputs
+from torch_cases import (PROBE_PATHS, hash_inputs, misaligned, pack_inputs,
+                         probe_inputs)
 
 
 def _t(a):
@@ -194,6 +195,49 @@ def test_kv_probe_matches_ref(seed, nb, ways, vw, n):
         _eq(got_v, want_v, "value")
         _eq(got_h, want_h, "hit")
     assert np.asarray(want_h).any() and not np.asarray(want_h).all()
+
+
+@pytest.mark.parametrize("kind", sorted(PROBE_PATHS))
+def test_kv_probe_paths_match_ref(kind):
+    """The shapes of the kernel's two paths (``vector_path`` picks the
+    vector path for 4 ways and whole 16-byte value rows, N not a multiple
+    of the kernel's 256-thread block, VW 0 included; the scalar path for
+    other widths) through the plain version and ``ops``, against the
+    oracle."""
+    (nb, ways, vw, n), vec = PROBE_PATHS[kind]
+    rng = np.random.default_rng(30 + sorted(PROBE_PATHS).index(kind))
+    tags, values, qb, qt = probe_inputs(rng, nb, ways, vw, n)
+    want_v, want_h = ref.ref_kv_probe(
+        jnp.asarray(tags.view(np.uint32)), jnp.asarray(values),
+        jnp.asarray(qb), jnp.asarray(qt.view(np.uint32)))
+    args = (_t(tags), _t(values), _t(qb), _t(qt))
+    out = torch.empty((n, vw), dtype=torch.int32)
+    assert kv_probe.vector_path(args[0], args[1], out) is vec
+    for fn in (kv_probe.kv_probe_plain, ops.kv_probe):
+        got_v, got_h = fn(*args)
+        _eq(got_v, want_v, f"{kind} value")
+        _eq(got_h, want_h, f"{kind} hit")
+
+
+def test_kv_probe_misaligned_view_takes_scalar_path():
+    """Tables that start 4 bytes off a 16-byte boundary (a contiguous
+    view into a larger allocation) cannot take the int4 loads: the
+    kernel's scalar path, same results."""
+    rng = np.random.default_rng(36)
+    tags, values, qb, qt = probe_inputs(rng, 64, 4, 8, 203)
+    want_v, want_h = ref.ref_kv_probe(
+        jnp.asarray(tags.view(np.uint32)), jnp.asarray(values),
+        jnp.asarray(qb), jnp.asarray(qt.view(np.uint32)))
+    out = torch.empty((203, 8), dtype=torch.int32)
+    t_aligned, v_aligned = _t(tags), _t(values)
+    assert kv_probe.vector_path(t_aligned, v_aligned, out)
+    for t_, v_ in ((misaligned(t_aligned), v_aligned),
+                   (t_aligned, misaligned(v_aligned))):
+        assert t_.is_contiguous() and v_.is_contiguous()
+        assert not kv_probe.vector_path(t_, v_, out)
+        got_v, got_h = ops.kv_probe(t_, v_, _t(qb), _t(qt))
+        _eq(got_v, want_v, "value")
+        _eq(got_h, want_h, "hit")
 
 
 # ----------------------------------------------------------------- zipf

@@ -1,6 +1,7 @@
 """Seeded numpy inputs for the fabric kernels, shared by the CPU parity
-tests (``test_torch_kernels.py``) and the card tests
-(``test_torch_cuda.py``).  numpy only: the card's machine has no JAX.
+tests (``test_torch_kernels.py``, ``test_torch_kvs.py``) and the card
+tests (``test_torch_cuda.py``).  numpy and torch only: the card's machine
+has no JAX.
 
 The states are consistent (free FIFOs are permutations, cursors within
 capacity), so every scatter target of a kept row is unique and the
@@ -9,6 +10,7 @@ kernels' results do not depend on the order writes land in.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 SCAL_COLS = 9
 
@@ -51,6 +53,31 @@ def deliver_inputs(rng, n, f, e, r, w=12, c=16, full=False):
                        int(rng.integers(1, f + 1))], np.int32)
     return (slots, valid, fifo, req, ffbuf, tag, src, lbv, fftail, ffspace,
             scal)
+
+
+# (n, f, e, r) at the edges of nic_deliver_fused's cluster (a CTA of 256
+# rows, up to 8 CTAs, a chunk loop beyond 2,048 rows): one row past a
+# chunk, three chunks, a one-CTA cluster, and MAX_FLOWS flows (three
+# [F] arrays of shared memory, 48 KiB)
+DELIVER_EDGES = {
+    "above_one_chunk": (2049, 512, 8, 4096),
+    "three_chunks": (5000, 512, 8, 8192),
+    "one_cta": (200, 64, 8, 256),
+    "max_flows": (2048, 4096, 4, 2048),
+}
+
+
+def deliver_edge(rng, kind):
+    """``deliver_inputs`` at ``DELIVER_EDGES[kind]`` with every slot free,
+    so grants run through every chunk, and flow FIFOs of 8 (or 4) entries,
+    so granted rows leak back in every chunk."""
+    n, f, e, r = DELIVER_EDGES[kind]
+    args = list(deliver_inputs(rng, n, f, e, r))
+    scal = args[10].copy()
+    scal[1] = r
+    scal[2] = scal[0] + r
+    args[10] = scal
+    return tuple(args)
 
 
 def switch_inputs(rng, t=3, f=2, e=8, w=16, r=8, d=8, c=16, b=4, nb=16):
@@ -183,6 +210,27 @@ def probe_inputs(rng, nb, ways, vw, n):
     pick = rng.random(n) < 0.2
     q_tag[pick] = tags[np.clip(q_bucket[pick], 0, nb - 1), 0]
     return tags, values, q_bucket, q_tag
+
+
+# (nb, ways, vw, n) of kv_probe's two paths: the vector path (4 ways, VW
+# a multiple of 4) with N not a multiple of its block of 256 queries, at
+# VW 8, 4 and 0; the scalar path at 2 ways and at VW 3
+PROBE_PATHS = {
+    "vector": ((64, 4, 8, 1001), True),
+    "vector_vw4": ((64, 4, 4, 37), True),
+    "vector_vw0": ((16, 4, 0, 9), True),
+    "scalar_ways": ((64, 2, 8, 1001), False),
+    "scalar_vw": ((64, 4, 3, 77), False),
+}
+
+
+def misaligned(t):
+    """A contiguous copy of tensor ``t`` whose data starts one element
+    past the allocation's start (4 bytes off a 16-byte boundary)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 # ------------------------------------------------------ decode attention
