@@ -5,8 +5,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all at once) and then runs, failing (non-zero
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+``nvcc`` per source, all at once) and then runs, failing (non-zero
 exit, no result line) on any mismatch:
 
 1. per-kernel checks: every kernel against its plain PyTorch version on
@@ -16,7 +16,11 @@ exit, no result line) on any mismatch:
    0x8000 and above, key words with the high bit set, raw and 1-flow
    hashing, empty buckets, matches at several ways and out-of-range
    buckets, both paths of ``kv_probe`` (tables off a 16-byte boundary
-   take the scalar one) — equal bit for bit (``nic_deliver_fused`` at
+   take the scalar one), ``ring_push`` and the packed push of the TX
+   enqueue with targets over every tile or all in one, W = 5 (the
+   scalar path), no row, every row dropped, negative indices, more rows
+   than slots and tables off a 16-byte boundary, leaving their inputs as
+   they were — equal bit for bit (``nic_deliver_fused`` at
    the edges of its cluster, and leaving its inputs as they were; the
    switch step, which updates its state
    in place, runs on clones and must return the clones themselves; its
@@ -55,18 +59,25 @@ exit, no result line) on any mismatch:
    equal within ``LOGIT_TOL``; then ``launch.serve.main`` at full width
    (4 sessions, 64 requests);
 4. kernel summary (run last): one JSON line with each kernel's launches
-   on the main paths (phases 3, 5 and 6), its device time per call (CUDA
-   graph replay), the plain version's, its bound and, for decode
-   attention, the time of ``F.scaled_dot_product_attention`` on the same
-   inputs, on inputs captured from phase 3 (fabric kernels), phase 5
-   (KVS kernels) and phase 6 (decode attention); the switch step's graph
-   restores its captured state before every call, and its time is that
-   graph's less a graph of the restores; ``kv_probe`` is also timed on
-   the serve loop's 16-query GET.  The redesigned kernels' device
-   activities per call are counted in a CUDA graph of one call, and the
-   inputs of ``switch_step_fused``, ``decode_attention`` and
-   ``nic_deliver_fused`` saved to ``build/phase4_inputs.pt``
-   (``kernel_ab.py --inputs`` times other checkouts on them).
+   on the main paths (phases 3, 5 and 6) and, at the shape with the most
+   launches, its device time per call (CUDA graph replay), the plain
+   version's, its bound and, for decode attention, the time of
+   ``F.scaled_dot_product_attention`` on the same inputs.  Every kernel
+   is timed at every shape its main paths give it (``by_shape`` in the
+   details: launches by path, ms, call ms, bound, device activities a
+   call), on inputs captured at that shape in one more step of phases
+   3, 5 and 6; the launches by shape are the ``ops`` wrappers' own
+   counts (``ops.launch_shapes``) from the main-path runs.  The switch
+   step's graph restores its captured state before every call, and its
+   time is that graph's less a graph of the restores.  ``rpc_pack``,
+   whose words the TX enqueue's ``ring_push_packed`` assembles inside
+   its push, has no launch of its own on the main paths (its row says
+   0 and names ``ring_push_packed`` in ``launched_inside``); it is timed
+   alone on the enqueue's records, beside the packed push's launches at
+   each shape (``inside_launches`` in ``by_shape``).  The inputs (all but
+   ``kv_probe``'s 704 MiB store) go to ``build/phase4_inputs.pt``
+   (``kernel_ab.py --inputs`` times other checkouts on them) and the
+   report to ``build/chip_smoke_report.json``.
 
 Then it prints a ``details`` line (the whole report as JSON), the
 kernel summary line, the card's name and power limit and, last, the
@@ -146,6 +157,10 @@ KERNELS = {
                  "src/repro/kernels/kv_probe.py:37"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                          "src/repro/kernels/decode_attn.py:67"),
+    # the ring_push kernel in packed mode (the TX enqueue): the pair of
+    # rpc_pack and ring_push in one launch
+    "ring_push_packed": ("src/repro_torch/kernels/csrc/ring_push.cu",
+                         "src/repro/kernels/ring_push.py:47"),
 }
 
 
@@ -197,6 +212,50 @@ def push_inputs(rnd, q, e, w, n, full=False):
     qid = rnd.torch.where(drop | full, q, qid).to(rnd.torch.int32)
     return (rnd.ints(-2**31, 2**31 - 1, (q, e, w)), qid, pos,
             rnd.ints(-1000, 1000, (n, w)))
+
+
+# (q, e, w, n) of ring_push's edge cases (``push_case``): targets spread
+# over every tile of the kernel (256 rows at W = 16) or all in one, a
+# slot width that is not a multiple of 4 (the scalar path), no row, every
+# row dropped, negative indices, more rows than the ring has slots, and
+# phase 3's 2,048 rows on the 512 x 64-entry ring
+PUSH_CASES = {
+    "spread": (16, 64, 16, 300), "one_tile": (16, 64, 16, 200),
+    "w5": (8, 16, 5, 50), "empty": (4, 8, 16, 0),
+    "all_dropped": (4, 8, 16, 20), "negative": (6, 16, 16, 40),
+    "oversize": (2, 8, 16, 40), "full_size": (512, 64, 16, 2048),
+}
+
+
+def push_case(rnd, kind):
+    """``ring_push``'s inputs for the edge case ``kind`` of
+    ``PUSH_CASES``: (buf, queue_ids, pos, slots)."""
+    torch = rnd.torch
+    q, e, w, n = PUSH_CASES[kind]
+    i32 = dict(dtype=torch.int32, device=rnd.dev)
+    if kind == "oversize":
+        # every slot written once, the rows past Q*E out of range
+        buf, qid, pos, slots = push_inputs(rnd, q, e, w, q * e)
+        extra = n - q * e
+        bad_q = torch.tensor([q, -q - 1, q + 3], **i32)
+        bad_p = torch.tensor([e, -e - 1, 0], **i32)
+        return (buf,
+                torch.cat([qid, bad_q[rnd.ints(0, 3, (extra,)).long()]]),
+                torch.cat([pos, bad_p[rnd.ints(0, 3, (extra,)).long()]]),
+                torch.cat([slots, rnd.ints(-1000, 1000, (extra, w))]))
+    buf, qid, pos, slots = push_inputs(rnd, q, e, w, n,
+                                       full=kind == "all_dropped")
+    if kind == "one_tile":
+        # rows 256-511: queues 4-7, the second tile of 256 rows
+        cells = 4 * e + rnd.perm(4 * e)[:n]
+        qid = torch.where(qid == q, q, cells // e).to(torch.int32)
+        pos = (cells % e).to(torch.int32)
+    elif kind == "negative":
+        neg = (rnd.ints(0, 2, (n,)) == 1) & (qid < q)
+        qid = torch.where(neg, qid - q, qid).to(torch.int32)
+        pos = torch.where(rnd.ints(0, 2, (n,)) == 1, pos - e, pos) \
+            .to(torch.int32)
+    return buf, qid, pos, slots
 
 
 def gather_inputs(rnd, r, w, f, b):
@@ -407,7 +466,8 @@ def phase_kernels(torch, dev):
         clone afterwards."""
         nonlocal cases
         work = tuple(a.clone() for a in args) if in_place else args
-        kept = tuple(a.clone() for a in args) if pure else ()
+        kept = tuple(a.clone() if hasattr(a, "clone") else a
+                     for a in args) if pure else ()
         got = kernel(*work, **kw)
         want = plain(*args, **kw)
         for k, i in (in_place or {}).items():
@@ -415,7 +475,8 @@ def phase_kernels(torch, dev):
                   f"{i}, updated in place")
         torch.cuda.synchronize()
         for k, (a, b) in enumerate(zip(args, kept)):
-            check(torch.equal(a, b), f"{name}: wrote its input {k}")
+            check(not hasattr(a, "clone") or torch.equal(a, b),
+                  f"{name}: wrote its input {k}")
         try:
             if tol is None:
                 same(torch, got, want)
@@ -430,6 +491,33 @@ def phase_kernels(torch, dev):
                         ((f, e, w, n), False), ((f, e, w, n), True)):
         run("ring_push", ops.ring_push, rp.ring_push_plain,
             push_inputs(rnd, *shape, full=full))
+    # both pushes at ring_push's edge cases, and with the ring (or the
+    # slots, or the payload) 4 bytes off a 16-byte boundary; the packed
+    # push (the TX enqueue) also with short and long payloads; every
+    # input left as it was
+    for kind, pw in [(k, 11) for k in PUSH_CASES] + [
+            ("spread", 7), ("spread", 14), ("misaligned_buf", 11),
+            ("misaligned_rows", 11)]:
+        buf, qid, pos, slots = push_case(
+            rnd, "spread" if kind.startswith("misaligned") else kind)
+        fields = pack_inputs(rnd, qid.shape[0], pw)
+        if kind == "misaligned_buf":
+            buf = misaligned(buf)
+        elif kind == "misaligned_rows":
+            slots = misaligned(slots)
+            fields = (*fields[:7], misaligned(fields[7]))
+        w_ = buf.shape[2]
+        out = torch.empty_like(buf)
+        vec = w_ % 4 == 0 and kind != "misaligned_buf"
+        check(rp.vector_path(buf, out, slots) is (
+            vec and kind != "misaligned_rows")
+            and rp.vector_path(buf, out) is vec,
+            f"ring_push {kind}: vector path not as expected")
+        run("ring_push", ops.ring_push, rp.ring_push_plain,
+            (buf, qid, pos, slots), pure=True)
+        run("ring_push_packed", ops.ring_push_packed,
+            rp.ring_push_packed_plain, (buf, qid, pos, *fields, w_),
+            pure=True)
     for shape in ((8, 16, 2, 4), (33, 8, 5, 3), (r, w, f, b)):
         run("ring_gather", ops.ring_gather, rc.ring_gather_plain,
             gather_inputs(rnd, *shape))
@@ -628,8 +716,10 @@ def phase_quickstart(torch, dev):
         n_done = sum(int(v.sum()) for _, v in done)
         check(n_done == 8, f"quickstart ({route}): {n_done} of 8 RPCs done")
         if route == "kernels":
-            check(counts["ring_push"] > 0 and counts["switch_step_fused"] > 0
-                  and counts["rpc_pack"] > 0,
+            # the enqueue packs inside its push: one launch, no rpc_pack
+            check(counts["ring_push_packed"] > 0
+                  and counts["switch_step_fused"] > 0
+                  and counts["rpc_pack"] == 0,
                   f"quickstart did not run through the kernels: {counts}")
         else:
             check(not any(counts.values()),
@@ -680,9 +770,9 @@ def phase_full(torch, dev):
                                                    tel=tel, gen=gst)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        counts, tally = ops.launch_counts(), ops.launch_shapes()
         runs[route] = dict(cst=cst, sst=sst, n_done=n_done, tel=tel, gst=gst,
-                           secs=secs, counts=counts, eng=eng)
+                           secs=secs, counts=counts, eng=eng, tally=tally)
         done = int(n_done)
         q = tlm.quantiles(tel.hist)
         say(f"full-size {route}: {done} RPCs in {FULL_STEPS} steps, "
@@ -695,10 +785,13 @@ def phase_full(torch, dev):
             tree_equal(torch, runs["fused"][key], runs[route][key],
                        f"{route}.{key}")
     fused, staged = runs["fused"]["counts"], runs["staged"]["counts"]
-    check(fused["ring_push"] > 0 and fused["switch_step_fused"] > 0
-          and fused["rpc_pack"] > 0, f"fused route missed a kernel: {fused}")
+    # the enqueues pack inside their push (ring_push_packed, no rpc_pack
+    # launch); the staged route's emit pushes through ring_push
+    check(fused["ring_push_packed"] > 0 and fused["switch_step_fused"] > 0
+          and fused["rpc_pack"] == 0, f"fused route missed a kernel: {fused}")
     check(staged["ring_push"] > 0 and staged["ring_gather"] > 0
-          and staged["nic_deliver_fused"] > 0 and staged["rpc_pack"] > 0,
+          and staged["nic_deliver_fused"] > 0
+          and staged["ring_push_packed"] > 0 and staged["rpc_pack"] == 0,
           f"staged route missed a kernel: {staged}")
     check(not any(runs["plain"]["counts"].values()),
           f"plain route launched kernels: {runs['plain']['counts']}")
@@ -841,29 +934,52 @@ def device_share(torch, runs, steps=20):
     return out
 
 
+def signature(args, kw):
+    """A kernel call's shape, as the ``ops`` wrappers count it."""
+    from repro_torch.kernels import ops
+    return ops.call_shape(args, kw)
+
+
+def brief(shape):
+    """A ``signature``'s first two arguments, for a report line."""
+    return [list(x) if isinstance(x, tuple) else x for x in shape[0][:2]]
+
+
 class recording:
-    """Within the block, every ``ops`` kernel wrapper records the
-    arguments of its last call into ``seen[name]`` (and still runs)."""
+    """Within the block every ``ops`` kernel wrapper (which still runs)
+    keeps the arguments of its last call at each shape in
+    ``seen[name][signature]``: its named parameters in order, defaults
+    included, and its other keywords, as it counts the call's shape
+    (``ops.launch_shapes``).  Only for untimed runs: it copies the switch
+    step's arguments."""
 
     def __init__(self, seen):
         self.seen = seen
 
     def __enter__(self):
+        import inspect
+
         from repro_torch.kernels import ops
         self.orig = {k: getattr(ops, k) for k in ops.KERNELS}
 
         def recorder(name, fn):
+            params = inspect.signature(fn)
+
             def call(*args, **kw):
+                bound = params.bind(*args, **kw)
+                bound.apply_defaults()
+                a, k = bound.args, bound.kwargs
                 # the switch step updates its arguments in place: keep
                 # them as they were before the call
-                kept = (tuple(a.clone() for a in args)
-                        if name == "switch_step_fused" else args)
-                self.seen[name] = (kept, kw)
+                kept = (tuple(x.clone() if hasattr(x, "clone") else x
+                              for x in a)
+                        if name == "switch_step_fused" else a)
+                self.seen.setdefault(name, {})[signature(a, k)] = (kept, k)
                 return fn(*args, **kw)
             return call
         for k, fn in self.orig.items():
             setattr(ops, k, recorder(k, fn))
-        return self.seen
+        return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
@@ -873,9 +989,9 @@ class recording:
 
 
 def capture_inputs(torch, runs, seen):
-    """Record each fabric kernel's inputs on 3 more steps of each kernel
-    route, from the end states of the full-size run (steady-state shapes
-    and data)."""
+    """Record each fabric kernel's inputs at every shape on 3 more steps
+    of each kernel route, from the end states of the full-size run
+    (steady-state shapes and data)."""
     with recording(seen):
         for route in ("fused", "staged"):
             r = runs[route]
@@ -994,11 +1110,10 @@ def phase_kvs(torch, dev, seen):
         torch.cuda.synchronize()
         pop_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        with recording(seen if use else {}):
-            db, gval, ghit = kvs.get(db, get_kw)
+        db, gval, ghit = kvs.get(db, get_kw)
         torch.cuda.synchronize()
         get_s = time.perf_counter() - t0
-        bulk_counts = ops.launch_counts()
+        bulk_counts, bulk_tally = ops.launch_counts(), ops.launch_shapes()
         loaded = db
         # the bulk GET against the values that were stored: every hit
         # returns its key's value; misses are keys the lossy store evicted
@@ -1012,6 +1127,12 @@ def phase_kvs(torch, dev, seen):
               f"{route}: store counters {int(db.n_set)} sets, "
               f"{int(db.n_get)} gets, {int(db.n_hit)} hits")
         del all_vals, want
+        if use:
+            # phase 4's inputs at the bulk GET's shapes: the GET again,
+            # untimed (it returns a new state and changes none)
+            with recording(seen):
+                kvs.get(db, get_kw)
+            torch.cuda.synchronize()
         state = (cst, sst, db)
         serve = {}
         ops.reset_launch_counts()
@@ -1032,7 +1153,7 @@ def phase_kvs(torch, dev, seen):
                 f"{secs:.3f} s, {done / secs:.1f} ops/s, "
                 f"{steps / secs:.1f} steps/s, p50 {q[0.5]} / p99 {q[0.99]} "
                 f"steps")
-        serve_counts = ops.launch_counts()
+        serve_counts, serve_tally = ops.launch_counts(), ops.launch_shapes()
         say(f"kvs {route}: {store_mib:.0f} MiB store, populate {pop_s:.3f} s"
             f", bulk GET {get_s:.4f} s ({int(ghit.sum())} of {KVS_CHUNK} "
             f"hit, {int(loaded.n_evict)} evictions), launches bulk "
@@ -1040,6 +1161,7 @@ def phase_kvs(torch, dev, seen):
         runs[route] = dict(loaded=loaded, gval=gval, ghit=ghit, serve=serve,
                            state=state, bulk_counts=bulk_counts,
                            serve_counts=serve_counts, eng=eng, fab=fab,
+                           bulk_tally=bulk_tally, serve_tally=serve_tally,
                            pop_s=pop_s, get_s=get_s,
                            read_reqs=mixes[KVS_MIXES[-1][0]])
         del loaded, db, state
@@ -1059,20 +1181,20 @@ def phase_kvs(torch, dev, seen):
         check(not any(p[key].values()),
               f"kvs plain route launched kernels: {p[key]}")
     sc = k["serve_counts"]
-    check(sc["rpc_pack"] > 0 and sc["ring_push"] > 0
+    check(sc["ring_push_packed"] > 0 and sc["rpc_pack"] == 0
           and sc["switch_step_fused"] > 0,
           f"kvs kernel route missed a fabric kernel: {sc}")
-    # phase 4 inputs: rpc_pack's from the 16-row enqueues of one more
-    # batch (kv_probe's and hash_steer's stay the bulk GET's)
+    # phase 4 inputs at the serve loop's shapes: one more batch
     pay, is_set = mixes[KVS_MIXES[-1][0]]
     step_seen = {}
     with recording(step_seen):
         kvs_serve(torch, dev, k["fab"], k["eng"], fresh(torch, k["state"]),
                   (pay[:1], is_set[:1]), 1)
-    check("rpc_pack" in step_seen and "kv_probe" in step_seen,
-          f"kvs serve batch missed rpc_pack or kv_probe: {sorted(step_seen)}")
-    seen["rpc_pack"] = step_seen["rpc_pack"]
-    seen["kv_probe_serve"] = step_seen["kv_probe"]
+    check("ring_push_packed" in step_seen and "kv_probe" in step_seen,
+          f"kvs serve batch missed ring_push_packed or kv_probe: "
+          f"{sorted(step_seen)}")
+    for name, shapes in step_seen.items():
+        seen.setdefault(name, {}).update(shapes)
     return runs
 
 
@@ -1165,14 +1287,14 @@ def phase_lm(torch, dev, seen):
         st, (comp, valid) = run(st)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        counts, tally = ops.launch_counts(), ops.launch_shapes()
         sl = st.slots
         recs = serdes.unpack(comp)
         frag = valid & ((recs["flags"] & serdes.FLAG_FRAGMENT) != 0)
         tokens = int(frag.sum())
         qt, qi = tlm.quantiles(st.ttft.hist), tlm.quantiles(st.itl.hist)
         r = dict(st=st, comp=comp, valid=valid, frag=frag, secs=secs,
-                 counts=counts, eng=eng, tokens=tokens,
+                 counts=counts, tally=tally, eng=eng, tokens=tokens,
                  completed=int(sl.completed), rejected=int(sl.rejected),
                  admitted=int(sl.admitted),
                  active=int((sl.req_id >= 0).sum()),
@@ -1224,7 +1346,7 @@ def phase_lm(torch, dev, seen):
     check(kc["decode_attention"] == cfg.n_layers * LM_STEPS,
           f"lm: decode_attention launched {kc['decode_attention']} times, "
           f"expected {cfg.n_layers} x {LM_STEPS}")
-    check(kc["rpc_pack"] > 0 and kc["ring_push"] > 0
+    check(kc["ring_push_packed"] > 0 and kc["rpc_pack"] == 0
           and kc["switch_step_fused"] > 0,
           f"lm kernel route missed a fabric kernel: {kc}")
     check(not any(p["counts"].values()),
@@ -1272,12 +1394,10 @@ def phase_lm(torch, dev, seen):
             f"{wall_us:.1f} us/step wall ({len(ev) / LM_PROFILE_STEPS:.0f} "
             f"device activities/step); top "
             + "; ".join(f"{n} {us:.1f}" for n, us in top[:5]))
-    # phase 4's decode_attention inputs: the last call of one more step
-    step_seen = {}
-    with recording(step_seen):
+    # phase 4's inputs at this path's shapes: one more step
+    with recording(seen):
         k_eng.make_run_steps(1)(fresh(torch, k["st"]))
     torch.cuda.synchronize()
-    seen["decode_attention"] = step_seen["decode_attention"]
     # the serving CLI once at full width
     t0 = time.perf_counter()
     served = serve.main(["--arch", LM_ARCH, "--full", "--sessions", "4",
@@ -1293,7 +1413,7 @@ def phase_lm(torch, dev, seen):
                   logit_err=logit_err, logit_scale=logit_scale,
                   argmax_share=argmax_share, device_share=share,
                   serve_served=served, serve_s=serve_s)
-    return report, k["counts"]
+    return report, k["counts"], k["tally"]
 
 
 def sdpa_call(torch, q, k, v, lengths):
@@ -1313,9 +1433,9 @@ def sdpa_call(torch, q, k, v, lengths):
     return call
 
 
-def phase_summary(torch, paths, seen):
-    """``paths`` maps each main path to (launch counts, steps or None
-    for a path that takes no pipeline steps)."""
+def kernel_impls():
+    """Each kernel's CUDA launcher, plain version and bound's bytes (from
+    its arguments, keywords and outputs)."""
     from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import hash_steer as hs
     from repro_torch.kernels import kv_probe as kp
@@ -1325,7 +1445,7 @@ def phase_summary(torch, paths, seen):
     from repro_torch.kernels import rpc_pack as pk
     from repro_torch.kernels import switch_step as ss
 
-    impl = {
+    return {
         "ring_push": (rp.ring_push_cuda, rp.ring_push_plain,
                       lambda a, kw, o: rp.bytes_moved(a[0], a[1], a[3])),
         "ring_gather": (rc.ring_gather_cuda, rc.ring_gather_plain,
@@ -1341,105 +1461,163 @@ def phase_summary(torch, paths, seen):
                      lambda a, kw, o: pk.bytes_moved(a[0], a[7], a[8])),
         "hash_steer_static": (
             hs.hash_steer_static_cuda, hs.hash_steer_static_plain,
-            lambda a, kw, o: hs.bytes_moved(a[0], kw.get("key_words", 2))),
+            lambda a, kw, o: hs.bytes_moved(a[0], a[2])),
         "kv_probe": (kp.kv_probe_cuda, kp.kv_probe_plain,
                      lambda a, kw, o: kp.bytes_moved(*a)),
         "decode_attention": (da.decode_attention_cuda,
                              da.decode_attention_plain,
                              lambda a, kw, o: da.bytes_moved(*a)),
+        "ring_push_packed": (rp.ring_push_packed_cuda,
+                             rp.ring_push_packed_plain,
+                             lambda a, kw, o: rp.packed_bytes_moved(
+                                 a[0], a[1], a[2], a[10])),
     }
-    redesigned = ("switch_step_fused", "decode_attention",
-                  "nic_deliver_fused", "kv_probe")
+
+
+def time_shape(torch, name, impl, args, kw):
+    """One kernel at one captured shape: its result against its plain
+    version, device activities a call, CUDA-graph ms and eager call ms
+    of the kernel and of its plain version, and its bound."""
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import switch_step as ss
+    kernel, plain, nbytes = impl
+    call = (lambda: kernel(*args, **kw))
+    restore, work = None, args
+    if name == "switch_step_fused":
+        # in place: run on a working copy, restored before each call
+        work = tuple(a.clone() if hasattr(a, "clone") else a
+                     for a in args)
+
+        def restore():
+            for i in ss.IN_PLACE.values():
+                work[i].copy_(args[i])
+
+        def call():
+            restore()
+            return kernel(*work, **kw)
+    got = call()
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    extra = {}
+    try:
+        if name == "decode_attention":
+            dname = str(args[0].dtype).split(".")[-1]
+            err = close(torch, got, want, DA_TOL[dname], name)
+            lib = sdpa_call(torch, *args)
+            lib_out = lib()[:, :, 0].to(torch.float32)
+            extra = {"library": "F.scaled_dot_product_attention",
+                     "library_max_abs_err": close(
+                         torch, lib_out, want, DA_TOL["bfloat16"],
+                         "scaled_dot_product_attention"),
+                     "library_ms": graph_ms(torch, lib),
+                     "library_call_ms": time_ms(torch, lib),
+                     "ops_bound_ms": da.flops(*args)
+                     / PEAK_FLOPS[dname] * 1e3,
+                     "lengths_mean": float(args[3].float().mean())}
+        else:
+            err = same(torch, got, want)
+    except SmokeFailure as exc:
+        raise SmokeFailure(f"{name} (phase 4 inputs "
+                           f"{signature(args, kw)}): {exc}") from exc
+    # after the comparison: these calls update ``work`` in place
+    if restore:
+        restore()
+    extra["activities_per_call"] = graph_activities(
+        torch, lambda: kernel(*work, **kw))
+    call_ms = time_ms(torch, call)
+    plain_call_ms = time_ms(torch, lambda: plain(*args, **kw))
+    ms = graph_ms(torch, call)
+    plain_ms = graph_ms(torch, lambda: plain(*args, **kw))
+    if restore:
+        extra["restore_ms"] = graph_ms(torch, restore)
+        extra["restore_call_ms"] = time_ms(torch, restore)
+        ms -= extra["restore_ms"]
+        call_ms -= extra["restore_call_ms"]
+    outs = got if isinstance(got, tuple) else (got,)
+    moved = nbytes(args, kw, outs)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = extra.get("ops_bound_ms", 0.0)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": extra.pop("library_ms", None), "bytes": moved,
+            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+            "shape": signature(args, kw), **extra}
+
+
+# a kernel whose work on the main paths runs inside another's launch: it
+# has no launch of its own there (its row says so, and names the host
+# kernel in ``launched_inside``), and it is timed alone on the host's
+# inputs at each of the host's shapes (the arguments mapped to its own),
+# beside the host's launches at that shape (``inside_launches``)
+INSIDE = {"rpc_pack": ("ring_push_packed", lambda a, kw: (a[3:], {}))}
+
+
+def phase_summary(torch, paths, seen):
+    """``paths`` maps each main path to (launch counts, launches by
+    (kernel, shape), steps or None for a path that takes no pipeline
+    steps).  Every kernel is timed at every shape its main paths gave it,
+    on inputs captured at that shape in a further step; its row in the
+    kernel line holds the shape with the most launches."""
+    impls = kernel_impls()
+    for path, (counts, tally, _) in paths.items():
+        for name in KERNELS:
+            n = sum(c for (k, _), c in tally.items() if k == name)
+            check(n == counts.get(name, 0),
+                  f"{path}: {name} tallied {n} launches by shape, counted "
+                  f"{counts.get(name, 0)}")
     # kernel_ab.py --inputs times other checkouts on these (kv_probe's
     # 576 MiB store is not saved: kernel_ab.py fills its own)
-    save = ROOT / "build" / "phase4_inputs.pt"
-    save.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({name: seen[name] for name in redesigned[:3]}, save)
+    saved = {}
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        kernel, plain, nbytes = impl[name]
-        args, kw = seen[name]
-        call = (lambda: kernel(*args, **kw))
-        restore = None
-        if name == "switch_step_fused":
-            # in place: run on a working copy, restored before each call
-            work = tuple(a.clone() for a in args)
-
-            def restore():
-                for i in ss.IN_PLACE.values():
-                    work[i].copy_(args[i])
-
-            def call():
-                restore()
-                return kernel(*work, **kw)
-        got = call()
-        want = plain(*args, **kw)
-        torch.cuda.synchronize()
-        extra = {}
-        try:
-            if name == "decode_attention":
-                dname = str(args[0].dtype).split(".")[-1]
-                err = close(torch, got, want, DA_TOL[dname], name)
-                lib = sdpa_call(torch, *args)
-                lib_out = lib()[:, :, 0].to(torch.float32)
-                extra = {"library": "F.scaled_dot_product_attention",
-                         "library_max_abs_err": close(
-                             torch, lib_out, want, DA_TOL["bfloat16"],
-                             "scaled_dot_product_attention"),
-                         "library_ms": graph_ms(torch, lib),
-                         "library_call_ms": time_ms(torch, lib),
-                         "ops_bound_ms": da.flops(*args)
-                         / PEAK_FLOPS[dname] * 1e3,
-                         "lengths_mean": float(args[3].float().mean())}
-            else:
-                err = same(torch, got, want)
-        except SmokeFailure as exc:
-            raise SmokeFailure(f"{name} (phase 4 inputs): {exc}") from exc
-        if name in redesigned:
-            # after the comparison: these calls update ``work`` in place
-            if restore:
-                restore()
-            extra["activities_per_call"] = graph_activities(
-                torch, lambda: kernel(*(work if restore else args), **kw))
-        if name == "kv_probe":
-            # the serve loop's GET (16 queries a batch), beside the bulk
-            # GET's 2^20
-            sargs, skw = seen["kv_probe_serve"]
-            err = max(err, same(torch, kernel(*sargs, **skw),
-                                plain(*sargs, **skw)))
-            extra.update(serve_queries=int(sargs[2].shape[0]),
-                         serve_ms=graph_ms(torch, lambda: kernel(*sargs,
-                                                                 **skw)),
-                         serve_call_ms=time_ms(torch, lambda: kernel(
-                             *sargs, **skw)))
-        call_ms = time_ms(torch, call)
-        plain_call_ms = time_ms(torch, lambda: plain(*args, **kw))
-        ms = graph_ms(torch, call)
-        plain_ms = graph_ms(torch, lambda: plain(*args, **kw))
-        if restore:
-            extra["restore_ms"] = graph_ms(torch, restore)
-            extra["restore_call_ms"] = time_ms(torch, restore)
-            ms -= extra["restore_ms"]
-            call_ms -= extra["restore_call_ms"]
-        outs = got if isinstance(got, tuple) else (got,)
-        moved = nbytes(args, kw, outs)
-        launches = sum(c[name] for c, _ in paths.values())
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = extra.get("ops_bound_ms", 0.0)
+        launches = sum(c.get(name, 0) for c, _, _ in paths.values())
+        host, convert = name, None
+        if not launches and name in INSIDE:
+            host, convert = INSIDE[name]
+        count = "inside_launches" if convert else "launches"
+        by_sig = {}
+        for path, (_, tally, _) in paths.items():
+            for (k, sig), c in tally.items():
+                if k == host:
+                    by_sig.setdefault(sig, {})[path] = c
+        check(by_sig, f"{name} was never launched on the main path")
+        shapes = []
+        for sig, by_path in by_sig.items():
+            check(sig in seen.get(host, {}),
+                  f"{name}: no inputs captured at the main-path shape {sig}")
+            args, kw = seen[host][sig]
+            if convert:
+                args, kw = convert(args, kw)
+            res = time_shape(torch, name, impls[name], args, kw)
+            res[count + "_by_path"] = by_path
+            res[count] = sum(by_path.values())
+            shapes.append(res)
+            if not convert and name != "kv_probe":
+                saved.setdefault(name, []).append((args, kw, res[count]))
+        shapes.sort(key=lambda r: -r[count])
+        main = shapes[0]
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "bytes": moved, "call_ms": call_ms,
-            "plain_call_ms": plain_call_ms,
-            "shape": [list(a.shape) for a in args
-                      if hasattr(a, "shape")][:2],
-            "launches_per_step": {path: c[name] / steps
-                                  for path, (c, steps) in paths.items()
-                                  if steps}, **extra})
-        check(launches > 0, f"{name} was never launched on the main path")
+            "launched_inside": host if convert else None,
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "bytes",
+                                    "call_ms", "plain_call_ms", "shape")},
+            count + "_per_step": {
+                path: sum(c for (k, _), c in t.items() if k == host) / st
+                for path, (_, t, st) in paths.items() if st},
+            "by_shape": shapes})
+        say(f"phase 4: {name}: "
+            + (f"no launch of its own, timed on {host}'s; " if convert
+               else "")
+            + "; ".join(f"{r['ms']:.5f} ms (bound {r['bound_ms']:.6f}) x "
+                        f"{r[count]} at {brief(r['shape'])}"
+                        for r in shapes))
+    save = ROOT / "build" / "phase4_inputs.pt"
+    save.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(saved, save)
     return rows
 
 
@@ -1497,17 +1675,20 @@ def main():
     report["kvs_device_share"] = kvs_share(torch, dev, kvs)
 
     t0 = time.perf_counter()
-    report["lm"], lm_counts = phase_lm(torch, dev, seen)
+    report["lm"], lm_counts, lm_tally = phase_lm(torch, dev, seen)
     say(f"phase 6: LM decode routes equal ({time.perf_counter() - t0:.1f} "
         f"s)")
 
     t0 = time.perf_counter()
     kvs_steps = sum(m["steps"] for m in kvs["kernels"]["serve"].values())
-    paths = {"fused": (runs["fused"]["counts"], FULL_STEPS),
-             "staged": (runs["staged"]["counts"], FULL_STEPS),
-             "kvs_load": (kvs["kernels"]["bulk_counts"], None),
-             "kvs_serve": (kvs["kernels"]["serve_counts"], kvs_steps),
-             "lm_decode": (lm_counts, LM_STEPS)}
+    kk = kvs["kernels"]
+    paths = {"fused": (runs["fused"]["counts"], runs["fused"]["tally"],
+                       FULL_STEPS),
+             "staged": (runs["staged"]["counts"], runs["staged"]["tally"],
+                        FULL_STEPS),
+             "kvs_load": (kk["bulk_counts"], kk["bulk_tally"], None),
+             "kvs_serve": (kk["serve_counts"], kk["serve_tally"], kvs_steps),
+             "lm_decode": (lm_counts, lm_tally, LM_STEPS)}
     rows = phase_summary(torch, paths, seen)
     report["kernels"] = rows
     say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")
@@ -1519,9 +1700,12 @@ def main():
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
         else "nvidia-smi: " + smi.stderr.strip()
     report["nvidia_smi"] = card
+    (ROOT / "build" / "chip_smoke_report.json").write_text(
+        json.dumps(report, indent=1))
     say("details " + json.dumps(report))
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launched_inside", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """A/B measurement of the redesigned kernels — ``switch_step_fused``,
-``decode_attention``, ``nic_deliver_fused`` and ``kv_probe`` — on one
-CUDA card, across checkouts of this repository.
+``decode_attention``, ``nic_deliver_fused``, ``kv_probe``, ``ring_push``
+and the TX enqueue's ``ring_push_packed`` — on one CUDA card, across
+checkouts of this repository.
 
     python3 kernel_ab.py [--tree DIR]... [--inputs FILE] [--stamps]
                          [--out FILE]
@@ -26,10 +27,18 @@ tree it reports:
   bulk SETs of 2^20, values from a seeded generator), and as a control
   on 2^20 queries of consecutive buckets that all hit way 0 (the same
   work with every sector read in order, none at random).
+- with ``--inputs``: every kernel the tree has at every main-path shape
+  the file holds (activities a call from a CUDA graph, graph ms, and the
+  launches of that shape in the run that saved it), and the TX enqueue
+  at each of its shapes as ``rpc_pack`` then ``ring_push`` (two
+  launches, every tree) against ``ring_push_packed`` (one, where the
+  tree has it), held equal bit for bit.
 - activities and device time per step of the fused and the staged
   loopback routes (the 512-flow pair of ``chip_smoke.py`` phase 3) and
-  activities per step of the LM decode kernel route (Qwen2-1.5B at full
-  width, the pool of phase 6), each from a profiled window of steps.
+  activities per step of the KVS serve loop (phase 5's fabric and
+  batches, on a 2^16-bucket store) and of the LM decode kernel route
+  (Qwen2-1.5B at full width, the pool of phase 6), each from a profiled
+  window of steps.
 - decode attention with every slot at one length (1, 64, 256, 290 and
   1,024 rows) beside ``F.scaled_dot_product_attention`` on the same
   inputs, a yardstick only: the fixed cost of a call and the cost of its
@@ -39,8 +48,10 @@ tree it reports:
   ``switch_step.cu`` built beside it (cycles from one marker to the next).
 
 Inputs: ``--inputs`` names the file ``chip_smoke.py`` writes with the
-inputs its phase 4 captured (``build/phase4_inputs.pt``); without it (or
-for a kernel the file lacks) the switch step's and the delivery stage's
+inputs its phase 4 captured at every main-path shape
+(``build/phase4_inputs.pt``; the single-shape measurements above take
+the shape with the most launches); without it (or for a kernel the file
+lacks) the switch step's and the delivery stage's
 inputs are the last call of 60 further steps of the fused and the staged
 loopback at phase 3's load, and decode attention's are seeded bf16
 tensors at phase 6's shapes with lengths uniform in [1, 580).  The JSON
@@ -249,6 +260,126 @@ def kernel_times(torch, fn):
     return res
 
 
+# kernel -> the module of ``repro_torch.kernels`` that holds its
+# ``<name>_cuda`` launcher
+MODULES = {"ring_push": "ring_push", "ring_gather": "ring_copy",
+           "nic_deliver_fused": "nic_deliver",
+           "switch_step_fused": "switch_step", "rpc_pack": "rpc_pack",
+           "hash_steer_static": "hash_steer", "kv_probe": "kv_probe",
+           "decode_attention": "decode_attn",
+           "ring_push_packed": "ring_push"}
+
+
+def launcher(name):
+    """The tree's CUDA launcher of kernel ``name``, or None where the
+    tree has none."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{MODULES[name]}")
+    return getattr(mod, f"{name}_cuda", None)
+
+
+def switch_call(torch, fn, args, kw):
+    """(call, restore, work) for the in-place switch step: ``call``
+    restores the captured state, then launches on the working copy."""
+    work = tuple(a.clone() if hasattr(a, "clone") else a
+                 for a in args)
+
+    def restore():
+        for i in SWITCH_IN_PLACE:
+            work[i].copy_(args[i])
+
+    def call():
+        restore()
+        fn(*work, **kw)
+    return call, restore, work
+
+
+def by_shape(torch, saved):
+    """Every kernel the tree has at every main-path shape ``chip_smoke.py``
+    phase 4 saved: activities a call, CUDA-graph ms (the switch step's
+    restores subtracted) and the launches of that shape on the main
+    paths (of the run that saved them)."""
+    out = {}
+    for name, entries in saved.items():
+        fn = launcher(name)
+        if fn is None:
+            continue
+        rows = []
+        for args, kw, launches in entries:
+            if name == "switch_step_fused":
+                call, restore, work = switch_call(torch, fn, args, kw)
+                restore()
+                acts = graph_activities(torch, lambda: fn(*work, **kw))
+                ms = graph_ms(torch, call) - graph_ms(torch, restore)
+            else:
+                acts = graph_activities(torch, lambda: fn(*args, **kw))
+                ms = graph_ms(torch, lambda: fn(*args, **kw))
+            rows.append({"shape": [list(a.shape) for a in args
+                                   if hasattr(a, "shape")][:3],
+                         "launches": launches, "ms": ms,
+                         "activities_per_call": acts})
+        out[name] = rows
+    return out
+
+
+def enqueue(torch, saved):
+    """The TX enqueue at each shape of the packed push ``chip_smoke.py``
+    saved: ``rpc_pack`` then ``ring_push`` (two launches, every tree)
+    against ``ring_push_packed`` (one, where the tree has it) on the same
+    inputs, bit for bit equal."""
+    from repro_torch.kernels import ring_push as rp
+    from repro_torch.kernels import rpc_pack as pk
+    out = []
+    for args, _, launches in saved.get("ring_push_packed", []):
+        def two():
+            return rp.ring_push_cuda(*args[:3], pk.rpc_pack_cuda(*args[3:]))
+        row = {"n": int(args[1].shape[0]), "ring": list(args[0].shape),
+               "launches": launches, "two_launch_ms": graph_ms(torch, two),
+               "two_launch_activities": graph_activities(torch, two)}
+        packed = getattr(rp, "ring_push_packed_cuda", None)
+        if packed is not None:
+            if not torch.equal(packed(*args), two()):
+                raise RuntimeError("ring_push_packed differs from rpc_pack "
+                                   "+ ring_push")
+            row["packed_ms"] = graph_ms(torch, lambda: packed(*args))
+            row["packed_activities"] = graph_activities(
+                torch, lambda: packed(*args))
+        out.append(row)
+    return out
+
+
+def kvs_activities(torch, dev):
+    """Activities per step of the KVS tenant's serve loop on the kernel
+    route (``chip_smoke.py`` phase 5's fabric, batches and loop, on a
+    2^16-bucket store: the count does not depend on the store's size),
+    from a profiled window of 8 read-mix batches after 4."""
+    import chip_smoke as cs
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import serdes
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.load_balancer import LB_OBJECT
+    from repro_torch.runtime.kvs import DeviceKVS
+
+    kvs = DeviceKVS(**dict(KVS_STORE, n_buckets=2**16), use_pallas=True)
+    fab = DaggerFabric(FabricConfig(**cs.KVS_FABRIC, use_pallas=True))
+    eng = kvs.make_engine(fab, fab)
+    st = (fab.open_connection(fab.init_state(dev), 1, 0, 1, LB_OBJECT),
+          fab.open_connection(fab.init_state(dev), 1, 0, 0, LB_OBJECT),
+          kvs.init_state(dev))
+    pay, is_set = cs.kvs_requests(torch, dev, cs.KVS_MIXES[-1][1],
+                                  fab.slot_words - serdes.HEADER_WORDS)
+    st, _, _, _ = cs.kvs_serve(torch, dev, fab, eng, st, (pay[:4],
+                                                          is_set[:4]), 4)
+    box = {}
+
+    def window():
+        box["res"] = cs.kvs_serve(torch, dev, fab, eng, st,
+                                  (pay[4:12], is_set[4:12]), 8)
+    ev = device_events(torch, window)
+    steps = sum(s for _, s in box["res"][1])
+    return len(ev) / steps
+
+
 def nic_deliver(torch, args, kw):
     """``nic_deliver_fused`` on the staged route's inputs."""
     from repro_torch.kernels import nic_deliver as nd
@@ -402,7 +533,8 @@ def stamps(torch, args, kw):
                                                   root / "lib", None)
     try:
         lib = _build.library()
-        work = tuple(a.clone() for a in args)
+        work = tuple(a.clone() if hasattr(a, "clone") else a
+                     for a in args)
         ss.switch_step_fused_cuda(*work, **kw)
         torch.cuda.synchronize()
         n = 8 * 4096
@@ -462,24 +594,25 @@ def worker(opts):
     seng, sstate, nd_args = loopback(torch, dev, stages=True,
                                      record="nic_deliver_fused")
     dec = decode_inputs(torch, dev)
+    saved = {}
     if opts.inputs:
         saved = torch.load(opts.inputs, map_location=dev)
-        sw = saved.get("switch_step_fused", sw)
-        dec = saved.get("decode_attention", dec)
-        nd_args = saved.get("nic_deliver_fused", nd_args)
+
+        def main_shape(name, default):
+            # the shape with the most main-path launches
+            if name not in saved:
+                return default
+            args, kw, _ = max(saved[name], key=lambda e: e[2])
+            return args, kw
+        sw = main_shape("switch_step_fused", sw)
+        dec = main_shape("decode_attention", dec)
+        nd_args = main_shape("nic_deliver_fused", nd_args)
     res["inputs"] = opts.inputs or "synthesized"
 
     # switch step: restore the captured state, then call
     args, kw = sw
-    work = tuple(a.clone() for a in args)
-
-    def restore():
-        for i in SWITCH_IN_PLACE:
-            work[i].copy_(args[i])
-
-    def switch():
-        restore()
-        ss.switch_step_fused_cuda(*work, **kw)
+    switch, restore, work = switch_call(torch, ss.switch_step_fused_cuda,
+                                        args, kw)
     sw_res = per_call_activities(torch, lambda: ss.switch_step_fused_cuda(
         *work, **kw))
     t_both = graph_ms(torch, switch)
@@ -510,6 +643,8 @@ def worker(opts):
 
     res["nic_deliver_fused"] = nic_deliver(torch, *nd_args)
     res["kv_probe"] = kv_probe(torch, dev)
+    res["by_shape"] = by_shape(torch, saved)
+    res["enqueue"] = enqueue(torch, saved)
 
     # activities (and device time) per step on the main paths
     ops.reset_launch_counts()
@@ -519,6 +654,7 @@ def worker(opts):
     res["fused_device_us_per_step"] = fused["device_us_per_step"]
     res["staged_activities_per_step"] = staged["activities_per_step"]
     res["staged_device_us_per_step"] = staged["device_us_per_step"]
+    res["kvs_activities_per_step"] = kvs_activities(torch, dev)
     res["lm_activities_per_step"] = lm_activities(torch, dev)
     print(json.dumps(res))
     return 0
@@ -571,7 +707,19 @@ def main():
               f"activities {res['fused_device_us_per_step']:.1f} us, "
               f"staged {res['staged_activities_per_step']:.1f} activities "
               f"{res['staged_device_us_per_step']:.1f} us, "
+              f"kvs {res['kvs_activities_per_step']:.1f}, "
               f"lm {res['lm_activities_per_step']:.1f}", flush=True)
+        for name, rows in res["by_shape"].items():
+            print(f"  {name}: " + "; ".join(
+                f"{r['ms']:.5f} ms x {r['launches']} at {r['shape']} "
+                f"({r['activities_per_call']} act.)" for r in rows),
+                flush=True)
+        for r in res["enqueue"]:
+            print(f"  enqueue {r['n']} rows on {r['ring']}: rpc_pack + "
+                  f"ring_push {r['two_launch_ms']:.5f} ms "
+                  f"({r['two_launch_activities']} act.), ring_push_packed "
+                  f"{r.get('packed_ms', float('nan')):.5f} ms "
+                  f"({r.get('packed_activities', '-')} act.)", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

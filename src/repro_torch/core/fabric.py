@@ -17,10 +17,11 @@ updates the state it is given in place on the card, as the reference's
 donated state allows: a caller that needs that state afterwards clones
 it first.  With ``cfg.use_pallas`` the stages run
 through the hand-written CUDA kernels of ``repro_torch.kernels`` (their
-plain versions on CPU tensors): ``rpc_pack`` in the host's enqueue,
-``ring_push`` in every ring push, ``ring_gather`` in the emit,
-``nic_deliver_fused`` for the deliver stage, and ``switch_step_fused``
-for the whole fused pipeline.
+plain versions on CPU tensors): ``ring_push_packed`` in the host's
+enqueue (the ring push packing each record as ``rpc_pack`` would, one
+launch), ``ring_push`` in the emit's RX ring push, ``ring_gather`` in the
+emit, ``nic_deliver_fused`` for the deliver stage, and
+``switch_step_fused`` for the whole fused pipeline.
 """
 from __future__ import annotations
 
@@ -117,23 +118,27 @@ class DaggerFabric:
     # ---------------------------------------------------------- host side
     def host_tx_enqueue(self, st: FabricState, records, flow_ids,
                         valid=None) -> Tuple[FabricState, torch.Tensor]:
-        """The host's single memory write: pack records into TX ring slots
-        (through the ``rpc_pack`` kernel wrapper with ``cfg.use_pallas``)."""
-        if self.cfg.use_pallas:
-            from repro_torch.kernels import ops as kops
-            slots = kops.rpc_pack(*serdes.header_fields(records),
-                                  records["payload"].to(I32).contiguous(),
-                                  self.slot_words)
-        else:
-            slots = serdes.pack(records, self.slot_words)
-        dev = slots.device
+        """The host's single memory write: pack records into TX ring slots.
+
+        With ``cfg.use_pallas`` the push packs them itself: one
+        ``ring_push_packed`` launch (``Ring.push_records``) writes each
+        kept row's words as ``serdes.pack`` would assemble them; without
+        it ``serdes.pack`` builds the slots and ``Ring.push`` scatters
+        them, as the reference does."""
+        payload = records["payload"]
+        dev = payload.device
         if valid is None:
-            valid = torch.ones((slots.shape[0],), dtype=torch.bool,
+            valid = torch.ones((payload.shape[0],), dtype=torch.bool,
                                device=dev)
         flows = torch.as_tensor(flow_ids, device=dev).to(I32) % \
             self.cfg.n_flows
-        tx, accepted = st.tx.push(flows, slots, valid,
-                                  use_pallas=self.cfg.use_pallas)
+        if self.cfg.use_pallas:
+            tx, accepted = st.tx.push_records(
+                flows, serdes.header_fields(records),
+                payload.to(I32).contiguous(), valid)
+        else:
+            tx, accepted = st.tx.push(
+                flows, serdes.pack(records, self.slot_words), valid)
         rejected = (valid & ~accepted).sum(dtype=I32)
         mon = monitor.bump(st.mon, drops_tx_full=rejected)
         return _replace(st, tx=tx, mon=mon), accepted

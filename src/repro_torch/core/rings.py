@@ -87,6 +87,23 @@ class Ring:
     def occupancy(self):
         return self.tail - self.head
 
+    def _place(self, queue_ids, valid):
+        """Arbitrate a push of [N] rows: (queue ids with the drop sentinel
+        Q on rows that do not fit, positions, accepted [N])."""
+        e = self.capacity
+        nq = self.buf.shape[0]
+        rank, _ = rank_by_group(queue_ids, nq, valid)
+        free = e - (self.tail - self.head)
+        accepted = valid & (rank < free[queue_ids])
+        pos = ((self.tail[queue_ids] + rank) % e).to(I32)
+        q = torch.where(accepted, queue_ids, nq).to(I32)   # OOB -> drop
+        return q, pos, accepted
+
+    def _pushed(self, buf, q, accepted):
+        n_acc = add_drop(torch.zeros_like(self.tail), (q,),
+                         accepted.to(I32), accepted)
+        return Ring(buf, self.head, self.tail + n_acc), accepted
+
     def push(self, queue_ids, slots, valid, use_pallas: bool = False):
         """Push slots [N, W] to queues [N]; returns (ring, accepted [N]).
 
@@ -94,21 +111,26 @@ class Ring:
         ``use_pallas`` the row scatter runs through the ``ring_push``
         kernel wrapper (its plain version on CPU tensors).
         """
-        e = self.capacity
-        nq = self.buf.shape[0]
-        rank, _ = rank_by_group(queue_ids, nq, valid)
-        free = e - (self.tail - self.head)
-        accepted = valid & (rank < free[queue_ids])
-        pos = (self.tail[queue_ids] + rank) % e
-        q = torch.where(accepted, queue_ids, nq).to(I32)   # OOB -> drop
+        q, pos, accepted = self._place(queue_ids, valid)
         if use_pallas:
             from repro_torch.kernels import ops as kops
-            buf = kops.ring_push(self.buf, q, pos.to(I32), slots)
+            buf = kops.ring_push(self.buf, q, pos, slots)
         else:
             buf = set_drop(self.buf, (q, pos), slots, accepted)
-        n_acc = add_drop(torch.zeros_like(self.tail), (q,),
-                         accepted.to(I32), accepted)
-        return Ring(buf, self.head, self.tail + n_acc), accepted
+        return self._pushed(buf, q, accepted)
+
+    def push_records(self, queue_ids, fields, payload, valid):
+        """``push`` of the slots ``serdes.pack`` would make of a record
+        batch — ``fields`` the seven header fields [N] in wire order
+        (``serdes.header_fields``), ``payload`` [N, pw] int32 — packed
+        inside the push by the ``ring_push_packed`` kernel wrapper (its
+        plain version on CPU tensors).  The arbitration reads no slot, so
+        the packed slots never exist on the card."""
+        from repro_torch.kernels import ops as kops
+        q, pos, accepted = self._place(queue_ids, valid)
+        buf = kops.ring_push_packed(self.buf, q, pos, *fields, payload,
+                                    self.buf.shape[2])
+        return self._pushed(buf, q, accepted)
 
     def peek(self, max_n: int):
         """Read up to max_n slots from every queue head.

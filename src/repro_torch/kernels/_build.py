@@ -29,7 +29,8 @@ I = ctypes.c_int
 
 # C signatures: name -> argtypes (every function returns int = cudaError_t)
 SIGNATURES = {
-    "dg_ring_push": [P] * 5 + [I] * 4 + [P],
+    "dg_ring_push": [P] * 5 + [I] * 5 + [P],
+    "dg_ring_push_packed": [P] * 12 + [I] * 6 + [P],
     "dg_ring_gather": [P] * 3 + [I] * 4 + [P],
     "dg_nic_deliver": [P] * 20 + [I] * 8 + [P],
     "dg_switch_step": [P] * 28 + [I] * 14 + [P],

@@ -82,15 +82,6 @@ __device__ __forceinline__ int ordered_group_rank(bool part, int key,
   return rank;
 }
 
-// Grid-stride int32 copy (each translation unit keeps its own copy).
-static __global__ void copy_i32(const int* __restrict__ src,
-                                int* __restrict__ dst, long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    dst[i] = src[i];
-  }
-}
-
 // Byte-serial FNV-1a over the little-endian bytes of n_words words.
 __device__ __forceinline__ uint32_t fnv1a(const int* words, int n_words) {
   uint32_t h = 0x811C9DC5u;
@@ -105,14 +96,3 @@ __device__ __forceinline__ uint32_t fnv1a(const int* words, int n_words) {
 }
 
 }  // namespace dg
-
-// Plain copy launched before each out-of-place kernel: the outputs start
-// as the inputs' contents, then the kernel scatters into them.
-static inline cudaError_t dg_copy(const int* src, int* dst, long long n,
-                                  cudaStream_t stream) {
-  if (n <= 0) return cudaSuccess;
-  long long blocks = (n + 255) / 256;
-  if (blocks > 65535) blocks = 65535;
-  dg::copy_i32<<<(unsigned)blocks, 256, 0, stream>>>(src, dst, n);
-  return cudaGetLastError();
-}

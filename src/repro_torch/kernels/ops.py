@@ -5,8 +5,10 @@ Each wrapper takes its kernel's plain PyTorch version only because the
 tensors it was given lie on the CPU; for CUDA tensors it launches the
 CUDA kernel (built from ``csrc/`` at first use) or raises — a failed
 build or launch is never replaced by the plain version.  Each wrapper
-adds one to its launch count where it launches its kernel and nowhere
-else, so a run can show that its path went through the kernels.
+adds one to its launch count, and to the count of its call's shape
+(``launch_shapes``), where it launches its kernel and nowhere else, so a
+run can show that its path went through the kernels, and at which
+shapes.
 """
 from __future__ import annotations
 
@@ -22,11 +24,29 @@ from repro_torch.kernels import rpc_pack as _pk
 from repro_torch.kernels import switch_step as _ss
 
 # ``hash_steer`` launches the ``hash_steer_static`` kernel (with a device
-# modulus) and counts under that name.
+# modulus) and counts under that name.  ``ring_push_packed`` is the
+# ``ring_push`` kernel in its packed mode, whose rows ``rpc_pack``'s word
+# assembly writes (the TX enqueue); it counts under its own name.
 KERNELS = ("ring_push", "ring_gather", "nic_deliver_fused",
            "switch_step_fused", "rpc_pack", "hash_steer_static", "kv_probe",
-           "decode_attention")
+           "decode_attention", "ring_push_packed")
 _launches = dict.fromkeys(KERNELS, 0)
+_shapes = {}
+
+
+def call_shape(args, kw) -> tuple:
+    """A kernel call's shape: each tensor argument's shape, the other
+    arguments, and the keywords (sorted); ``args`` are the wrapper's
+    named parameters in order, defaults included."""
+    return (tuple([a.shape if isinstance(a, torch.Tensor) else a
+                   for a in args]),
+            tuple(sorted(kw.items())) if kw else ())
+
+
+def _launched(name, args, kw=None) -> None:
+    _launches[name] += 1
+    key = (name, call_shape(args, kw))
+    _shapes[key] = _shapes.get(key, 0) + 1
 
 
 def launch_counts() -> dict:
@@ -34,9 +54,16 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
+def launch_shapes() -> dict:
+    """Launches per (kernel, ``call_shape``) since the last
+    ``reset_launch_counts``."""
+    return dict(_shapes)
+
+
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+    _shapes.clear()
 
 
 def _on_card(t, name: str) -> bool:
@@ -51,7 +78,18 @@ def ring_push(buf, queue_ids, pos, slots):
     if not _on_card(buf, "ring_push"):
         return _rp.ring_push_plain(buf, queue_ids, pos, slots)
     out = _rp.ring_push_cuda(buf, queue_ids, pos, slots)
-    _launches["ring_push"] += 1
+    _launched("ring_push", (buf, queue_ids, pos, slots))
+    return out
+
+
+def ring_push_packed(buf, queue_ids, pos, conn_id, rpc_id, fn_id, flags,
+                     payload_len, frag_idx, timestamp, payload, slot_words):
+    args = (buf, queue_ids, pos, conn_id, rpc_id, fn_id, flags,
+            payload_len, frag_idx, timestamp, payload, slot_words)
+    if not _on_card(buf, "ring_push_packed"):
+        return _rp.ring_push_packed_plain(*args)
+    out = _rp.ring_push_packed_cuda(*args)
+    _launched("ring_push_packed", args)
     return out
 
 
@@ -59,7 +97,7 @@ def ring_gather(table, refs):
     if not _on_card(table, "ring_gather"):
         return _rc.ring_gather_plain(table, refs)
     out = _rc.ring_gather_cuda(table, refs)
-    _launches["ring_gather"] += 1
+    _launched("ring_gather", (table, refs))
     return out
 
 
@@ -70,7 +108,7 @@ def nic_deliver_fused(slots, valid, fifo, req_table, ffbuf, conn_tag,
     if not _on_card(slots, "nic_deliver_fused"):
         return _nd.nic_deliver_fused_plain(*args, **kw)
     out = _nd.nic_deliver_fused_cuda(*args, **kw)
-    _launches["nic_deliver_fused"] += 1
+    _launched("nic_deliver_fused", args, kw)
     return out
 
 
@@ -84,7 +122,7 @@ def switch_step_fused(tx_buf, tx_head, tx_tail, rx_buf, rx_head, rx_tail,
     if not _on_card(tx_buf, "switch_step_fused"):
         return _ss.switch_step_fused_plain(*args, **kw)
     out = _ss.switch_step_fused_cuda(*args, **kw)
-    _launches["switch_step_fused"] += 1
+    _launched("switch_step_fused", args, kw)
     return out
 
 
@@ -95,7 +133,7 @@ def rpc_pack(conn_id, rpc_id, fn_id, flags, payload_len, frag_idx,
     if not _on_card(conn_id, "rpc_pack"):
         return _pk.rpc_pack_plain(*args)
     out = _pk.rpc_pack_cuda(*args)
-    _launches["rpc_pack"] += 1
+    _launched("rpc_pack", args)
     return out
 
 
@@ -103,7 +141,7 @@ def hash_steer_static(payload, n_flows, key_words=2):
     if not _on_card(payload, "hash_steer_static"):
         return _hs.hash_steer_static_plain(payload, n_flows, key_words)
     out = _hs.hash_steer_static_cuda(payload, n_flows, key_words)
-    _launches["hash_steer_static"] += 1
+    _launched("hash_steer_static", (payload, n_flows, key_words))
     return out
 
 
@@ -113,7 +151,7 @@ def hash_steer(payload, active_flows):
     flows = torch.as_tensor(active_flows, device=payload.device) \
         .to(torch.int32).reshape(())
     out = _hs.hash_steer_static_cuda(payload, 0, active_flows=flows)
-    _launches["hash_steer_static"] += 1
+    _launched("hash_steer_static", (payload, active_flows))
     return out
 
 
@@ -121,7 +159,7 @@ def kv_probe(tags, values, q_bucket, q_tag):
     if not _on_card(tags, "kv_probe"):
         return _kv.kv_probe_plain(tags, values, q_bucket, q_tag)
     out = _kv.kv_probe_cuda(tags, values, q_bucket, q_tag)
-    _launches["kv_probe"] += 1
+    _launched("kv_probe", (tags, values, q_bucket, q_tag))
     return out
 
 
@@ -129,5 +167,5 @@ def decode_attention(q, k, v, lengths):
     if not _on_card(q, "decode_attention"):
         return _da.decode_attention_plain(q, k, v, lengths)
     out = _da.decode_attention_cuda(q, k, v, lengths)
-    _launches["decode_attention"] += 1
+    _launched("decode_attention", (q, k, v, lengths))
     return out

@@ -5,12 +5,15 @@ header field arrays [N] and a payload [N, pw_in] become wire slots
 [N, slot_words]: w0 ``conn_id``, w1 ``rpc_id``, w2 ``fn_id & 0xFFFF |
 flags << 16``, w3 ``payload_len & 0xFFFF | (frag_idx & 0xFFFF) << 16``,
 w4 ``timestamp``, then the payload zero-padded or cut to
-``slot_words - 5`` words.  ``DaggerFabric.host_tx_enqueue`` packs
-through it with ``cfg.use_pallas``.
+``slot_words - 5`` words.  The TX enqueue of a ``cfg.use_pallas``
+fabric does not launch it: ``ring_push_packed`` (``ring_push.py``)
+assembles the same words with the same device function as it writes
+them into the ring.
 
-Kernel (``csrc/rpc_pack.cu``): one thread per output word; header words
-are assembled in ``uint32_t`` (a signed shift that overflows is
-undefined in C++, while JAX and PyTorch wrap), payload words are copied.
+Kernel (``csrc/rpc_pack.cu``): one thread per output word, assembled by
+``dg::pack_word`` (``csrc/serdes.cuh``): header words in ``uint32_t`` (a
+signed shift that overflows is undefined in C++, while JAX and PyTorch
+wrap), payload words copied.
 
 Bound on the card: bytes — the fields and payload read once, the slots
 written once.  Neighbouring threads write neighbouring words, so the

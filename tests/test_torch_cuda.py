@@ -23,11 +23,12 @@ from repro_torch.kernels import (decode_attn, hash_steer, kv_probe,
                                  nic_deliver, ops, ring_copy, ring_push,
                                  rpc_pack)
 from repro_torch.kernels import switch_step
-from torch_cases import (DELIVER_EDGES, PROBE_PATHS, SWITCH_HAZARDS,
-                         decode_inputs, deliver_edge, deliver_inputs,
-                         edge_lengths, gather_inputs, hash_inputs,
-                         misaligned, pack_inputs, probe_inputs, push_inputs,
-                         switch_hazard, switch_inputs, with_ext)
+from torch_cases import (DELIVER_EDGES, PROBE_PATHS, PUSH_CASES,
+                         SWITCH_HAZARDS, decode_inputs, deliver_edge,
+                         deliver_inputs, edge_lengths, gather_inputs,
+                         hash_inputs, misaligned, pack_inputs, packed_case,
+                         probe_inputs, push_case, push_inputs, switch_hazard,
+                         switch_inputs, with_ext)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -84,6 +85,84 @@ def test_ring_push_kernel(cuda, shape):
     args = _dev(push_inputs(rng, *shape), cuda)
     _launch_and_compare("ring_push", ops.ring_push,
                         ring_push.ring_push_plain, args)
+
+
+PUSH_KINDS = sorted(PUSH_CASES) + ["misaligned_buf", "misaligned_rows"]
+
+
+def _push_case(kind, cuda, packed, pw=11):
+    """A ``PUSH_CASES`` case on the card (the misaligned ones: ``spread``
+    with the ring, or the slots / payload, 4 bytes off a 16-byte
+    boundary), whether the kernel should take its vector path, and the
+    arguments' pre-call clones."""
+    rng = np.random.default_rng(80 + PUSH_KINDS.index(kind) + 10 * packed)
+    base = "spread" if kind.startswith("misaligned") else kind
+    made = packed_case(rng, base, pw) if packed else push_case(rng, base)
+    args = list(_dev(made, cuda))
+    if kind == "misaligned_buf":
+        args[0] = misaligned(args[0])
+    elif kind == "misaligned_rows":
+        args[-1] = misaligned(args[-1])
+    w = args[0].shape[2]
+    vec = w % 4 == 0 and kind != "misaligned_buf" and (
+        packed or kind != "misaligned_rows")
+    out = torch.empty_like(args[0])
+    slots = None if packed else args[3]
+    assert ring_push.vector_path(args[0], out, slots) is vec
+    return tuple(args), tuple(a.clone() for a in args)
+
+
+@pytest.mark.parametrize("kind", PUSH_KINDS)
+def test_ring_push_kernel_edge_cases(cuda, kind):
+    """Targets over every tile or all in one, W = 5 (the scalar path), no
+    row, every row dropped, negative indices, more rows than slots, and
+    a ring or slot table off a 16-byte boundary; the inputs unchanged."""
+    args, kept = _push_case(kind, cuda, packed=False)
+    _launch_and_compare("ring_push", ops.ring_push,
+                        ring_push.ring_push_plain, args)
+    for k, (a, b) in enumerate(zip(args, kept)):
+        assert torch.equal(a, b), f"ring_push wrote input {k}"
+
+
+@pytest.mark.parametrize("kind,pw", [(k, 11) for k in PUSH_KINDS]
+                         + [("spread", 7), ("spread", 14)])
+def test_ring_push_packed_kernel_edge_cases(cuda, kind, pw):
+    """``ring_push``'s edge cases through the packed push (the TX
+    enqueue): flags and fragment indices of 0x8000 and above; short,
+    exact and long payloads; the inputs unchanged."""
+    args, kept = _push_case(kind, cuda, packed=True, pw=pw)
+    _launch_and_compare("ring_push_packed", ops.ring_push_packed,
+                        ring_push.ring_push_packed_plain,
+                        (*args, args[0].shape[2]))
+    for k, (a, b) in enumerate(zip(args, kept)):
+        assert torch.equal(a, b), f"ring_push_packed wrote input {k}"
+
+
+def test_ring_push_packed_kernel_full_size(cuda):
+    """Phase 3's enqueue: 2,048 records onto the 512 x 64-entry ring."""
+    rng = np.random.default_rng(90)
+    buf, qid, pos, _ = push_inputs(rng, 512, 64, 16, 2048)
+    args = _dev((buf, qid, pos, *pack_inputs(rng, 2048, 11)), cuda)
+    _launch_and_compare("ring_push_packed", ops.ring_push_packed,
+                        ring_push.ring_push_packed_plain, (*args, 16))
+
+
+def test_launch_shapes_count_each_call_shape(cuda):
+    """``ops.launch_shapes`` counts every launch under its kernel and
+    ``ops.call_shape``, summing to ``ops.launch_counts``; a call on CPU
+    tensors counts nothing."""
+    rng = np.random.default_rng(91)
+    small = _dev(push_inputs(rng, 4, 8, 16, 6), cuda)
+    big = _dev(push_inputs(rng, 8, 16, 16, 40), cuda)
+    ops.reset_launch_counts()
+    for args in (small, big, small):
+        ops.ring_push(*args)
+    ops.ring_push(*(a.cpu() for a in big))
+    torch.cuda.synchronize()
+    assert ops.launch_shapes() == {
+        ("ring_push", ops.call_shape(small, None)): 2,
+        ("ring_push", ops.call_shape(big, None)): 1}
+    assert ops.launch_counts()["ring_push"] == 3
 
 
 @pytest.mark.parametrize("shape", [(8, 16, 2, 4), (2048, 16, 512, 4)])

@@ -24,9 +24,10 @@ from repro.kernels import ref
 from repro_torch.kernels import decode_attn, nic_deliver, ops, ring_copy
 from repro_torch.kernels import ring_push, switch_step
 
-from torch_cases import (DELIVER_EDGES, SWITCH_HAZARDS, decode_inputs,
-                         deliver_edge, deliver_inputs, edge_lengths,
-                         push_inputs, switch_hazard, switch_inputs, with_ext)
+from torch_cases import (DELIVER_EDGES, PUSH_CASES, SWITCH_HAZARDS,
+                         decode_inputs, deliver_edge, deliver_inputs,
+                         edge_lengths, packed_case, push_case, push_inputs,
+                         switch_hazard, switch_inputs, with_ext)
 
 
 def _t(a):
@@ -68,6 +69,95 @@ def test_ring_push_full_ring_all_dropped():
     _eq(got, ref.ref_ring_push(jnp.asarray(buf), jnp.asarray(qid),
                                jnp.asarray(pos), jnp.asarray(slots)))
     _eq(got, buf)
+
+
+@pytest.mark.parametrize("kind", sorted(PUSH_CASES))
+def test_ring_push_plain_edge_cases(kind):
+    """The kernel's edge cases — targets over every tile or in one, W not
+    a multiple of 4, no row, every row dropped, negative indices, more
+    rows than slots — against the oracle, inputs left as they were."""
+    rng = np.random.default_rng(20 + sorted(PUSH_CASES).index(kind))
+    args = push_case(rng, kind)
+    want = ref.ref_ring_push(*map(jnp.asarray, args))
+    ins = tuple(map(_t, args))
+    kept = tuple(t.clone() for t in ins)
+    for fn in (ring_push.ring_push_plain, ops.ring_push):
+        _eq(fn(*ins), want, kind)
+        for k, (a, b) in enumerate(zip(ins, kept)):
+            assert torch.equal(a, b), f"{kind}: input {k} was written"
+    if kind == "one_tile":
+        # the kernel's tile is 1,024 elements: 256 rows of W = 16 on its
+        # vector path, so every kept row lands in rows 256-511
+        q, e, _, _ = PUSH_CASES[kind]
+        hit = (args[1] < q) & (args[1] >= 0)
+        lin = args[1][hit].astype(np.int64) * e + args[2][hit]
+        assert len(lin) and set(lin // 256) == {1}
+
+
+@pytest.mark.parametrize("pw", [7, 11, 14])
+@pytest.mark.parametrize("kind", sorted(PUSH_CASES))
+def test_ring_push_packed_plain_matches_ref(kind, pw):
+    """``ring_push_packed_plain`` against ``ref_rpc_pack`` then
+    ``ref_ring_push`` (the Pallas ``ring_push`` cannot run on this jax):
+    short, exact and long payloads, flags and fragment indices of 0x8000
+    and above, at every edge case of ``ring_push``."""
+    rng = np.random.default_rng(40 + pw + sorted(PUSH_CASES).index(kind))
+    args = packed_case(rng, kind, pw)
+    w = args[0].shape[2]
+    j = [jnp.asarray(a) for a in args]
+    want = ref.ref_ring_push(*j[:3], ref.ref_rpc_pack(*j[3:], w))
+    ins = tuple(map(_t, args))
+    _eq(ring_push.ring_push_packed_plain(*ins, w), want, kind)
+    _eq(ops.ring_push_packed(*ins, w), want, "ops")
+
+
+def test_ring_push_packed_bytes_moved_by_hand():
+    """The packed push's bound on a 2 x 4 ring of 8-word rows and 7 records
+    of 2 payload words: two rows for (0, 1), the drop sentinel, (1, -1)
+    and (-1, 0) counted from the end, and two out of range, so 3 rows
+    are written.  The 5 rows kept are read, all 8 written, 7 x 2
+    indices read, and 3 x (7 fields + 2 payload words)."""
+    buf = torch.zeros((2, 4, 8), dtype=torch.int32)
+    qid = torch.tensor([0, 0, 2, 1, -1, 0, 3], dtype=torch.int32)
+    pos = torch.tensor([1, 1, 0, -1, 0, 4, 0], dtype=torch.int32)
+    pay = torch.zeros((7, 2), dtype=torch.int32)
+    assert ring_push.packed_bytes_moved(buf, qid, pos, pay) == \
+        (5 + 8) * 8 * 4 + 14 * 4 + 3 * 9 * 4
+
+
+@pytest.mark.parametrize("kind", sorted(PUSH_CASES))
+def test_ring_push_packed_bytes_moved_counts_written_rows(kind):
+    """At every edge case of ``ring_push``, the packed bound reads the
+    ring rows that no row overwrites and counts each overwritten row's
+    record words once (a row by row count of the targets)."""
+    rng = np.random.default_rng(60 + sorted(PUSH_CASES).index(kind))
+    buf, qid, pos, *_, payload = packed_case(rng, kind, 11)
+    q, e, w = buf.shape
+    targets = set()
+    for qi, pi in zip(qid.tolist(), pos.tolist()):
+        qi, pi = qi + q if qi < 0 else qi, pi + e if pi < 0 else pi
+        if 0 <= qi < q and 0 <= pi < e:
+            targets.add((qi, pi))
+    want = (2 * q * e - len(targets)) * w * 4 + 2 * len(qid) * 4 \
+        + len(targets) * (7 + min(11, w - 5)) * 4
+    assert ring_push.packed_bytes_moved(
+        *map(_t, (buf, qid, pos, payload))) == want
+
+
+def test_call_shape_and_cpu_calls_count_no_launch():
+    """``ops.call_shape`` keeps each tensor's shape and every other
+    argument and keyword; a wrapper given CPU tensors runs the plain
+    version and counts no launch, by kernel or by shape."""
+    rng = np.random.default_rng(70)
+    args = tuple(map(_t, push_inputs(rng, 4, 8, 16, 6)))
+    assert ops.call_shape(args, None) == (
+        ((4, 8, 16), (6,), (6,), (6, 16)), ())
+    assert ops.call_shape((args[0], 3), {"b": 1, "a": 2}) == (
+        ((4, 8, 16), 3), (("a", 2), ("b", 1)))
+    ops.reset_launch_counts()
+    ops.ring_push(*args)
+    assert ops.launch_shapes() == {} and not any(
+        ops.launch_counts().values())
 
 
 # ----------------------------------------------------------- ring_gather
@@ -410,6 +500,14 @@ def test_kernel_launchers_check_shapes_before_launch():
     buf, qid, pos, slots = map(_t, push_inputs(rng, 2, 4, 6, 3))
     with pytest.raises(ValueError, match="pos"):
         ring_push.ring_push_cuda(buf, qid, pos[:2], slots)
+    fields = [_t(a) for a in packed_case(rng, "spread")[3:]]
+    big = _t(push_case(rng, "spread")[0])
+    q16, p16 = (torch.zeros(300, dtype=torch.int32) for _ in range(2))
+    with pytest.raises(ValueError, match="slot_words"):
+        ring_push.ring_push_packed_cuda(big, q16, p16, *fields, 12)
+    with pytest.raises(ValueError, match="timestamp"):
+        ring_push.ring_push_packed_cuda(big, q16, p16, *fields[:6],
+                                        fields[6][:5], fields[7], 16)
     args = list(map(_t, deliver_inputs(rng, 8, 4, 8, 8)))
     args[1] = args[1][:5]
     with pytest.raises(ValueError, match="valid"):

@@ -147,8 +147,8 @@ def test_rpc_pack_matches_kernel_and_ref(n, pw, slot_words):
 
 
 def test_kernel_route_enqueue_matches_reference():
-    """``host_tx_enqueue`` on a ``use_pallas`` fabric (the ``rpc_pack``
-    and ``ring_push`` wrappers) against the reference's, over a ring
+    """``host_tx_enqueue`` on a ``use_pallas`` fabric (the
+    ``ring_push_packed`` wrapper) against the reference's, over a ring
     that overflows, with big flags, fragments and per-row timestamps."""
     cfg = dict(n_flows=2, ring_entries=4, batch_size=4,
                dynamic_batching=False)
@@ -176,6 +176,36 @@ def test_kernel_route_enqueue_matches_reference():
     jst, _ = jf.host_tx_enqueue(jst, jrec, flows)
     tst, _ = tf.host_tx_enqueue(tst, trec, _t(flows))
     _assert_same(_tree(tst), _tree(jst))
+
+
+@pytest.mark.parametrize("pw", [4, 11, 15])
+def test_kernel_route_enqueue_payload_widths_and_full_ring(pw):
+    """The packed push of ``host_tx_enqueue`` (``Ring.push_records``)
+    against the reference's jnp path with short, exact and long payloads:
+    an empty ring takes rows until its queues fill (sentinel rows), then
+    a full ring rejects every row."""
+    cfg = dict(n_flows=3, ring_entries=4, batch_size=4,
+               dynamic_batching=False)
+    jf = JFab(JCfg(**cfg))
+    tf = TFab(TCfg(**cfg, use_pallas=True))
+    rng = np.random.default_rng(50 + pw)
+    jst = jf.init_state()
+    tst = interop.fabric_state_from_numpy(jst, "cpu")
+    for batch in range(5):
+        conn, rpc, fn, flags, plen, frag, ts, pay = pack_inputs(rng, 9, pw)
+        flows = rng.integers(0, 3, 9).astype(np.int32)
+        jrec = jserdes.make_records(conn, rpc, fn, flags, jnp.asarray(pay),
+                                    payload_len=plen, frag_idx=frag,
+                                    timestamp=ts)
+        trec = tserdes.make_records(_t(conn), _t(rpc), _t(fn), _t(flags),
+                                    _t(pay), payload_len=_t(plen),
+                                    frag_idx=_t(frag), timestamp=_t(ts))
+        jst, jacc = jf.host_tx_enqueue(jst, jrec, flows)
+        tst, tacc = tf.host_tx_enqueue(tst, trec, _t(flows))
+        _assert_same(_tree(tst), _tree(jst))
+        _eq(tacc, jacc, f"accepted, batch {batch}")
+    assert bool((tst.tx.occupancy() == 4).all()) and not tacc.any(), \
+        "the full ring took a row"
 
 
 # -------------------------------------------------------------- kv_probe

@@ -27,6 +27,62 @@ def push_inputs(rng, q, e, w, n, drop=0.3):
     return buf, qid, pos, slots
 
 
+# (q, e, w, n) of the ring_push edge cases (``push_case``): targets
+# spread over every tile of the kernel (256 rows at W = 16) or all in
+# one, a slot width that is not a multiple of 4 (the scalar path), no
+# row, every row dropped, negative indices, and more rows than the ring
+# has slots
+PUSH_CASES = {
+    "spread": (16, 64, 16, 300),
+    "one_tile": (16, 64, 16, 200),
+    "w5": (8, 16, 5, 50),
+    "empty": (4, 8, 16, 0),
+    "all_dropped": (4, 8, 16, 20),
+    "negative": (6, 16, 16, 40),
+    "oversize": (2, 8, 16, 40),
+}
+
+
+def push_case(rng, kind):
+    """Inputs of ``ring_push`` for the edge case ``kind`` of
+    ``PUSH_CASES``: (buf, queue_ids, pos, slots)."""
+    q, e, w, n = PUSH_CASES[kind]
+    if kind == "one_tile":
+        # rows 256-511: queues 4-7, the second tile of 256 rows
+        cells = 4 * e + rng.permutation(4 * e)[:n]
+        buf, qid, pos, slots = push_inputs(rng, q, e, w, n)
+        qid = (cells // e).astype(np.int32)
+        pos = (cells % e).astype(np.int32)
+        qid[rng.random(n) < 0.3] = q
+        return buf, qid, pos, slots
+    if kind == "oversize":
+        # every slot written once, the rows past Q*E out of range
+        buf, qid, pos, slots = push_inputs(rng, q, e, w, q * e, drop=0.2)
+        extra = n - q * e
+        bad_q = rng.choice([q, -q - 1, q + 3], extra).astype(np.int32)
+        bad_p = rng.choice([e, -e - 1, 0], extra).astype(np.int32)
+        bad_q[bad_p == 0] = q
+        return (buf, np.concatenate([qid, bad_q]),
+                np.concatenate([pos, bad_p]),
+                np.concatenate([slots, rng.integers(
+                    -1000, 1000, (extra, w)).astype(np.int32)]))
+    buf, qid, pos, slots = push_inputs(
+        rng, q, e, w, n, drop=1.0 if kind == "all_dropped" else 0.3)
+    if kind == "negative":
+        neg = rng.random(n) < 0.5
+        qid = np.where(neg & (qid < q), qid - q, qid).astype(np.int32)
+        pos = np.where(rng.random(n) < 0.5, pos - e, pos).astype(np.int32)
+    return buf, qid, pos, slots
+
+
+def packed_case(rng, kind, pw=11):
+    """Inputs of ``ring_push_packed`` for the edge case ``kind`` of
+    ``PUSH_CASES``, records of ``pack_inputs`` with payloads of ``pw``
+    words: (buf, queue_ids, pos, seven header fields, payload)."""
+    buf, qid, pos, _ = push_case(rng, kind)
+    return (buf, qid, pos, *pack_inputs(rng, qid.shape[0], pw))
+
+
 def gather_inputs(rng, r, w, f, b):
     """References include the free-slot sentinel R."""
     return (rng.integers(-1000, 1000, (r, w)).astype(np.int32),
