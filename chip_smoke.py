@@ -16,11 +16,15 @@ exit, no result line) on any mismatch:
    0x8000 and above, key words with the high bit set, raw and 1-flow
    hashing, empty buckets, matches at several ways and out-of-range
    buckets, both paths of ``kv_probe`` (tables off a 16-byte boundary
-   take the scalar one), ``ring_push`` and the packed push of the TX
-   enqueue with targets over every tile or all in one, W = 5 (the
-   scalar path), no row, every row dropped, negative indices, more rows
-   than slots and tables off a 16-byte boundary, leaving their inputs as
-   they were — equal bit for bit (``nic_deliver_fused`` at
+   take the scalar one), ``ring_push``, the packed push of the TX
+   enqueue and the gathered push of the staged emit with targets over
+   every tile or all in one, W = 5 (the scalar path), no row, every row
+   dropped, negative indices, more rows than slots and tables off a
+   16-byte boundary (the gathered push also with repeated targets and
+   references at the sentinel, negative and out of range), leaving their
+   inputs as they were, ``hash_bucket_tag`` at 0 to 2^20 keys read in
+   place from a wider payload or contiguous — equal bit for bit
+   (``nic_deliver_fused`` at
    the edges of its cluster, and leaving its inputs as they were; the
    switch step, which updates its state
    in place, runs on clones and must return the clones themselves; its
@@ -69,12 +73,16 @@ exit, no result line) on any mismatch:
    3, 5 and 6; the launches by shape are the ``ops`` wrappers' own
    counts (``ops.launch_shapes``) from the main-path runs.  The switch
    step's graph restores its captured state before every call, and its
-   time is that graph's less a graph of the restores.  ``rpc_pack``,
-   whose words the TX enqueue's ``ring_push_packed`` assembles inside
-   its push, has no launch of its own on the main paths (its row says
-   0 and names ``ring_push_packed`` in ``launched_inside``); it is timed
-   alone on the enqueue's records, beside the packed push's launches at
-   each shape (``inside_launches`` in ``by_shape``).  The inputs (all but
+   time is that graph's less a graph of the restores.  Four kernels run
+   on the main paths only inside another's launch (``INSIDE``), and each
+   must have no launch of its own there: ``rpc_pack`` inside the TX
+   enqueue's ``ring_push_packed``, ``ring_gather`` and ``ring_push``
+   (slot mode) inside the staged emit's ``ring_push_gathered``, and
+   ``hash_steer_static`` inside the KVS's ``hash_bucket_tag``.  Each row
+   says 0 launches and names the host in ``launched_inside``; each is
+   timed alone on the host's inputs mapped to its own, beside the host's
+   launches at each shape (``inside_launches`` in ``by_shape``).  The
+   inputs (all but
    ``kv_probe``'s 704 MiB store) go to ``build/phase4_inputs.pt``
    (``kernel_ab.py --inputs`` times other checkouts on them) and the
    report to ``build/chip_smoke_report.json``.
@@ -161,6 +169,13 @@ KERNELS = {
     # rpc_pack and ring_push in one launch
     "ring_push_packed": ("src/repro_torch/kernels/csrc/ring_push.cu",
                          "src/repro/kernels/ring_push.py:47"),
+    # the ring_push kernel in gathered mode (the staged emit): the pair
+    # of ring_gather and ring_push in one launch
+    "ring_push_gathered": ("src/repro_torch/kernels/csrc/ring_push.cu",
+                           "src/repro/kernels/ring_push.py:47"),
+    # hash_steer_static's hash with the KVS's bucket, tag and victim way
+    "hash_bucket_tag": ("src/repro_torch/kernels/csrc/hash_steer.cu",
+                        "src/repro/kernels/hash_steer.py:40"),
 }
 
 
@@ -260,6 +275,24 @@ def push_case(rnd, kind):
 
 def gather_inputs(rnd, r, w, f, b):
     return rnd.ints(-1000, 1000, (r, w)), rnd.ints(0, r + 1, (f, b))
+
+
+# references of the gathered push: in [0, R] (R, the sentinel, gives a
+# zero row), in [-R, R) (negative ones count from the end), or over
+# [-3R, 3R] (most name no row)
+REF_RANGES = {"sentinel": (0, 1), "negative": (-1, 1),
+              "out_of_range": (-3, 3)}
+
+
+def gathered_inputs(rnd, buf, qid, pos, ref_kind, r):
+    """``ring_push_gathered``'s inputs for a push case: a table [r, W]
+    and references [F, B] (F*B = N, B the largest of 4, 2, 1 dividing N)
+    from ``REF_RANGES[ref_kind]``."""
+    n, w = qid.shape[0], buf.shape[2]
+    lo, hi = REF_RANGES[ref_kind]
+    b = next(k for k in (4, 2, 1) if n % k == 0)
+    refs = rnd.ints(lo * r, hi * r + 1, (n // b, b))
+    return buf, qid, pos, rnd.ints(-2**31, 2**31 - 1, (r, w)), refs
 
 
 def deliver_inputs(rnd, n, f, d, r, w, c, full=None):
@@ -518,6 +551,39 @@ def phase_kernels(torch, dev):
         run("ring_push_packed", ops.ring_push_packed,
             rp.ring_push_packed_plain, (buf, qid, pos, *fields, w_),
             pure=True)
+    # the gathered push (the staged emit) at every push case and kind of
+    # reference; rows with repeated targets (the kernel takes the last,
+    # the plain version runs on the rows that write); a ring or table 4
+    # bytes off a 16-byte boundary; every input left as it was
+    for kind in list(PUSH_CASES) + ["duplicates", "misaligned_buf",
+                                    "misaligned_table"]:
+        for ref_kind in REF_RANGES:
+            if kind == "duplicates":
+                qd, ed = 4, 8
+                buf, qid, pos = (rnd.ints(-2**31, 2**31 - 1, (qd, ed, 16)),
+                                 rnd.ints(0, qd + 1, (40,)),
+                                 rnd.ints(0, ed, (40,)))
+            else:
+                buf, qid, pos, _ = push_case(
+                    rnd, "spread" if kind.startswith("misaligned") else kind)
+            args = list(gathered_inputs(
+                rnd, buf, qid, pos, ref_kind,
+                r if kind == "full_size" else 64))
+            if kind == "misaligned_buf":
+                args[0] = misaligned(args[0])
+            elif kind == "misaligned_table":
+                args[3] = misaligned(args[3])
+            vec = args[0].shape[2] % 4 == 0 and not kind.startswith(
+                "misaligned")
+            check(rp.vector_path(args[0], torch.empty_like(args[0]),
+                                 args[3]) is vec,
+                  f"ring_push_gathered {kind}: vector path not as expected")
+            writers = rp.last_writers(*args[:3])
+
+            def plain(b_, q_, p_, t_, r_, writers=writers):
+                return rp.ring_push_gathered_plain(b_, writers, p_, t_, r_)
+            run("ring_push_gathered", ops.ring_push_gathered, plain,
+                tuple(args), pure=True)
     for shape in ((8, 16, 2, 4), (33, 8, 5, 3), (r, w, f, b)):
         run("ring_gather", ops.ring_gather, rc.ring_gather_plain,
             gather_inputs(rnd, *shape))
@@ -594,6 +660,18 @@ def phase_kernels(torch, dev):
         run("hash_steer_static", ops.hash_steer, hs.hash_steer_plain,
             (rnd.ints(-2**31, 2**31 - 1, (29, 3)),
              torch.tensor(active, dtype=torch.int32, device=dev)))
+    # the KVS's bucket, tag and victim way: no key, one, the serve loop's
+    # 16, either side of a block of 256 and the bulk GET's 2^20; one or
+    # two key words, read in place from a [N, 16] payload or contiguous
+    for n_rows in (0, 1, kb, 255, 257, KVS_CHUNK):
+        for key_words in (1, kw_):
+            pay = rnd.ints(-2**31, 2**31 - 1, (n_rows, 16))
+            for keys in (pay[:, :key_words],
+                         pay[:, :key_words].contiguous()):
+                run("hash_bucket_tag", ops.hash_bucket_tag,
+                    hs.hash_bucket_tag_plain,
+                    (keys, KVS_STORE["n_buckets"], KVS_STORE["ways"],
+                     key_words))
     nbk, ways, vw = (KVS_STORE["n_buckets"], KVS_STORE["ways"],
                      KVS_STORE["value_words"])
     # both paths: vector (4 ways, whole 16-byte value rows; N not a
@@ -786,10 +864,12 @@ def phase_full(torch, dev):
                        f"{route}.{key}")
     fused, staged = runs["fused"]["counts"], runs["staged"]["counts"]
     # the enqueues pack inside their push (ring_push_packed, no rpc_pack
-    # launch); the staged route's emit pushes through ring_push
+    # launch); the staged route's emit gathers inside its push (one
+    # ring_push_gathered a NIC and step, no ring_gather or ring_push)
     check(fused["ring_push_packed"] > 0 and fused["switch_step_fused"] > 0
           and fused["rpc_pack"] == 0, f"fused route missed a kernel: {fused}")
-    check(staged["ring_push"] > 0 and staged["ring_gather"] > 0
+    check(staged["ring_push_gathered"] == 2 * FULL_STEPS
+          and staged["ring_push"] == 0 and staged["ring_gather"] == 0
           and staged["nic_deliver_fused"] > 0
           and staged["ring_push_packed"] > 0 and staged["rpc_pack"] == 0,
           f"staged route missed a kernel: {staged}")
@@ -1176,7 +1256,9 @@ def phase_kvs(torch, dev, seen):
                    f"kvs.{name}.telemetry")
     tree_equal(torch, k["state"], p["state"], "kvs.end_state")
     for key in ("bulk_counts", "serve_counts"):
-        check(k[key]["kv_probe"] > 0 and k[key]["hash_steer_static"] > 0,
+        # _bucket_tag: one hash_bucket_tag launch, no hash_steer_static
+        check(k[key]["kv_probe"] > 0 and k[key]["hash_bucket_tag"] > 0
+              and k[key]["hash_steer_static"] == 0,
               f"kvs kernel route missed a KVS kernel: {k[key]}")
         check(not any(p[key].values()),
               f"kvs plain route launched kernels: {p[key]}")
@@ -1190,9 +1272,9 @@ def phase_kvs(torch, dev, seen):
     with recording(step_seen):
         kvs_serve(torch, dev, k["fab"], k["eng"], fresh(torch, k["state"]),
                   (pay[:1], is_set[:1]), 1)
-    check("ring_push_packed" in step_seen and "kv_probe" in step_seen,
-          f"kvs serve batch missed ring_push_packed or kv_probe: "
-          f"{sorted(step_seen)}")
+    check({"ring_push_packed", "kv_probe", "hash_bucket_tag"}
+          <= set(step_seen), f"kvs serve batch missed ring_push_packed, "
+          f"kv_probe or hash_bucket_tag: {sorted(step_seen)}")
     for name, shapes in step_seen.items():
         seen.setdefault(name, {}).update(shapes)
     return runs
@@ -1447,7 +1529,7 @@ def kernel_impls():
 
     return {
         "ring_push": (rp.ring_push_cuda, rp.ring_push_plain,
-                      lambda a, kw, o: rp.bytes_moved(a[0], a[1], a[3])),
+                      lambda a, kw, o: rp.bytes_moved(*a)),
         "ring_gather": (rc.ring_gather_cuda, rc.ring_gather_plain,
                         lambda a, kw, o: rc.bytes_moved(*a)),
         "nic_deliver_fused": (nd.nic_deliver_fused_cuda,
@@ -1471,6 +1553,12 @@ def kernel_impls():
                              rp.ring_push_packed_plain,
                              lambda a, kw, o: rp.packed_bytes_moved(
                                  a[0], a[1], a[2], a[10])),
+        "ring_push_gathered": (rp.ring_push_gathered_cuda,
+                               rp.ring_push_gathered_plain,
+                               lambda a, kw, o: rp.gathered_bytes_moved(*a)),
+        "hash_bucket_tag": (hs.hash_bucket_tag_cuda, hs.hash_bucket_tag_plain,
+                            lambda a, kw, o: hs.bucket_tag_bytes_moved(
+                                a[0], a[3])),
     }
 
 
@@ -1545,12 +1633,29 @@ def time_shape(torch, name, impl, args, kw):
             "shape": signature(args, kw), **extra}
 
 
+def gathered_slots(table, refs):
+    """The staged emit's slot rows [N, W]: ``ring_gather``'s output of a
+    ``ring_push_gathered`` call's table and references, made outside the
+    timed call."""
+    from repro_torch.kernels import ring_copy as rc
+    return rc.ring_gather_plain(table, refs).reshape(refs.numel(),
+                                                     table.shape[1])
+
+
 # a kernel whose work on the main paths runs inside another's launch: it
-# has no launch of its own there (its row says so, and names the host
-# kernel in ``launched_inside``), and it is timed alone on the host's
-# inputs at each of the host's shapes (the arguments mapped to its own),
-# beside the host's launches at that shape (``inside_launches``)
-INSIDE = {"rpc_pack": ("ring_push_packed", lambda a, kw: (a[3:], {}))}
+# must have no launch of its own there (its row says so, and names the
+# host kernel in ``launched_inside``), and it is timed alone on the
+# host's inputs at each of the host's shapes (the arguments mapped to its
+# own, prepared outside the timed call), beside the host's launches at
+# that shape (``inside_launches``)
+INSIDE = {
+    "rpc_pack": ("ring_push_packed", lambda a, kw: (a[3:], {})),
+    "ring_gather": ("ring_push_gathered", lambda a, kw: (a[3:], {})),
+    "ring_push": ("ring_push_gathered",
+                  lambda a, kw: ((*a[:3], gathered_slots(*a[3:])), {})),
+    "hash_steer_static": ("hash_bucket_tag",
+                          lambda a, kw: ((a[0].contiguous(), 0, a[3]), {})),
+}
 
 
 def phase_summary(torch, paths, seen):
@@ -1573,8 +1678,10 @@ def phase_summary(torch, paths, seen):
     for name, (src, replaces) in KERNELS.items():
         launches = sum(c.get(name, 0) for c, _, _ in paths.values())
         host, convert = name, None
-        if not launches and name in INSIDE:
+        if name in INSIDE:
             host, convert = INSIDE[name]
+            check(not launches, f"{name} launched {launches} times of its "
+                  f"own on the main paths; its work runs inside {host}")
         count = "inside_launches" if convert else "launches"
         by_sig = {}
         for path, (_, tally, _) in paths.items():

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """A/B measurement of the redesigned kernels — ``switch_step_fused``,
-``decode_attention``, ``nic_deliver_fused``, ``kv_probe``, ``ring_push``
-and the TX enqueue's ``ring_push_packed`` — on one CUDA card, across
-checkouts of this repository.
+``decode_attention``, ``nic_deliver_fused``, ``kv_probe``, ``ring_push``,
+the TX enqueue's ``ring_push_packed``, the staged emit's
+``ring_push_gathered`` and the KVS's ``hash_bucket_tag`` — on one CUDA
+card, across checkouts of this repository.
 
     python3 kernel_ab.py [--tree DIR]... [--inputs FILE] [--stamps]
                          [--out FILE]
@@ -32,7 +33,15 @@ tree it reports:
   launches of that shape in the run that saved it), and the TX enqueue
   at each of its shapes as ``rpc_pack`` then ``ring_push`` (two
   launches, every tree) against ``ring_push_packed`` (one, where the
-  tree has it), held equal bit for bit.
+  tree has it), held equal bit for bit; the staged emit at each shape of
+  the gathered push as ``ring_gather`` then ``ring_push`` (two launches,
+  every tree) against ``ring_push_gathered`` (one, where the tree has
+  it), held equal bit for bit; and ``DeviceKVS._bucket_tag``'s kernel
+  route at each shape of ``hash_bucket_tag`` as a tree without that
+  kernel runs it (``hash_steer_static`` on a contiguous copy of the
+  keys, then PyTorch's int64 arithmetic; ``get``'s bucket and tag, and
+  ``set``'s with the victim way) against ``hash_bucket_tag`` (one
+  launch, where the tree has it), held equal bit for bit.
 - activities and device time per step of the fused and the staged
   loopback routes (the 512-flow pair of ``chip_smoke.py`` phase 3) and
   activities per step of the KVS serve loop (phase 5's fabric and
@@ -267,7 +276,8 @@ MODULES = {"ring_push": "ring_push", "ring_gather": "ring_copy",
            "switch_step_fused": "switch_step", "rpc_pack": "rpc_pack",
            "hash_steer_static": "hash_steer", "kv_probe": "kv_probe",
            "decode_attention": "decode_attn",
-           "ring_push_packed": "ring_push"}
+           "ring_push_packed": "ring_push", "ring_push_gathered": "ring_push",
+           "hash_bucket_tag": "hash_steer"}
 
 
 def launcher(name):
@@ -344,6 +354,76 @@ def enqueue(torch, saved):
             row["packed_ms"] = graph_ms(torch, lambda: packed(*args))
             row["packed_activities"] = graph_activities(
                 torch, lambda: packed(*args))
+        out.append(row)
+    return out
+
+
+def staged_emit(torch, saved):
+    """The staged emit at each shape of the gathered push
+    ``chip_smoke.py`` saved: ``ring_gather`` then ``ring_push`` (two
+    launches, every tree) against ``ring_push_gathered`` (one, where the
+    tree has it) on the same inputs, bit for bit equal."""
+    from repro_torch.kernels import ring_copy as rc
+    from repro_torch.kernels import ring_push as rp
+    out = []
+    for args, _, launches in saved.get("ring_push_gathered", []):
+        buf, qid, pos, table, refs = args
+
+        def two():
+            return rp.ring_push_cuda(buf, qid, pos, rc.ring_gather_cuda(
+                table, refs).reshape(refs.numel(), table.shape[1]))
+        row = {"n": int(qid.shape[0]), "ring": list(buf.shape),
+               "table": list(table.shape), "launches": launches,
+               "two_launch_ms": graph_ms(torch, two),
+               "two_launch_activities": graph_activities(torch, two)}
+        gathered = getattr(rp, "ring_push_gathered_cuda", None)
+        if gathered is not None:
+            if not torch.equal(gathered(*args), two()):
+                raise RuntimeError("ring_push_gathered differs from "
+                                   "ring_gather + ring_push")
+            row["gathered_ms"] = graph_ms(torch, lambda: gathered(*args))
+            row["gathered_activities"] = graph_activities(
+                torch, lambda: gathered(*args))
+        out.append(row)
+    return out
+
+
+def bucket_tag(torch, saved):
+    """``DeviceKVS._bucket_tag``'s kernel route at each shape of
+    ``hash_bucket_tag`` ``chip_smoke.py`` saved, as a tree without that
+    kernel runs it — ``hash_steer_static`` on a contiguous copy of the
+    keys, then int64 arithmetic for ``get``'s bucket and tag and, in
+    ``set``, the victim way — against ``hash_bucket_tag`` (where the
+    tree has it), bit for bit equal."""
+    from repro_torch.kernels import hash_steer as hs
+    out = []
+    for args, _, launches in saved.get("hash_bucket_tag", []):
+        keys, nb, ways, key_words = args
+
+        def get_route():
+            h = hs.hash_steer_static_cuda(keys.contiguous(), 0, key_words) \
+                .to(torch.int64) & 0xFFFFFFFF
+            return h, (h % nb).to(torch.int32), (h | 1).to(torch.int32)
+
+        def set_route():
+            h, bucket, tag = get_route()
+            return bucket, tag, ((h >> 16) % ways).to(torch.int32)
+        row = {"n": int(keys.shape[0]), "keys_strides": list(keys.stride()),
+               "launches": launches,
+               "get_route_ms": graph_ms(torch, get_route),
+               "get_route_activities": graph_activities(torch, get_route),
+               "set_route_ms": graph_ms(torch, set_route),
+               "set_route_activities": graph_activities(torch, set_route)}
+        fused = getattr(hs, "hash_bucket_tag_cuda", None)
+        if fused is not None:
+            got, want = fused(*args), set_route()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError("hash_bucket_tag differs from "
+                                   "the earlier _bucket_tag route")
+            row["fused_ms"] = graph_ms(torch, lambda: fused(*args))
+            row["fused_activities"] = graph_activities(
+                torch, lambda: fused(*args))
+            row["bytes"] = hs.bucket_tag_bytes_moved(keys, key_words)
         out.append(row)
     return out
 
@@ -645,6 +725,8 @@ def worker(opts):
     res["kv_probe"] = kv_probe(torch, dev)
     res["by_shape"] = by_shape(torch, saved)
     res["enqueue"] = enqueue(torch, saved)
+    res["staged_emit"] = staged_emit(torch, saved)
+    res["bucket_tag"] = bucket_tag(torch, saved)
 
     # activities (and device time) per step on the main paths
     ops.reset_launch_counts()
@@ -720,6 +802,22 @@ def main():
                   f"({r['two_launch_activities']} act.), ring_push_packed "
                   f"{r.get('packed_ms', float('nan')):.5f} ms "
                   f"({r.get('packed_activities', '-')} act.)", flush=True)
+        for r in res["staged_emit"]:
+            print(f"  staged emit {r['n']} rows on {r['ring']} from "
+                  f"{r['table']}: ring_gather + ring_push "
+                  f"{r['two_launch_ms']:.5f} ms "
+                  f"({r['two_launch_activities']} act.), ring_push_gathered "
+                  f"{r.get('gathered_ms', float('nan')):.5f} ms "
+                  f"({r.get('gathered_activities', '-')} act.)", flush=True)
+        for r in res["bucket_tag"]:
+            print(f"  _bucket_tag {r['n']} keys (strides "
+                  f"{r['keys_strides']}): earlier route get "
+                  f"{r['get_route_ms']:.5f} ms "
+                  f"({r['get_route_activities']} act.), set "
+                  f"{r['set_route_ms']:.5f} ms "
+                  f"({r['set_route_activities']} act.), hash_bucket_tag "
+                  f"{r.get('fused_ms', float('nan')):.5f} ms "
+                  f"({r.get('fused_activities', '-')} act.)", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -19,9 +19,10 @@ it first.  With ``cfg.use_pallas`` the stages run
 through the hand-written CUDA kernels of ``repro_torch.kernels`` (their
 plain versions on CPU tensors): ``ring_push_packed`` in the host's
 enqueue (the ring push packing each record as ``rpc_pack`` would, one
-launch), ``ring_push`` in the emit's RX ring push, ``ring_gather`` in the
-emit, ``nic_deliver_fused`` for the deliver stage, and
-``switch_step_fused`` for the whole fused pipeline.
+launch), ``ring_push_gathered`` for the emit (the RX ring push gathering
+each request-table row as ``ring_gather`` would, one launch),
+``nic_deliver_fused`` for the deliver stage, and ``switch_step_fused``
+for the whole fused pipeline.
 """
 from __future__ import annotations
 
@@ -246,17 +247,18 @@ class DaggerFabric:
         lane_valid = lanes[None, :] < take[:, None]
         r = st.req_table.shape[0]
         refs = torch.where(lane_valid, refs[..., 0], r).to(I32)  # OOB sentinel
-        if c.use_pallas:
-            from repro_torch.kernels import ops as kops
-            payload = kops.ring_gather(st.req_table, refs)
-        else:
-            payload = get_fill(st.req_table, refs, 0)   # [F, Bmax, W]
 
         f = c.n_flows
         flow_ids = torch.arange(f, dtype=I32, device=refs.device) \
             .repeat_interleave(bmax)
-        rx, _ = st.rx.push(flow_ids, payload.reshape(f * bmax, -1),
-                           lane_valid.reshape(-1), use_pallas=c.use_pallas)
+        if c.use_pallas:
+            # the gather inside the push: one launch, no [F, Bmax, W] payload
+            rx, _ = st.rx.push_gathered(flow_ids, st.req_table, refs,
+                                        lane_valid.reshape(-1))
+        else:
+            payload = get_fill(st.req_table, refs, 0)   # [F, Bmax, W]
+            rx, _ = st.rx.push(flow_ids, payload.reshape(f * bmax, -1),
+                               lane_valid.reshape(-1))
         ff = st.flow_fifo.advance(take)
         free = st.free.release(refs.reshape(-1), lane_valid.reshape(-1))
         mon = monitor.bump(
@@ -407,8 +409,8 @@ def make_loopback_step_stateful(client: DaggerFabric, server: DaggerFabric,
     the one ``switch_step_fused`` kernel.  With ``stages=True`` it runs
     the stage API instead, ``nic_deliver -> nic_sched_emit ->
     host_rx_drain`` (the same function), which on a ``use_pallas`` fabric
-    goes through the ``nic_deliver_fused``, ``ring_gather`` and
-    ``ring_push`` kernels.
+    goes through the ``nic_deliver_fused`` and ``ring_push_gathered``
+    kernels.
     """
 
     def receive(fab: DaggerFabric, st: FabricState, slots, valid):

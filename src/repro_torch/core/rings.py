@@ -104,19 +104,15 @@ class Ring:
                          accepted.to(I32), accepted)
         return Ring(buf, self.head, self.tail + n_acc), accepted
 
-    def push(self, queue_ids, slots, valid, use_pallas: bool = False):
+    def push(self, queue_ids, slots, valid):
         """Push slots [N, W] to queues [N]; returns (ring, accepted [N]).
 
-        Entries that would overflow their queue are dropped.  With
-        ``use_pallas`` the row scatter runs through the ``ring_push``
-        kernel wrapper (its plain version on CPU tensors).
+        Entries that would overflow their queue are dropped.  The row
+        scatter is plain PyTorch; the kernel routes are ``push_records``
+        and ``push_gathered``.
         """
         q, pos, accepted = self._place(queue_ids, valid)
-        if use_pallas:
-            from repro_torch.kernels import ops as kops
-            buf = kops.ring_push(self.buf, q, pos, slots)
-        else:
-            buf = set_drop(self.buf, (q, pos), slots, accepted)
+        buf = set_drop(self.buf, (q, pos), slots, accepted)
         return self._pushed(buf, q, accepted)
 
     def push_records(self, queue_ids, fields, payload, valid):
@@ -130,6 +126,18 @@ class Ring:
         q, pos, accepted = self._place(queue_ids, valid)
         buf = kops.ring_push_packed(self.buf, q, pos, *fields, payload,
                                     self.buf.shape[2])
+        return self._pushed(buf, q, accepted)
+
+    def push_gathered(self, queue_ids, table, refs, valid):
+        """``push`` of the rows ``get_fill(table, refs, 0)`` would gather
+        — ``table`` [R, W], ``refs`` [F, B] int32 with F*B = N, row i
+        taking ``refs.reshape(-1)[i]`` — gathered inside the push by the
+        ``ring_push_gathered`` kernel wrapper (its plain version on CPU
+        tensors).  The arbitration reads no row, so the gathered rows
+        never exist on the card."""
+        from repro_torch.kernels import ops as kops
+        q, pos, accepted = self._place(queue_ids, valid)
+        buf = kops.ring_push_gathered(self.buf, q, pos, table, refs)
         return self._pushed(buf, q, accepted)
 
     def peek(self, max_n: int):

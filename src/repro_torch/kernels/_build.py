@@ -31,11 +31,13 @@ I = ctypes.c_int
 SIGNATURES = {
     "dg_ring_push": [P] * 5 + [I] * 5 + [P],
     "dg_ring_push_packed": [P] * 12 + [I] * 6 + [P],
+    "dg_ring_push_gathered": [P] * 6 + [I] * 6 + [P],
     "dg_ring_gather": [P] * 3 + [I] * 4 + [P],
     "dg_nic_deliver": [P] * 20 + [I] * 8 + [P],
     "dg_switch_step": [P] * 28 + [I] * 14 + [P],
     "dg_rpc_pack": [P] * 9 + [I] * 3 + [P],
     "dg_hash_steer": [P] * 2 + [I] * 4 + [P] * 2,
+    "dg_hash_bucket_tag": [P] * 2 + [I] * 5 + [P],
     "dg_kv_probe": [P] * 6 + [I] * 5 + [P],
     "dg_decode_attention": [P] * 5 + [I] * 6 + [P],
 }
@@ -145,6 +147,34 @@ def require(name: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {key} is {t.dtype}, expected int32")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
+
+
+def row_stride(t: torch.Tensor) -> int:
+    """The words between rows of a 2-D tensor of contiguous rows, as the
+    kernels step through it (0 where it has one row or none)."""
+    return t.stride(0) if t.shape[0] > 1 and t.shape[1] else 0
+
+
+def require_rows(name: str, device: torch.device, **tensors) -> None:
+    """Raise unless every tensor is a 2-D int32 tensor on ``device`` whose
+    rows are each contiguous and do not overlap (last stride 1, row
+    stride at least the width, below 2^31; strides of a dimension of
+    size 1, or of an empty tensor, do not count, as in
+    ``is_contiguous``) — a contiguous table or a column prefix of a wider
+    one, such as ``payload[:, :kw]``."""
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: {key} is {t.dtype}, expected int32")
+        if not (t.dim() == 2 and (t.numel() == 0 or (
+                (t.shape[1] == 1 or t.stride(1) == 1)
+                and (t.shape[0] == 1
+                     or t.shape[1] <= t.stride(0) < 2**31)))):
+            raise ValueError(f"{name}: {key} of shape {tuple(t.shape)} and "
+                             f"strides {t.stride()} is not a table of "
+                             f"contiguous rows")
 
 
 def require_float(name: str, device: torch.device, **tensors) -> None:

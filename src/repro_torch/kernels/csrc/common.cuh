@@ -82,6 +82,15 @@ __device__ __forceinline__ int ordered_group_rank(bool part, int key,
   return rank;
 }
 
+// The table row a slot reference names, or -1 for none (a zero row):
+// a reference in [-R, 0) counts from the end, as JAX's filled gather
+// does; any other outside [0, R) (the free-slot sentinel R) names none.
+// ring_gather and the gathered ring push both resolve references here.
+__device__ __forceinline__ int gather_row(int ref, int R) {
+  if (ref < 0) ref += R;
+  return (ref >= 0 && ref < R) ? ref : -1;
+}
+
 // Byte-serial FNV-1a over the little-endian bytes of n_words words.
 __device__ __forceinline__ uint32_t fnv1a(const int* words, int n_words) {
   uint32_t h = 0x811C9DC5u;

@@ -1,9 +1,11 @@
 // ring_gather: gather [F, B] slot references out of the request table
 // (the CCI-P transmit engine).  Replaces the Pallas kernel
 // repro/kernels/ring_copy.py (ring_gather).  One block per flow, its
-// threads over B x W; a reference out of [0, R) (the free-slot sentinel
-// R) yields a zero row (indices in [-R, 0) count from the end first, as
-// JAX's filled gather does).
+// threads over B x W; a reference resolves to a table row by
+// dg::gather_row (common.cuh), the rule the gathered ring push
+// (ring_push.cu) also reads its rows by, and one that names no row (the
+// free-slot sentinel R) yields a zero row.  On the main paths the staged
+// emit's gather runs inside that push; this kernel has no launch there.
 #include "common.cuh"
 
 static __global__ void ring_gather_kernel(const int* __restrict__ table,
@@ -14,10 +16,9 @@ static __global__ void ring_gather_kernel(const int* __restrict__ table,
   for (int k = threadIdx.x; k < B * W; k += blockDim.x) {
     int b = k / W;
     int w = k % W;
-    int ref = refs[(long long)f * B + b];
-    if (ref < 0) ref += R;  // negative indices count from the end
-    int v = (ref >= 0 && ref < R) ? table[(long long)ref * W + w] : 0;
-    out[((long long)f * B + b) * W + w] = v;
+    int row = dg::gather_row(refs[(long long)f * B + b], R);
+    out[((long long)f * B + b) * W + w] =
+        row >= 0 ? table[(long long)row * W + w] : 0;
   }
 }
 

@@ -19,9 +19,17 @@
 // bytes a thread (W % 4 == 0 and 16-byte aligned tables); the scalar
 // path one word.
 //
-// Two sources: a slot table [N, W], or (packed mode, the TX enqueue) a
+// Three sources: a slot table [N, W]; (gathered mode, the staged emit)
+// a request table [R, W] and the slot references refs [N] that name its
+// rows (dg::gather_row, the rule of ring_gather), so the gathered [N, W]
+// payload never exists in memory; or (packed mode, the TX enqueue) a
 // record batch whose words dg::pack_word (serdes.cuh) assembles as the
-// kept rows are written, so the packed slots never exist in memory.
+// kept rows are written, so the packed slots never exist either.  In
+// gathered mode the map first resolves which row wins each target (the
+// last), and only then is that row's reference looked up, once, with a
+// thread's references in flight together: the map then holds table rows
+// (or a zero-row mark), and the write phase takes one dependent load a
+// kept element, as with a slot table.
 #include <climits>
 
 #include "common.cuh"
@@ -31,13 +39,19 @@
 #define DG_PUSH_PER_THREAD 4   // tile elements a thread holds in flight
 #define DG_PUSH_TILE (DG_PUSH_THREADS * DG_PUSH_PER_THREAD)
 #define DG_PUSH_QIDS 8         // queue ids a thread has in flight a round
+#define DG_PUSH_ZERO (-2)      // map mark: a zero row (a ref naming none)
 
 namespace {
 
-// Where a kept row's words come from: a slot table [N, W], or (slots
-// null) the record batch `pack`.
+// Where a kept row's words come from: a table `rows` [*, W] — the slot
+// table, indexed by the pushed row i, or (refs not null) the request
+// table [R, W], indexed by the row dg::gather_row resolves refs[i] to —
+// or (rows null) the record batch `pack`.  A pointer is null here only
+// where the launch's tensor is empty, and then no kept row reads it.
 struct RowSrc {
-  const int* slots;
+  const int* rows;
+  const int* refs;
+  int R;
   dg::PackSrc pack;
 };
 
@@ -45,20 +59,23 @@ template <bool VEC> struct Elem;
 template <> struct Elem<true> {
   using T = int4;
   static constexpr int WORDS = 4;
+  static __device__ __forceinline__ T zero() { return make_int4(0, 0, 0, 0); }
 };
 template <> struct Elem<false> {
   using T = int;
   static constexpr int WORDS = 1;
+  static __device__ __forceinline__ T zero() { return 0; }
 };
 
-// Element e (of epr a row) of source row i.
+// Element e (of epr a row) of source row i (a table row in gathered
+// mode, once the map has resolved it).
 template <bool VEC>
 __device__ __forceinline__ typename Elem<VEC>::T row_elem(const RowSrc& s,
                                                           int i, int e,
                                                           int epr) {
   using T = typename Elem<VEC>::T;
-  if (s.slots) {
-    return reinterpret_cast<const T*>(s.slots)[(long long)i * epr + e];
+  if (s.rows) {
+    return reinterpret_cast<const T*>(s.rows)[(long long)i * epr + e];
   }
   if constexpr (VEC) {
     const int w = 4 * e;
@@ -121,19 +138,44 @@ ring_push_pull(const int* __restrict__ buf, const int* __restrict__ qid,
   }
   __syncthreads();
 
+  // gathered mode: each target's winning row i (never a loser: the
+  // lookup follows the atomicMax) becomes the table row refs[i] names,
+  // or DG_PUSH_ZERO; a thread's rows (nrows <= DG_PUSH_TILE) have their
+  // references in flight together
+  if (src.refs) {
+    int ref[DG_PUSH_PER_THREAD];
+#pragma unroll
+    for (int k = 0; k < DG_PUSH_PER_THREAD; ++k) {
+      const int r = k * DG_PUSH_THREADS + threadIdx.x;
+      const int i = r < nrows ? smap[r] : -1;
+      ref[k] = i >= 0 ? __ldg(src.refs + i) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < DG_PUSH_PER_THREAD; ++k) {
+      const int r = k * DG_PUSH_THREADS + threadIdx.x;
+      if (r < nrows && smap[r] >= 0) {
+        const int row = dg::gather_row(ref[k], src.R);
+        smap[r] = row >= 0 ? row : DG_PUSH_ZERO;
+      }
+    }
+    __syncthreads();
+  }
+
   // every element of the tile written once, from its source
 #pragma unroll
   for (int k = 0; k < DG_PUSH_PER_THREAD; ++k) {
     const int c = k * DG_PUSH_THREADS + threadIdx.x;
     if (c < nelem) {
       const int i = smap[c / epr];
-      dst[c] = i >= 0 ? row_elem<VEC>(src, i, c % epr, epr) : v[k];
+      dst[c] = i >= 0 ? row_elem<VEC>(src, i, c % epr, epr)
+               : i == DG_PUSH_ZERO ? Elem<VEC>::zero() : v[k];
     }
   }
   // a row wider than the tile (epr > DG_PUSH_TILE): the rest of it
   for (int c = DG_PUSH_TILE + threadIdx.x; c < nelem; c += DG_PUSH_THREADS) {
     const int i = smap[c / epr];
-    dst[c] = i >= 0 ? row_elem<VEC>(src, i, c % epr, epr) : __ldg(old + c);
+    dst[c] = i >= 0 ? row_elem<VEC>(src, i, c % epr, epr)
+             : i == DG_PUSH_ZERO ? Elem<VEC>::zero() : __ldg(old + c);
   }
 }
 
@@ -163,7 +205,17 @@ cudaError_t push(const int* buf, const int* qid, const int* pos, RowSrc src,
 extern "C" int dg_ring_push(const int* buf, const int* qid, const int* pos,
                             const int* slots, int* out, int Q, int E, int W,
                             int N, int vec, void* stream) {
-  RowSrc src{slots, {}};
+  RowSrc src{slots, nullptr, 0, {}};
+  return (int)push(buf, qid, pos, src, out, Q, E, W, N, vec,
+                   (cudaStream_t)stream);
+}
+
+extern "C" int dg_ring_push_gathered(const int* buf, const int* qid,
+                                     const int* pos, const int* table,
+                                     const int* refs, int* out, int Q, int E,
+                                     int W, int N, int R, int vec,
+                                     void* stream) {
+  RowSrc src{table, refs, R, {}};
   return (int)push(buf, qid, pos, src, out, Q, E, W, N, vec,
                    (cudaStream_t)stream);
 }
@@ -173,7 +225,8 @@ extern "C" int dg_ring_push_packed(
     const int* rpc, const int* fn, const int* flags, const int* plen,
     const int* frag, const int* ts, const int* payload, int* out, int Q,
     int E, int W, int N, int PW, int vec, void* stream) {
-  RowSrc src{nullptr, {conn, rpc, fn, flags, plen, frag, ts, payload, PW}};
+  RowSrc src{nullptr, nullptr, 0,
+             {conn, rpc, fn, flags, plen, frag, ts, payload, PW}};
   return (int)push(buf, qid, pos, src, out, Q, E, W, N, vec,
                    (cudaStream_t)stream);
 }

@@ -26,10 +26,15 @@ from repro_torch.kernels import switch_step as _ss
 # ``hash_steer`` launches the ``hash_steer_static`` kernel (with a device
 # modulus) and counts under that name.  ``ring_push_packed`` is the
 # ``ring_push`` kernel in its packed mode, whose rows ``rpc_pack``'s word
-# assembly writes (the TX enqueue); it counts under its own name.
+# assembly writes (the TX enqueue), and ``ring_push_gathered`` the same
+# kernel in its gathered mode, whose rows ``ring_gather``'s lookup reads
+# (the staged emit); ``hash_bucket_tag`` is ``hash_steer_static``'s hash
+# with the KVS's bucket, tag and victim way.  Each counts under its own
+# name.
 KERNELS = ("ring_push", "ring_gather", "nic_deliver_fused",
            "switch_step_fused", "rpc_pack", "hash_steer_static", "kv_probe",
-           "decode_attention", "ring_push_packed")
+           "decode_attention", "ring_push_packed", "ring_push_gathered",
+           "hash_bucket_tag")
 _launches = dict.fromkeys(KERNELS, 0)
 _shapes = {}
 
@@ -93,6 +98,15 @@ def ring_push_packed(buf, queue_ids, pos, conn_id, rpc_id, fn_id, flags,
     return out
 
 
+def ring_push_gathered(buf, queue_ids, pos, table, refs):
+    args = (buf, queue_ids, pos, table, refs)
+    if not _on_card(buf, "ring_push_gathered"):
+        return _rp.ring_push_gathered_plain(*args)
+    out = _rp.ring_push_gathered_cuda(*args)
+    _launched("ring_push_gathered", args)
+    return out
+
+
 def ring_gather(table, refs):
     if not _on_card(table, "ring_gather"):
         return _rc.ring_gather_plain(table, refs)
@@ -152,6 +166,15 @@ def hash_steer(payload, active_flows):
         .to(torch.int32).reshape(())
     out = _hs.hash_steer_static_cuda(payload, 0, active_flows=flows)
     _launched("hash_steer_static", (payload, active_flows))
+    return out
+
+
+def hash_bucket_tag(keys, n_buckets, ways, key_words):
+    args = (keys, n_buckets, ways, key_words)
+    if not _on_card(keys, "hash_bucket_tag"):
+        return _hs.hash_bucket_tag_plain(*args)
+    out = _hs.hash_bucket_tag_cuda(*args)
+    _launched("hash_bucket_tag", args)
     return out
 
 

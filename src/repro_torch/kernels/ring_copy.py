@@ -3,10 +3,15 @@
 Replaces the TPU kernel ``repro/kernels/ring_copy.py:ring_gather``.
 ``nic_sched_emit`` reads B slots per flow from the request table [R, W],
 addressed by the slot references [F, B] popped from the flow FIFOs; a
-reference out of range (the free-slot sentinel R) yields a zero row.
+reference out of range (the free-slot sentinel R) yields a zero row.  On
+the card the emit runs this gather inside its RX push
+(``ring_push.ring_push_gathered``, one launch), so this kernel has no
+launch on the main paths.
 
 Kernel (``csrc/ring_copy.cu``): one block per flow, its threads over
-B x W, each word read once from the table and written once.
+B x W, each word read once from the table and written once; a
+reference resolves to a row by ``dg::gather_row`` (``csrc/common.cuh``),
+the rule the gathered push also reads by.
 
 Bound on the card: bytes — the references, the referenced rows and the
 [F, B, W] output.  Neighbouring threads touch neighbouring words of a

@@ -12,9 +12,11 @@ full uint32); 0 marks an empty way.  The uint32 steps of the reference
 
 With ``use_pallas`` the store runs through the kernels of
 ``repro_torch.kernels`` (their plain versions on CPU tensors):
-``hash_steer_static`` gives the raw FNV-1a hash of the keys and
-``kv_probe`` the GET probe.  The default route is the reference's jnp
-path, op for op.
+``hash_bucket_tag`` gives each key's bucket, tag and victim way in one
+launch (the keys read where they lie, uncopied), and ``kv_probe`` the
+GET probe.  The default route is the reference's jnp path, op for op;
+its hashing is ``hash_bucket_tag``'s plain version, the reference's
+``_bucket_tag`` with ``set``'s victim way.
 
 A SET batch may hold several rows for one (bucket, way): a key repeated
 in the batch, or new keys of one bucket that all pick its first empty
@@ -31,8 +33,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.indexing import set_drop_last
-from repro_torch.core.load_balancer import U32_MASK, fnv1a_words
 from repro_torch.device import resolve
+from repro_torch.kernels.hash_steer import hash_bucket_tag_plain
 
 I32 = torch.int32
 
@@ -73,17 +75,13 @@ class DeviceKVS:
 
     # ------------------------------------------------------------------
     def _bucket_tag(self, key_words):
-        """(bucket [N] int32, tag [N] int32 bits, hash [N] int64)."""
+        """(bucket, tag bits, victim way), each [N] int32, of the keys
+        [N, KW] (a view of contiguous rows will do)."""
         if self.use_pallas:
             from repro_torch.kernels import ops as kops
-            h = kops.hash_steer_static(key_words.contiguous(), 0,
-                                       key_words=self.kw) \
-                .to(torch.int64) & U32_MASK
-        else:
-            h = fnv1a_words(key_words, self.kw)
-        bucket = (h % self.nb).to(I32)
-        tag = (h | 1).to(I32)                       # nonzero tag
-        return bucket, tag, h
+            return kops.hash_bucket_tag(key_words, self.nb, self.ways,
+                                        self.kw)
+        return hash_bucket_tag_plain(key_words, self.nb, self.ways, self.kw)
 
     def get(self, st: KVSState, key_words, valid=None):
         """key_words: [N, KW] -> (state', values [N, VW], hit [N])."""
@@ -116,13 +114,12 @@ class DeviceKVS:
         if valid is None:
             valid = torch.ones((n,), dtype=torch.bool,
                                device=key_words.device)
-        bucket, tag, h = self._bucket_tag(key_words)
+        bucket, tag, way_v = self._bucket_tag(key_words)
         match, way_m = self._match_way(st, bucket, tag, key_words)
         exists = match.any(dim=1)
         empty = st.tags[bucket] == 0                # [N, WAYS]
         has_empty = empty.any(dim=1)
         way_e = empty.to(I32).argmax(dim=1).to(I32)
-        way_v = ((h >> 16) % self.ways).to(I32)
         way = torch.where(exists, way_m, torch.where(has_empty, way_e, way_v))
         evictions = valid & ~exists & ~has_empty
         tags, keys, vals = set_drop_last(

@@ -23,11 +23,13 @@ from repro_torch.kernels import (decode_attn, hash_steer, kv_probe,
                                  nic_deliver, ops, ring_copy, ring_push,
                                  rpc_pack)
 from repro_torch.kernels import switch_step
-from torch_cases import (DELIVER_EDGES, PROBE_PATHS, PUSH_CASES,
-                         SWITCH_HAZARDS, decode_inputs, deliver_edge,
+from torch_cases import (BUCKET_TAG_CASES, DELIVER_EDGES, GATHER_KINDS,
+                         PROBE_PATHS, PUSH_CASES, REF_KINDS, SWITCH_HAZARDS,
+                         bucket_tag_keys, decode_inputs, deliver_edge,
                          deliver_inputs, edge_lengths, gather_inputs,
-                         hash_inputs, misaligned, pack_inputs, packed_case,
-                         probe_inputs, push_case, push_inputs, switch_hazard,
+                         gathered_case, hash_inputs,
+                         misaligned, pack_inputs, packed_case, probe_inputs,
+                         push_case, push_inputs, switch_hazard,
                          switch_inputs, with_ext)
 
 pytestmark = pytest.mark.requires_cuda
@@ -145,6 +147,46 @@ def test_ring_push_packed_kernel_full_size(cuda):
     args = _dev((buf, qid, pos, *pack_inputs(rng, 2048, 11)), cuda)
     _launch_and_compare("ring_push_packed", ops.ring_push_packed,
                         ring_push.ring_push_packed_plain, (*args, 16))
+
+
+CARD_GATHER_KINDS = GATHER_KINDS + ("misaligned_buf", "misaligned_table",
+                                    "full_size")
+
+
+@pytest.mark.parametrize("ref_kind", REF_KINDS)
+@pytest.mark.parametrize("kind", CARD_GATHER_KINDS)
+def test_ring_push_gathered_kernel_edge_cases(cuda, kind, ref_kind):
+    """The staged emit's push: ``ring_push``'s edge cases, rows with
+    repeated targets, a ring or request table 4 bytes off a 16-byte
+    boundary (the scalar path) and phase 3's 2,048 rows, with references
+    at the sentinel R, in [-R, 0) and beyond [-R, R]; the inputs
+    unchanged.  The plain version runs on the rows that write
+    (``ring_push.last_writers``): the plain scatter on the card leaves
+    the order of repeated targets open, the kernel takes the last row."""
+    seed = (120 + 3 * CARD_GATHER_KINDS.index(kind)
+            + REF_KINDS.index(ref_kind))
+    base = "spread" if kind.startswith("misaligned") else kind
+    made = gathered_case(np.random.default_rng(seed), base, ref_kind,
+                         r=2048 if kind == "full_size" else 64)
+    args = list(_dev(made, cuda))
+    if kind == "misaligned_buf":
+        args[0] = misaligned(args[0])
+    elif kind == "misaligned_table":
+        args[3] = misaligned(args[3])
+    q, e, w = args[0].shape
+    vec = w % 4 == 0 and not kind.startswith("misaligned")
+    assert ring_push.vector_path(args[0], torch.empty_like(args[0]),
+                                 args[3]) is vec
+    kept = tuple(a.clone() for a in args)
+    writers = ring_push.last_writers(*args[:3])
+
+    def plain(buf, qid, pos, table, refs):
+        return ring_push.ring_push_gathered_plain(buf, writers, pos, table,
+                                                  refs)
+    _launch_and_compare("ring_push_gathered", ops.ring_push_gathered, plain,
+                        tuple(args))
+    for k, (a, b) in enumerate(zip(args, kept)):
+        assert torch.equal(a, b), f"ring_push_gathered wrote input {k}"
 
 
 def test_launch_shapes_count_each_call_shape(cuda):
@@ -269,6 +311,19 @@ def test_hash_steer_dynamic_kernel(cuda, active):
                         hash_steer.hash_steer_plain, (pay, flows))
 
 
+@pytest.mark.parametrize("n,key_words,view", BUCKET_TAG_CASES + [
+    (2**20, 2, False), (2**20, 2, True)])
+def test_hash_bucket_tag_kernel(cuda, n, key_words, view):
+    """0 to 257 rows and the bulk GET's 2^20, one and two key words with
+    the top bit set, keys as the column prefix of a [N, 16] payload (read
+    in place) or a contiguous table; a 2^22-bucket, 4-way store."""
+    rng = np.random.default_rng(8 + n + key_words)
+    keys = bucket_tag_keys(rng, n, key_words, view, device=cuda)
+    _launch_and_compare("hash_bucket_tag", ops.hash_bucket_tag,
+                        hash_steer.hash_bucket_tag_plain,
+                        (keys, 2**22, 4, key_words))
+
+
 @pytest.mark.parametrize("nb,ways,vw,n", [(8, 4, 8, 40), (3, 2, 1, 17),
                                           (2**16, 4, 8, 2**16)])
 def test_kv_probe_kernel(cuda, nb, ways, vw, n):
@@ -349,6 +404,45 @@ def test_loopback_engine_in_place_from_clone(cuda):
         for name, get in tables.items():
             assert (get(mine).untyped_storage().data_ptr()
                     == get(got).untyped_storage().data_ptr()), name
+
+
+def test_staged_loopback_engine_matches_plain_route(cuda):
+    """A ``use_pallas`` ``LoopbackEngine`` on the staged route
+    (``nic_deliver_fused``, then each NIC's emit as one
+    ``ring_push_gathered`` launch) equals the plain route bit for bit
+    over 6 steps, and launches neither ``ring_gather`` nor ``ring_push``."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core.engine import LoopbackEngine
+    from repro_torch.core.fabric import DaggerFabric, tree_map
+    from repro_torch.core.load_balancer import LB_ROUND_ROBIN
+
+    base = FabricConfig(n_flows=8, ring_entries=8, batch_size=4,
+                        dynamic_batching=False)
+    runs, start = {}, None
+    for use in (False, True):
+        fab = DaggerFabric(base.replace(use_pallas=use))
+        if start is None:
+            cst, sst = fab.init_state(cuda), fab.init_state(cuda)
+            start = (cst, fab.open_connection(sst, 1, 0, 0, LB_ROUND_ROBIN))
+        gen = lg.LoadGen(fab, mode=lg.MODE_DETERMINISTIC)
+        eng = LoopbackEngine(fab, fab, lambda r, v: dict(r), loadgen=gen,
+                             stages=True)
+        gst = gen.init_state(20.0, seed=3, device=cuda)
+        before = ops.launch_counts()
+        runs[use] = eng.run_steps(*tree_map(torch.clone, start), 6, gen=gst)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        grew = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        if use:
+            assert grew["ring_push_gathered"] == 2 * 6
+            assert "ring_gather" not in grew and "ring_push" not in grew
+        else:
+            assert not grew
+    for k, (a, b) in enumerate(zip(runs[True], runs[False])):
+        for x, y in zip(_leaves(a), _leaves(b)):
+            assert x.dtype == y.dtype and torch.equal(x, y), f"return {k}"
+    assert int(runs[True][2]) > 0
 
 
 def _leaves(x):

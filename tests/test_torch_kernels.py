@@ -24,9 +24,10 @@ from repro.kernels import ref
 from repro_torch.kernels import decode_attn, nic_deliver, ops, ring_copy
 from repro_torch.kernels import ring_push, switch_step
 
-from torch_cases import (DELIVER_EDGES, PUSH_CASES, SWITCH_HAZARDS,
-                         decode_inputs, deliver_edge, deliver_inputs,
-                         edge_lengths, packed_case, push_case, push_inputs,
+from torch_cases import (DELIVER_EDGES, GATHER_KINDS, PUSH_CASES,
+                         REF_KINDS, SWITCH_HAZARDS, decode_inputs,
+                         deliver_edge, deliver_inputs, edge_lengths,
+                         gathered_case, packed_case, push_case, push_inputs,
                          switch_hazard, switch_inputs, with_ext)
 
 
@@ -142,6 +143,57 @@ def test_ring_push_packed_bytes_moved_counts_written_rows(kind):
         + len(targets) * (7 + min(11, w - 5)) * 4
     assert ring_push.packed_bytes_moved(
         *map(_t, (buf, qid, pos, payload))) == want
+
+
+@pytest.mark.parametrize("ref_kind", REF_KINDS)
+@pytest.mark.parametrize("kind", GATHER_KINDS)
+def test_ring_push_gathered_plain_matches_ref(kind, ref_kind):
+    """``ring_push_gathered_plain`` against ``ref_ring_copy`` then
+    ``ref_ring_push`` (the Pallas ``ring_gather`` and ``ring_push``
+    cannot run on this jax): every edge case of ``ring_push`` and rows
+    with repeated targets (the later wins), with references at the
+    sentinel R, in [-R, 0) and beyond [-R, R]; inputs left as they
+    were."""
+    seed = 100 + 3 * GATHER_KINDS.index(kind) + REF_KINDS.index(ref_kind)
+    args = gathered_case(np.random.default_rng(seed), kind, ref_kind)
+    buf, qid, pos, table, refs = map(jnp.asarray, args)
+    rows = ref.ref_ring_copy(table, refs).reshape(qid.shape[0],
+                                                  table.shape[1])
+    want = ref.ref_ring_push(buf, qid, pos, rows)
+    ins = tuple(map(_t, args))
+    kept = tuple(t.clone() for t in ins)
+    for fn in (ring_push.ring_push_gathered_plain, ops.ring_push_gathered):
+        _eq(fn(*ins), want, f"{kind} {ref_kind}")
+        for k, (a, b) in enumerate(zip(ins, kept)):
+            assert torch.equal(a, b), f"{kind}: input {k} was written"
+
+
+def test_ring_push_bounds_by_hand():
+    """The three push bounds on a 2 x 4 ring of 8-word rows and 7 rows:
+    rows 0 and 1 both target (0, 1) (row 1 wins), row 2 carries the drop
+    sentinel, (1, -1) and (-1, 0) count from the end, and two rows are
+    out of range, so 3 slots are written by rows 1, 3 and 4.  Each bound
+    reads the 8 - 3 ring rows no row overwrites, writes all 8 and reads
+    7 x 2 indices; then the winners' slot rows (``bytes_moved``),
+    their 7 fields and 2 payload words (``packed_bytes_moved``), or their
+    3 references and the table rows those name (``gathered_bytes_moved``:
+    refs 5 and -1 name table row 4 twice, read once; the sentinel of
+    row 0 loses to row 1; a reference of 9 names no row)."""
+    buf = torch.zeros((2, 4, 8), dtype=torch.int32)
+    qid = torch.tensor([0, 0, 2, 1, -1, 0, 3], dtype=torch.int32)
+    pos = torch.tensor([1, 1, 0, -1, 0, 4, 0], dtype=torch.int32)
+    base = (8 - 3) * 8 * 4 + 8 * 8 * 4 + 7 * 2 * 4
+    assert ring_push.bytes_moved(buf, qid, pos, torch.zeros(
+        (7, 8), dtype=torch.int32)) == base + 3 * 8 * 4
+    assert ring_push.packed_bytes_moved(buf, qid, pos, torch.zeros(
+        (7, 2), dtype=torch.int32)) == base + 3 * (7 + 2) * 4
+    table = torch.zeros((5, 8), dtype=torch.int32)
+    refs = torch.tensor([[5, 5, 0, -1, 9, 0, 0]], dtype=torch.int32)
+    assert ring_push.gathered_bytes_moved(buf, qid, pos, table, refs) == \
+        base + 3 * 4 + 1 * 8 * 4
+    refs = torch.tensor([[5, 0, 0, 2, 3, 0, 0]], dtype=torch.int32)
+    assert ring_push.gathered_bytes_moved(buf, qid, pos, table, refs) == \
+        base + 3 * 4 + 3 * 8 * 4
 
 
 def test_call_shape_and_cpu_calls_count_no_launch():
@@ -516,6 +568,32 @@ def test_kernel_launchers_check_shapes_before_launch():
     st["scal"] = st["scal"][:, :5].contiguous()
     with pytest.raises(ValueError, match="scal"):
         switch_step.switch_step_fused_cuda(*st.values(), bmax=4)
+
+
+def test_gathered_push_and_bucket_tag_launchers_check_arguments():
+    """``ring_push_gathered_cuda`` refuses a table of another width and
+    references that are not [F, B] with F*B = N; ``hash_bucket_tag_cuda``
+    refuses keys whose rows are not contiguous or overlap, and a bucket
+    or way count below 1 — before any pointer reaches a kernel."""
+    from repro_torch.kernels import hash_steer
+    rng = np.random.default_rng(11)
+    buf, qid, pos, table, refs = map(_t, gathered_case(rng, "spread",
+                                                       "sentinel"))
+    with pytest.raises(ValueError, match="table"):
+        ring_push.ring_push_gathered_cuda(buf, qid, pos, table[:, :8],
+                                          refs)
+    with pytest.raises(ValueError, match="refs"):
+        ring_push.ring_push_gathered_cuda(buf, qid, pos, table,
+                                          refs.reshape(-1))
+    with pytest.raises(ValueError, match="refs"):
+        ring_push.ring_push_gathered_cuda(buf, qid, pos, table, refs[1:])
+    keys = torch.zeros((6, 4), dtype=torch.int32)
+    for bad in (keys.t(), keys[:1].expand(6, 4), keys[:, ::2]):
+        with pytest.raises(ValueError, match="contiguous rows"):
+            hash_steer.hash_bucket_tag_cuda(bad, 8, 4, 1)
+    for nb, ways in ((0, 4), (8, 0)):
+        with pytest.raises(ValueError, match="outside"):
+            hash_steer.hash_bucket_tag_cuda(keys, nb, ways, 2)
 
 
 # ------------------------------------------------------ kernel registry

@@ -46,8 +46,8 @@ from repro_torch.data import ZipfKVWorkload, zipf_keys
 from repro_torch.kernels import hash_steer, kv_probe, ops, rpc_pack
 from repro_torch.runtime.kvs import DeviceKVS
 
-from torch_cases import (PROBE_PATHS, hash_inputs, misaligned, pack_inputs,
-                         probe_inputs)
+from torch_cases import (BUCKET_TAG_CASES, PROBE_PATHS, bucket_tag_keys,
+                         hash_inputs, misaligned, pack_inputs, probe_inputs)
 
 
 def _t(a):
@@ -128,6 +128,32 @@ def test_hash_steer_refuses_bad_arguments():
         hash_steer.hash_steer_static_plain(pay, 2, key_words=3)
     with pytest.raises(ValueError, match="n_flows"):
         hash_steer.hash_steer_static_plain(pay, -1)
+
+
+@pytest.mark.parametrize("n,key_words,view", BUCKET_TAG_CASES)
+def test_hash_bucket_tag_matches_reference(n, key_words, view):
+    """``hash_bucket_tag_plain`` (and the ``ops`` wrapper on CPU tensors)
+    against the reference's ``DeviceKVS._bucket_tag`` plus ``set``'s
+    victim way, and against the raw hash of the interpret-mode
+    ``hash_steer_static``: keys with the top bit set, as a column prefix
+    of a wider payload or a contiguous table, 0 to 257 rows."""
+    nb, ways = 1 << 11, 4
+    keys = bucket_tag_keys(np.random.default_rng(7 * n + key_words), n,
+                           key_words, view)
+    jkeys = jnp.asarray(keys.numpy())
+    jb, jtag, jh = JKVS(n_buckets=nb, ways=ways,
+                        key_words=key_words)._bucket_tag(jkeys)
+    want = (jb, jtag, ((jh >> 16) % ways).astype(jnp.int32))
+    got = hash_steer.hash_bucket_tag_plain(keys, nb, ways, key_words)
+    for fn_got in (got, ops.hash_bucket_tag(keys, nb, ways, key_words)):
+        for name, g, w in zip(("bucket", "tag", "way"), fn_got, want):
+            _eq(g, w, name)
+    if n:
+        raw = np.asarray(jops.hash_steer_static(jkeys, 0,
+                                                key_words=key_words))
+        h = raw.view(np.uint32)
+        for g, w in zip(got, (h % nb, h | 1, (h >> 16) % ways)):
+            _eq(g, w.astype(np.uint32).view(np.int32), "raw hash")
 
 
 # -------------------------------------------------------------- rpc_pack
@@ -384,6 +410,38 @@ def test_kernel_route_tag_alias_formula(ref_probe):
         _eq(tv, jv, f"use_pallas={use}")
         _eq(th, jh)
         assert bool(th[0]) and int(tv[0, 0]) == 7 + want_way
+
+
+def test_kernel_route_evicts_by_victim_way_when_buckets_are_full(
+        ref_probe):
+    """Every way of every bucket full of other keys, so each new key of a
+    SET batch is placed by its victim way ``(h >> 16) % ways`` (from
+    ``_bucket_tag`` on the kernel route): the store after the SETs and
+    the values and hits of the GETs equal the reference's bit for bit."""
+    rng = np.random.default_rng(31)
+    jk = JKVS(**_KVS, use_pallas=True)
+    tk = DeviceKVS(**_KVS, use_pallas=True)
+    nb, ways = _KVS["n_buckets"], _KVS["ways"]
+    tags = rng.integers(2, 2**31, (nb, ways)).astype(np.int32) | 1
+    keys = rng.integers(10**6, 2 * 10**6, (nb, ways, 2)).astype(np.int32)
+    vals = rng.integers(-2**31, 2**31, (nb, ways, 3)).astype(np.int32)
+    jst = dataclasses.replace(
+        jk.init_state(), tags=jnp.asarray(tags.view(np.uint32)),
+        keys=jnp.asarray(keys), vals=jnp.asarray(vals))
+    tst = interop.kvs_state_from_numpy(jst, "cpu")
+    kw = np.stack([np.arange(12), np.arange(12) * 7], 1).astype(np.int32)
+    vw = rng.integers(-2**31, 2**31, (12, 3)).astype(np.int32)
+    jst = jk.set(jst, jnp.asarray(kw), jnp.asarray(vw))
+    tst = tk.set(tst, _t(kw), _t(vw))
+    _assert_same(_tree(tst), _tree(jst), "after set")
+    assert int(tst.n_evict) == 12
+    way = tk._bucket_tag(_t(kw))[2]
+    assert set(way.tolist()) == set(range(ways))
+    jst, jv, jh = jk.get(jst, jnp.asarray(kw))
+    tst, tv, th = tk.get(tst, _t(kw))
+    _eq(tv, jv, "values")
+    _eq(th, jh, "hits")
+    _assert_same(_tree(tst), _tree(jst), "after get")
 
 
 def test_kvs_interop_round_trip():

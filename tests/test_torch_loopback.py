@@ -221,6 +221,61 @@ def test_loopback_slice_matches_reference(route, scheme, rate):
     assert int(tel.hist.sum()) == int(tel.n_done) == int(n_done)
 
 
+@pytest.mark.parametrize("scheme", [LB_ROUND_ROBIN, LB_OBJECT])
+def test_staged_kernel_route_matches_reference_under_backpressure(
+        scheme, monkeypatch):
+    """The ``use_pallas`` stage API on CPU tensors (the plain versions of
+    ``nic_deliver_fused`` and of ``ring_push_gathered``, the emit's one
+    kernel) against the reference's jnp stages for 5 steps of deliver,
+    emit with ``force_flush`` into RX rings that start full or one or
+    two slots short (back-pressure), and a drain of one slot a flow: the
+    whole server state after every stage, and the drained slots."""
+    from repro_torch.kernels import ops
+    calls = {"ring_push_gathered": 0, "ring_gather": 0, "ring_push": 0}
+    for name in calls:
+        def counted(*a, _name=name, _fn=getattr(ops, name)):
+            calls[_name] += 1
+            return _fn(*a)
+        monkeypatch.setattr(ops, name, counted)
+    _, ss = _start_pair(scheme)
+    cap = CFG["ring_entries"]
+    ss["soft"]["force_flush"] = np.array(True)
+    ss["rx"]["tail"] = (ss["rx"]["head"]
+                        + np.array([cap, cap - 1, cap, cap - 2])) \
+        .astype(np.int32)
+    tf = TFab(TCfg(**CFG, use_pallas=True))
+    jf = JFab(JCfg(**CFG))
+    tst = interop.fabric_state_from_numpy(ss, "cpu")
+    jst = _jax_fabric(ss)
+    rng = np.random.default_rng(17)
+    pw = tf.slot_words - tserdes.HEADER_WORDS
+    for step in range(5):
+        n = 6
+        zeros = torch.zeros(n, dtype=torch.int32)
+        recs = tserdes.make_records(
+            torch.ones(n, dtype=torch.int32),
+            torch.arange(n, dtype=torch.int32) + 10 * step, zeros, zeros,
+            torch.from_numpy(rng.integers(-2**31, 2**31, (n, pw))
+                             .astype(np.int32)))
+        slots = tserdes.pack(recs, tf.slot_words)
+        valid = rng.random(n) < 0.8
+        tst = tf.nic_deliver(tst, slots, torch.from_numpy(valid))
+        jst = jf.nic_deliver(jst, jnp.asarray(slots.numpy()),
+                             jnp.asarray(valid))
+        _assert_same(_tree(tst), _tree(jst), f"step {step} deliver")
+        tst = tf.nic_sched_emit(tst)
+        jst = jf.nic_sched_emit(jst)
+        _assert_same(_tree(tst), _tree(jst), f"step {step} emit")
+        tst, trec, tv = tf.host_rx_drain(tst, 1)
+        jst, jrec, jv = jf.host_rx_drain(jst, 1)
+        _assert_same(_tree(tst), _tree(jst), f"step {step} drain")
+        _assert_same(_tree(trec), _tree(jrec), f"step {step} drained")
+        _assert_same(_tree(tv), _tree(jv), f"step {step} drained valid")
+    assert calls == {"ring_push_gathered": 5, "ring_gather": 0,
+                     "ring_push": 0}
+    assert int(tst.mon["rpcs_emitted"]) > 0
+
+
 def test_quickstart_echo_pair():
     """The README quickstart through the port (8 RPCs, 4 steps)."""
     fab = TFab(TCfg(n_flows=4, ring_entries=32, batch_size=4,

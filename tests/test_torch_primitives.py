@@ -124,8 +124,12 @@ def test_ring_push_peek_advance_match(seed, use_kernel):
         valid = rng.random(n) < 0.6
         jring, jacc = jring.push(jnp.asarray(qid), jnp.asarray(slots),
                                  jnp.asarray(valid))
-        tring, tacc = tring.push(_t(qid), _t(slots), _t(valid),
-                                 use_pallas=use_kernel)
+        if use_kernel:   # identity gather through the kernel route
+            tring, tacc = tring.push_gathered(
+                _t(qid), _t(slots), torch.arange(n, dtype=torch.int32)
+                .reshape(1, n), _t(valid))
+        else:
+            tring, tacc = tring.push(_t(qid), _t(slots), _t(valid))
         _eq(tacc, jacc, "accepted")
         for k in ("buf", "head", "tail"):
             _eq(getattr(tring, k), getattr(jring, k), k)

@@ -83,6 +83,42 @@ def packed_case(rng, kind, pw=11):
     return (buf, qid, pos, *pack_inputs(rng, qid.shape[0], pw))
 
 
+# slot references of the gathered push (``gathered_case``), drawn from
+# [lo*R, hi*R]: in [0, R] (R, the free-slot sentinel, gives a zero row),
+# in [-R, R] (negative ones count from the end), or over [-3R, 3R] (most
+# name no row)
+REF_RANGES = {"sentinel": (0, 1), "negative": (-1, 1),
+              "out_of_range": (-3, 3)}
+REF_KINDS = tuple(REF_RANGES)
+# ``PUSH_CASES`` and, for the gathered push, rows with repeated targets
+# (the later row wins)
+GATHER_KINDS = tuple(sorted(PUSH_CASES)) + ("duplicates",)
+
+
+def gathered_case(rng, kind, ref_kind, r=64):
+    """Inputs of ``ring_push_gathered`` for the push case ``kind`` of
+    ``GATHER_KINDS`` (or ``full_size``: phase 3's 2,048 rows on the 512 x
+    64-entry ring) and the references ``ref_kind`` of ``REF_KINDS``:
+    (buf, queue_ids, pos, table [R, W], refs [F, B]) with F*B = N, B the
+    largest of 4, 2, 1 that divides N."""
+    if kind == "full_size":
+        buf, qid, pos, _ = push_inputs(rng, 512, 64, 16, 2048)
+        w, n = 16, 2048
+    elif kind == "duplicates":
+        q, e, w, n = 4, 8, 16, 40
+        buf, _, _, _ = push_inputs(rng, q, e, w, 0)
+        qid = rng.integers(0, q + 1, n).astype(np.int32)   # q: dropped
+        pos = rng.integers(0, e, n).astype(np.int32)
+    else:
+        buf, qid, pos, _ = push_case(rng, kind)
+        w, n = buf.shape[2], qid.shape[0]
+    lo, hi = REF_RANGES[ref_kind]
+    b = next(k for k in (4, 2, 1) if n % k == 0)
+    refs = rng.integers(lo * r, hi * r + 1, (n // b, b)).astype(np.int32)
+    table = rng.integers(-2**31, 2**31 - 1, (r, w)).astype(np.int32)
+    return buf, qid, pos, table, refs
+
+
 def gather_inputs(rng, r, w, f, b):
     """References include the free-slot sentinel R."""
     return (rng.integers(-1000, 1000, (r, w)).astype(np.int32),
@@ -231,6 +267,23 @@ def switch_hazard(rng, kind, **kw):
 def hash_inputs(rng, n, w):
     """Key words over the whole int32 range (high bits set often)."""
     return rng.integers(-2**31, 2**31, (n, w)).astype(np.int32)
+
+
+# (N, key words) of ``hash_bucket_tag``: no row, one, the serve loop's
+# 16, either side of the kernel's block of 256; ``keys`` is the column
+# prefix of a [N, 16] payload (a view, rows 16 words apart) or a
+# contiguous [N, key_words] table
+BUCKET_TAG_CASES = [(n, kw, view) for n in (0, 1, 16, 255, 257)
+                    for kw in (1, 2) for view in (True, False)]
+
+
+def bucket_tag_keys(rng, n, key_words, view, device="cpu"):
+    """Keys [N, key_words] int32 on ``device`` with the top bit set often:
+    the first ``key_words`` columns of a [N, 16] payload, or a contiguous
+    copy."""
+    pay = torch.from_numpy(hash_inputs(rng, n, 16)).to(device)
+    keys = pay[:, :key_words]
+    return keys if view else keys.contiguous()
 
 
 def pack_inputs(rng, n, pw):
