@@ -35,9 +35,18 @@ exit, no result line) on any mismatch:
    2 tiles - 1, 2 tiles + 1 and 4 tiles + 1, 1, 6 and 8 query heads a kv
    head at head dims 64, 128 and 256, a batch of length 0 only, cache
    lengths that are not a multiple of the tile, and Qwen2-1.5B's decode
-   shapes, within the stated tolerance (``DA_TOL``);
+   shapes, within the stated tolerance (``DA_TOL``); and at the shapes
+   of phases 7 and 8: the switch step's fetch route over the flight
+   service's 8 tiers (2 flows, B 8, ring 64, request buffer 256: mixed
+   destinations, responses returning by SRQ, full flow FIFOs and rx
+   rings) and its ext route over 8 tenants x 2,048 rows (dest =
+   tenant), and the packed push on 8 tenants' TX rings folded into one
+   [4,096, 64, 16] ring;
 2. quickstart parity: the README's echo pair (4 flows, 8 RPCs, 4 steps)
-   through the kernels and through the plain path;
+   through the kernels and through the plain path, and
+   ``examples/quickstart.py``'s flow (IDL stubs, ``RpcThreadedServer``,
+   ``LoopbackDriver``, ``RpcClientPool``: one sync and 8 async gets) on
+   both routes, with the example's asserted values;
 3. full-size loopback run: a 512-flow client/server pair under
    open-loop load at 0.8 x F*B requests/step for ``FULL_STEPS`` steps
    with telemetry, through the fused kernel route, the staged kernel
@@ -62,15 +71,33 @@ exit, no result line) on any mismatch:
    ``decode_attention`` launched 28 times a step, one step's logits
    equal within ``LOGIT_TOL``; then ``launch.serve.main`` at full width
    (4 sessions, 64 requests);
+7. tenant batching: ``TenantEngine`` over 8 of phase 3's 512-flow pairs
+   (16 NICs, about 128 MB of fabric state), echo handler, deterministic
+   open-loop arrivals at 1,638.4 x (8 - i) / 8 requests/step on lane i
+   with telemetry, ``TENANT_STEPS`` steps of ``run_steps`` and then a
+   ``run_until`` whose per-lane targets freeze the lanes at different
+   steps, kernel route against plain route from one start state (done
+   and steps per lane, states, telemetry and generators equal) and lane
+   0 against its own ``LoopbackEngine`` run; two ``switch_step_fused``
+   (ext route) and two ``ring_push_packed`` launches a step;
+8. the flight service (``benchmarks/tab4_flight.py``): Table 4's
+   latency run (48 registrations at 2 a step) and throughput run (192 at
+   8 a step) for both threading models on the kernel and plain routes
+   (and the staged switch route for the simple model's latency run),
+   one seeded weight: statistics, states, per-tier telemetry, worker
+   ring and the passenger's per-step completions equal across routes,
+   every registration complete with its Airport and Citizens marks, one
+   fetch-mode ``switch_step_fused`` launch a switch step; it prints
+   Table 4's quantities with the card's name and power limit;
 4. kernel summary (run last): one JSON line with each kernel's launches
-   on the main paths (phases 3, 5 and 6) and, at the shape with the most
+   on the main paths (phases 3, 5, 6, 7 and 8) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
    version's, its bound and, for decode attention, the time of
    ``F.scaled_dot_product_attention`` on the same inputs.  Every kernel
    is timed at every shape its main paths give it (``by_shape`` in the
    details: launches by path, ms, call ms, bound, device activities a
    call), on inputs captured at that shape in one more step of phases
-   3, 5 and 6; the launches by shape are the ``ops`` wrappers' own
+   3, 5, 6, 7 and 8; the launches by shape are the ``ops`` wrappers' own
    counts (``ops.launch_shapes``) from the main-path runs.  The switch
    step's graph restores its captured state before every call, and its
    time is that graph's less a graph of the restores.  Four kernels run
@@ -134,7 +161,7 @@ LM_ARCH = "qwen2-1.5b"
 LM_POOL = dict(n_slots=32, max_seq=1024, max_prompt=512, max_new_cap=256)
 LM_FLOWS = 8
 LM_RATE = 0.065
-LM_STEPS = 2000
+LM_STEPS = 1000                    # cut from 2,000 to make room for phases 7, 8
 LM_BINS = 1024                      # TTFT reaches max_prompt + 1 and more
 LM_PROFILE_STEPS = 10              # profiled steps per route (slow to trace)
 # one decode step's logits, kernel route against plain route, from the
@@ -147,6 +174,20 @@ LOGIT_TOL = 3e-2
 # reference's tolerances (tests/test_kernels.py), as rtol and atol
 DA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
+
+# tenant batching: 8 of phase 3's 512-flow pairs stacked (16 NICs, about
+# 128 MB of fabric state), deterministic open-loop arrivals at 1,638.4 x
+# (8 - i) / 8 requests/step on lane i, 200 steps, then per-lane targets
+TENANTS = 8
+TENANT_STEPS = 200
+TENANT_BASE = 1638.4
+# the flight service (benchmarks/tab4_flight.py): Table 4's latency run
+# (48 registrations at 2 a step) and throughput run (192 at 8 a step), both
+# threading models, batch 8, 2 flows a tier, worker period 4
+FLIGHT_RUNS = (("latency", 48, 2, 384), ("throughput", 192, 8, 512))
+FLIGHT_WINDOW = 16
+FLIGHT_BINS = 128
+PROFILE_STEPS = 4                   # profiled steps a route, phases 7 and 8
 
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
@@ -316,7 +357,10 @@ def deliver_inputs(rnd, n, f, d, r, w, c, full=None):
             rnd.ints(0, 100, (f,)), ffspace, scal)
 
 
-def switch_inputs(rnd, t, f, e, w, r, d, c, b, nb, m=None, full=None):
+def switch_inputs(rnd, t, f, e, w, r, d, c, b, nb, m=None, full=None,
+                  by_tenant=False):
+    """The switch step's inputs; with ``by_tenant`` the ext candidate list
+    is the tenant engine's: M / T rows a tier in tier order, dest = tier."""
     torch = rnd.torch
     i32 = torch.int32
     tx_buf = rnd.ints(0, 100, (t, f, e, w))
@@ -362,7 +406,9 @@ def switch_inputs(rnd, t, f, e, w, r, d, c, b, nb, m=None, full=None):
             rnd.ints(-1, t + 1, (t, c)), rnd.ints(0, 3, (t, c)), scal,
             torch.zeros((t, nb), dtype=i32, device=rnd.dev), ext_slots,
             rnd.ints(0, 2, (m,)),
-            (rnd.ints(-2, t + 2, (m,)) if t > 1
+            (torch.arange(t, dtype=i32, device=rnd.dev).repeat_interleave(
+                m // t) if by_tenant
+             else rnd.ints(-2, t + 2, (m,)) if t > 1
              else torch.zeros((m,), dtype=i32, device=rnd.dev)))
     return args, include_fetch
 
@@ -642,6 +688,29 @@ def phase_kernels(torch, dev):
             include_fetch=include_fetch,
             in_place={**ss.IN_PLACE, **({} if include_fetch
                                         else ss.EXT_PASSED)})
+    # phase 8's flight switch: the fetch route over 8 tiers of 2 flows, B
+    # 8, ring 64, request buffer 256 (mixed destinations, responses
+    # returning by SRQ, full flow FIFOs, full rx rings, every slot free);
+    # phase 7's tenant engine: the ext route with 8 tenants x 2,048 rows
+    # (16,384 candidates, dest = tenant) at phase 3's 512-flow shapes
+    fl = dict(t=8, f=2, e=64, w=16, r=256, d=256, c=256, b=8,
+              nb=FLIGHT_BINS)
+    tn = dict(t=TENANTS, f=f, e=e, w=w, r=r, d=d, c=c, b=b, nb=2, m=TENANTS * n)
+    for kw, full, by_tenant in ((fl, None, False), (fl, "fifo", False),
+                                (fl, "rx", False), (fl, "free_full", False),
+                                (tn, None, True), (tn, "free_full", True)):
+        args, include_fetch = switch_inputs(rnd, full=full,
+                                            by_tenant=by_tenant, **kw)
+        run("switch_step_fused", ops.switch_step_fused,
+            ss.switch_step_fused_plain, args, bmax=kw["b"],
+            include_fetch=include_fetch,
+            in_place={**ss.IN_PLACE, **({} if include_fetch
+                                        else ss.EXT_PASSED)})
+    # phase 7's server enqueue: the packed push on the 8 tenants' TX rings
+    # folded into one [8 x 512, 64, 16] ring, rows for every tenant
+    buf, qid, pos, _ = push_inputs(rnd, TENANTS * f, e, w, TENANTS * n)
+    run("ring_push_packed", ops.ring_push_packed, rp.ring_push_packed_plain,
+        (buf, qid, pos, *pack_inputs(rnd, TENANTS * n, 11), w), pure=True)
     # KVS kernels: small shapes with edges, then phase 5's shapes (the
     # fabric's 16-row enqueues and the 2^20-row bulk calls on the store)
     kb = KVS_FABRIC["n_flows"] * KVS_FABRIC["batch_size"]
@@ -811,7 +880,79 @@ def phase_quickstart(torch, dev):
         for key in rk:
             check(torch.equal(rk[key][vk], rp_[key][vp]),
                   f"quickstart step {step}: completion field {key} differs")
+    # the README quickstart (examples/quickstart.py) through the port's
+    # IDL stubs, RpcThreadedServer, LoopbackDriver and RpcClientPool
+    api = {route: quickstart_api(torch, dev, route == "kernels")
+           for route in ("kernels", "plain")}
+    check(api["kernels"][:2] == api["plain"][:2],
+          f"quickstart API differs between routes: {api}")
+    sync, replies, _, counts = api["kernels"]
+    check(sync == (1, "hello-dagger")
+          and sorted(replies) == sorted(f"k{i}" for i in range(8)),
+          f"quickstart API responses wrong: {sync} {replies}")
+    check(counts["switch_step_fused"] > 0 and counts["ring_push_packed"] > 0
+          and counts["rpc_pack"] == 0,
+          f"quickstart API did not run through the kernels: {counts}")
+    check(not any(api["plain"][3].values()),
+          f"plain quickstart API launched kernels: {api['plain'][3]}")
+    say(f"quickstart API: sync {sync}, async {sorted(replies)}, "
+        f"{api['kernels'][2]} steps, launches {counts}")
     return k[3]
+
+
+QUICKSTART_IDL = """
+Message GetRequest {
+  int32 timestamp;
+  char[32] key;
+}
+Message GetResponse {
+  int32 status;
+  char[32] value;
+}
+Service KeyValueStore {
+  rpc get(GetRequest) returns(GetResponse);
+}
+"""
+
+
+def quickstart_api(torch, dev, use_pallas):
+    """``examples/quickstart.py`` on the port: one sync get, then 8 async
+    gets pumped until every callback ran.  Returns (sync (status,
+    value), async values in completion order, device steps, launches)."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import idl
+    from repro_torch.core.completion import (LoopbackDriver, RpcClientPool,
+                                             RpcThreadedServer)
+    from repro_torch.kernels import ops
+
+    kv = idl.load(QUICKSTART_IDL)
+    server = RpcThreadedServer()
+
+    def get_handler(payload, valid):
+        out = torch.zeros_like(payload)
+        out[:, 0] = 1                          # status = OK
+        out[:, 1:9] = payload[:, 1:9]          # value := key (echo)
+        return out
+
+    server.register(get_handler, "get")
+    cfg = FabricConfig(n_flows=2, ring_entries=32, batch_size=4,
+                       dynamic_batching=False, use_pallas=use_pallas)
+    ops.reset_launch_counts()
+    driver = LoopbackDriver(cfg, server, device=dev)
+    pool = RpcClientPool(driver)
+    driver.attach_pool(pool)
+    driver.open(conn_id=5, client_flow=0)
+    client = kv.KeyValueStoreClient(pool.clients[0], conn_id=5)
+    resp = client.get(kv.GetRequest(timestamp=1, key="hello-dagger"))
+    results = []
+    for i in range(8):
+        client.get_async(kv.GetRequest(timestamp=i, key=f"k{i}"),
+                         callback=lambda r: results.append(r.value))
+    while len(results) < 8 and driver.steps < 64:
+        driver.pump()
+    torch.cuda.synchronize()
+    return ((resp.status, resp.value), results, driver.steps,
+            ops.launch_counts())
 
 
 def phase_full(torch, dev):
@@ -1498,6 +1639,282 @@ def phase_lm(torch, dev, seen):
     return report, k["counts"], k["tally"]
 
 
+def lane_of(torch, tree, i):
+    from repro_torch.core.fabric import tree_map
+    return tree_map(lambda x: x[i], tree)
+
+
+def profile_steps(torch, fn, steps, wall_us):
+    """Device time, activities and busy share a step over ``steps`` steps
+    run by ``fn`` under ``torch.profiler``, against ``wall_us`` a step of
+    the unprofiled run."""
+    ev = device_events(torch, fn, 1)
+    dev_us = sum(us for _, us in ev) / steps
+    return {"device_us_per_step": dev_us, "wall_us_per_step": wall_us,
+            "busy_share": dev_us / wall_us if ev else None,
+            "activities_per_step": len(ev) / steps}
+
+
+def phase_tenant(torch, dev, seen):
+    """Tenant batching: ``TenantEngine`` over 8 of phase 3's 512-flow
+    pairs under deterministic open-loop load at 1,638.4 x (8 - i) / 8
+    requests/step on lane i, ``TENANT_STEPS`` steps of ``run_steps`` and
+    then ``run_until`` with per-lane targets that freeze the lanes at
+    different steps, kernel route against plain route from one start
+    state, and lane 0 against its own ``LoopbackEngine`` run."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.engine import (LoopbackEngine, TenantEngine,
+                                         stack_states)
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.load_balancer import LB_ROUND_ROBIN
+    from repro_torch.kernels import ops
+
+    cfg0 = FabricConfig(**FULL)
+    _, c0, s0 = make_pair(DaggerFabric, cfg0, dev, LB_ROUND_ROBIN,
+                          client_entry=False)
+    start = (stack_states([c0] * TENANTS), stack_states([s0] * TENANTS))
+    rates = [TENANT_BASE * (TENANTS - i) / TENANTS for i in range(TENANTS)]
+    # lane i reaches its target about 10 + 6 i steps into run_until
+    targets = [int(rates[i] * (10 + 6 * i)) for i in range(TENANTS)]
+    max_steps = 100
+    runs = {}
+    for route in ("kernels", "plain"):
+        fab = DaggerFabric(cfg0.replace(use_pallas=route == "kernels"))
+        gen = lg.LoadGen(fab, mode=lg.MODE_DETERMINISTIC)
+        eng = TenantEngine(fab, fab, echo, loadgen=gen)
+        cst, sst = fresh(torch, start)
+        tel = tlm.create_batch(TENANTS, device=dev)
+        gst = gen.init_state_batch(rates, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        cst, sst, done1, tel, gst = eng.run_steps(cst, sst, TENANT_STEPS,
+                                                  tel=tel, gen=gst)
+        torch.cuda.synchronize()
+        secs1 = time.perf_counter() - t0
+        cst, sst, done2, steps2, tel, gst = eng.run_until(
+            cst, sst, targets, max_steps, tel=tel, gen=gst)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        loop = TENANT_STEPS + int(steps2.max())
+        r = dict(cst=cst, sst=sst, done1=done1, done2=done2, steps2=steps2,
+                 tel=tel, gst=gst, secs1=secs1, secs=secs, loop=loop,
+                 counts=ops.launch_counts(), tally=ops.launch_shapes(),
+                 eng=eng, gen=gen)
+        runs[route] = r
+        n1 = int(done1.sum())
+        say(f"tenant {route}: {TENANTS} lanes, {TENANT_STEPS} steps in "
+            f"{secs1:.3f} s, {TENANT_STEPS / secs1:.1f} steps/s, "
+            f"{n1 / secs1 / 1e6:.4f} Mrps over all lanes ({n1} RPCs); "
+            f"run_until {int(done2.sum())} RPCs, lane steps "
+            f"{steps2.tolist()}, {loop} steps in all, {secs:.3f} s; "
+            f"launches {r['counts']}")
+    k, p = runs["kernels"], runs["plain"]
+    for key in ("done1", "done2", "steps2", "cst", "sst", "tel", "gst"):
+        tree_equal(torch, k[key], p[key], f"tenant.{key}")
+    check(len(set(k["steps2"].tolist())) > 2,
+          f"tenant lanes froze together: {k['steps2'].tolist()}")
+    # one switch_step_fused launch a receive side for all 8 tenants, the
+    # injection and the response enqueue one ring_push_packed each
+    kc = k["counts"]
+    check(kc["switch_step_fused"] == 2 * k["loop"]
+          and kc["ring_push_packed"] == 2 * k["loop"]
+          and kc["rpc_pack"] == 0 and kc["nic_deliver_fused"] == 0
+          and kc["ring_push_gathered"] == 0 and kc["ring_push"] == 0,
+          f"tenant kernel route launches {kc} for {k['loop']} steps")
+    check(all(dict(kw).get("include_fetch") is False
+              for (name, (_, kw)), _ in k["tally"].items()
+              if name == "switch_step_fused"),
+          "tenant switch steps not on the ext route")
+    check(not any(p["counts"].values()),
+          f"plain tenant route launched kernels: {p['counts']}")
+    offered = lg.snapshot(k["gst"])["offered"]
+    done = int(k["done1"].sum()) + int(k["done2"].sum())
+    check(done > 0.9 * offered and int(k["tel"].n_done.sum()) == done,
+          f"tenant: {done} of {offered} offered RPCs completed")
+    # lane 0 against an independent LoopbackEngine run on the kernel route
+    fab = DaggerFabric(cfg0.replace(use_pallas=True))
+    gen = lg.LoadGen(fab, mode=lg.MODE_DETERMINISTIC)
+    eng = LoopbackEngine(fab, fab, echo, loadgen=gen)
+    c, s = fresh(torch, (c0, s0))
+    c, s, d1, tel1, g1 = eng.run_steps(c, s, TENANT_STEPS,
+                                       tel=tlm.create(device=dev),
+                                       gen=gen.init_state(rates[0], seed=0,
+                                                          device=dev))
+    c, s, d2, st2, tel1, g1 = eng.run_until(c, s, targets[0], max_steps,
+                                            tel=tel1, gen=g1)
+    tree_equal(torch, (c, s, tel1, g1, d1, d2, st2),
+               tuple(lane_of(torch, x, 0) for x in (
+                   k["cst"], k["sst"], k["tel"], k["gst"], k["done1"],
+                   k["done2"], k["steps2"])), "tenant lane 0")
+    share = {}
+    for route, r in runs.items():
+        cst, sst, tel, gst = fresh(torch, (r["cst"], r["sst"], r["tel"],
+                                           r["gst"]))
+        share[route] = profile_steps(
+            torch, lambda: r["eng"].run_steps(cst, sst, PROFILE_STEPS,
+                                              tel=tel, gen=gst),
+            PROFILE_STEPS, r["secs1"] / TENANT_STEPS * 1e6)
+        sh = share[route]
+        say(f"tenant device time {route}: {sh['device_us_per_step']:.1f} "
+            f"us/step of {sh['wall_us_per_step']:.1f} us/step wall "
+            f"({sh['activities_per_step']:.1f} device activities/step)")
+    # phase 4's inputs at this path's shapes: one more step
+    with recording(seen):
+        cst, sst, tel, gst = fresh(torch, (k["cst"], k["sst"], k["tel"],
+                                           k["gst"]))
+        k["eng"].run_steps(cst, sst, 1, tel=tel, gen=gst)
+    torch.cuda.synchronize()
+    report = {route: {"steps_per_s": TENANT_STEPS / r["secs1"],
+                      "mrps": int(r["done1"].sum()) / r["secs1"] / 1e6,
+                      "secs": r["secs"], "loop_steps": r["loop"],
+                      "lane_steps": r["steps2"].tolist(),
+                      "launches": r["counts"], **share[route]}
+              for route, r in runs.items()}
+    return report, k["counts"], k["tally"], k["loop"]
+
+
+def phase_flight(torch, dev, seen, card):
+    """The flight service: Table 4's latency and throughput runs for both
+    threading models through the kernel route and the plain route (and
+    the staged switch route for the simple model's latency run), the same
+    seeded weight on every route; states, telemetry, worker ring and the
+    passenger's per-step completions equal across routes."""
+    import numpy as np
+
+    from repro_torch.apps import flight as fl
+    from repro_torch.kernels import ops
+
+    counts, tally, switch_steps = {}, {}, 0
+    stats, report = {}, {}
+    for model in ("simple", "optimized"):
+        for run, total, per_step, max_steps in FLIGHT_RUNS:
+            routes = ["kernels", "plain"] + (
+                ["staged"] if (model, run) == ("simple", "latency") else [])
+            outs = {}
+            for route in routes:
+                app = fl.FlightRegistrationApp(
+                    threading=model, batch=8, n_bins=FLIGHT_BINS,
+                    use_pallas=route != "plain", stages=route == "staged",
+                    device=dev)
+                comps = []
+                window = app.run_window
+
+                def recorded(tiles, tvalid, window=window, comps=comps):
+                    out = window(tiles, tvalid)
+                    comps.append(out)
+                    return out
+                app.run_window = recorded
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                st = app.run_load(total=total, per_step=per_step,
+                                  max_steps=max_steps, window=FLIGHT_WINDOW)
+                torch.cuda.synchronize()
+                c, t = ops.launch_counts(), ops.launch_shapes()
+                n_steps = sum(int(v.shape[0]) for _, v in comps)
+                outs[route] = dict(app=app, stats=st, comps=comps, counts=c,
+                                   tally=t, steps=n_steps)
+                check(st["completed"] == total and st["worker_dropped"] == 0,
+                      f"flight {model} {run} {route}: {st['completed']} of "
+                      f"{total} done, {st['worker_dropped']} worker drops")
+                for recs, valid in comps:
+                    v = valid.cpu().numpy()
+                    pay = recs["payload"].cpu().numpy()[v]
+                    check(bool((pay[:, fl.PAY_AIRPORT] == 1).all()
+                               and (pay[:, fl.PAY_CITIZEN] == 1).all()),
+                          f"flight {model} {run} {route}: a registration "
+                          f"missed the Airport or Citizens tier")
+                if route == "kernels":
+                    check(c["switch_step_fused"] == n_steps
+                          and all(dict(kw).get("include_fetch") is True
+                                  for (name, (_, kw)), _ in t.items()
+                                  if name == "switch_step_fused")
+                          and c["ring_push_packed"] >= 2 * n_steps
+                          and c["rpc_pack"] == 0
+                          and c["nic_deliver_fused"] == 0,
+                          f"flight {model} {run} kernels: launches {c} for "
+                          f"{n_steps} switch steps")
+                    switch_steps += n_steps
+                    for key, v in c.items():
+                        counts[key] = counts.get(key, 0) + v
+                    for key, v in t.items():
+                        tally[key] = tally.get(key, 0) + v
+                elif route == "staged":
+                    check(c["switch_step_fused"] == 0
+                          and c["nic_deliver_fused"] == 8 * n_steps
+                          and c["ring_push_gathered"] == 8 * n_steps,
+                          f"flight staged: launches {c} for {n_steps} steps")
+                else:
+                    check(not any(c.values()),
+                          f"flight plain route launched kernels: {c}")
+                say(f"flight {model} {run} {route}: {st['completed']}/"
+                    f"{st['submitted']} registrations in {st['steps']} steps"
+                    f", p50 {st['median_steps']} / p99 {st['p99_steps']} "
+                    f"steps, {st['step_us']:.1f} us/step, "
+                    f"{st['throughput_rps']:.1f} registrations/s; launches "
+                    f"{c}")
+            k = outs["kernels"]
+            for route in routes[1:]:
+                o = outs[route]
+                for key in ("completed", "submitted", "steps", "n_done",
+                            "median_steps", "p99_steps", "mean_steps"):
+                    check(o["stats"][key] == k["stats"][key],
+                          f"flight {model} {run} {route}: {key} "
+                          f"{o['stats'][key]} != {k['stats'][key]}")
+                tree_equal(torch, (k["app"].stacked, k["app"].tel,
+                                   k["app"].wring, k["comps"]),
+                           (o["app"].stacked, o["app"].tel,
+                            o["app"].wring, o["comps"]),
+                           f"flight {model} {run} {route}")
+            stats[(model, run)] = k["stats"]
+            report[f"{model}_{run}"] = {
+                route: {key: o["stats"][key] for key in (
+                    "completed", "steps", "median_steps", "p99_steps",
+                    "step_us", "throughput_rps", "wall_s")}
+                | {"launches": o["counts"], "switch_steps": o["steps"]}
+                for route, o in outs.items()}
+            # device time of a few more steps per route (states mutate:
+            # the comparisons are done)
+            for route, o in outs.items():
+                app = o["app"]
+                tiles = app.make_tiles(PROFILE_STEPS, per_step,
+                                       np.random.default_rng(9))
+                report[f"{model}_{run}"][route].update(profile_steps(
+                    torch, lambda: app.run_window(*tiles), PROFILE_STEPS,
+                    o["stats"]["step_us"]))
+            # phase 4's inputs at this run's shapes: 4 more steps (one
+            # worker drain on the optimized model)
+            with recording(seen):
+                k["app"].run_window(*k["app"].make_tiles(
+                    4, per_step, np.random.default_rng(10)))
+            torch.cuda.synchronize()
+    gain = (stats[("optimized", "throughput")]["throughput_rps"]
+            / stats[("simple", "throughput")]["throughput_rps"])
+    ratio = (stats[("optimized", "latency")]["median_steps"]
+             / stats[("simple", "latency")]["median_steps"])
+    for (model, run), st in stats.items():
+        say(f"tab4 {model} {run} [{card}]: median {st['median_steps']} / "
+            f"p99 {st['p99_steps']} steps, {st['step_us']:.1f} us/step, "
+            f"{st['throughput_rps']:.1f} registrations/s")
+    say(f"tab4 [{card}]: throughput_gain {gain:.4f}, "
+        f"latency_ratio_opt_vs_simple {ratio:.4f}")
+    report["throughput_gain"] = gain
+    report["latency_ratio_opt_vs_simple"] = ratio
+    return report, counts, tally, switch_steps
+
+
+def card_label():
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "nvidia-smi: " + smi.stderr.strip()
+
+
 def sdpa_call(torch, q, k, v, lengths):
     """``F.scaled_dot_product_attention`` on decode attention's inputs —
     the one PyTorch call that computes the same function, timed as a
@@ -1787,6 +2204,17 @@ def main():
         f"s)")
 
     t0 = time.perf_counter()
+    report["tenant"], tn_counts, tn_tally, tn_steps = phase_tenant(
+        torch, dev, seen)
+    say(f"phase 7: tenant routes equal ({time.perf_counter() - t0:.1f} s)")
+
+    card = card_label()
+    t0 = time.perf_counter()
+    report["flight"], fl_counts, fl_tally, fl_steps = phase_flight(
+        torch, dev, seen, card)
+    say(f"phase 8: flight routes equal ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
     kvs_steps = sum(m["steps"] for m in kvs["kernels"]["serve"].values())
     kk = kvs["kernels"]
     paths = {"fused": (runs["fused"]["counts"], runs["fused"]["tally"],
@@ -1795,17 +2223,13 @@ def main():
                         FULL_STEPS),
              "kvs_load": (kk["bulk_counts"], kk["bulk_tally"], None),
              "kvs_serve": (kk["serve_counts"], kk["serve_tally"], kvs_steps),
-             "lm_decode": (lm_counts, lm_tally, LM_STEPS)}
+             "lm_decode": (lm_counts, lm_tally, LM_STEPS),
+             "tenant": (tn_counts, tn_tally, tn_steps),
+             "flight": (fl_counts, fl_tally, fl_steps)}
     rows = phase_summary(torch, paths, seen)
     report["kernels"] = rows
     say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
-        else "nvidia-smi: " + smi.stderr.strip()
     report["nvidia_smi"] = card
     (ROOT / "build" / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1))

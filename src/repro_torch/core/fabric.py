@@ -65,17 +65,49 @@ class FabricState:
     mon: dict
 
 
-def tree_map(fn, x):
+def tree_map(fn, x, *rest):
     """Apply ``fn`` to every tensor leaf of a state (dataclasses, dicts,
-    tuples and lists are walked; other leaves pass through ``fn``)."""
+    tuples and lists are walked; other leaves pass through ``fn``).  With
+    further trees of the same structure, ``fn`` takes the leaves at one
+    position of every tree."""
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        return type(x)(**{f.name: tree_map(fn, getattr(x, f.name))
+        return type(x)(**{f.name: tree_map(fn, getattr(x, f.name),
+                                           *(getattr(r, f.name)
+                                             for r in rest))
                           for f in dataclasses.fields(x)})
     if isinstance(x, dict):
-        return {k: tree_map(fn, v) for k, v in x.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in x.items()}
     if isinstance(x, (tuple, list)):
-        return type(x)(tree_map(fn, v) for v in x)
-    return fn(x)
+        return type(x)(tree_map(fn, *vs) for vs in zip(x, *rest))
+    return fn(x, *rest)
+
+
+def tree_leaves(x) -> list:
+    """The tensor leaves of a state, in ``tree_map``'s order."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return [v for f in dataclasses.fields(x)
+                for v in tree_leaves(getattr(x, f.name))]
+    if isinstance(x, dict):
+        return [v for y in x.values() for v in tree_leaves(y)]
+    if isinstance(x, (tuple, list)):
+        return [v for y in x for v in tree_leaves(y)]
+    return [x] if isinstance(x, torch.Tensor) else []
+
+
+def _fold(ring: Ring) -> Ring:
+    """A [T, F, E, W] stack of per-tenant rings as one ring of T*F
+    queues: the queues are independent, so tenant t's flow f is queue
+    t*F + f."""
+    t, f = ring.head.shape
+    return Ring(ring.buf.reshape((t * f,) + tuple(ring.buf.shape[2:])),
+                ring.head.reshape(-1), ring.tail.reshape(-1))
+
+
+def _unfold(ring: Ring, t: int) -> Ring:
+    f = ring.head.shape[0] // t
+    return Ring(ring.buf.reshape((t, f) + tuple(ring.buf.shape[1:])),
+                ring.head.reshape(t, f), ring.tail.reshape(t, f))
 
 
 def _replace(st: FabricState, **kw) -> FabricState:
@@ -133,16 +165,17 @@ class DaggerFabric:
                                device=dev)
         flows = torch.as_tensor(flow_ids, device=dev).to(I32) % \
             self.cfg.n_flows
-        if self.cfg.use_pallas:
-            tx, accepted = st.tx.push_records(
-                flows, serdes.header_fields(records),
-                payload.to(I32).contiguous(), valid)
-        else:
-            tx, accepted = st.tx.push(
-                flows, serdes.pack(records, self.slot_words), valid)
+        tx, accepted = self._push(st.tx, flows, records, valid)
         rejected = (valid & ~accepted).sum(dtype=I32)
         mon = monitor.bump(st.mon, drops_tx_full=rejected)
         return _replace(st, tx=tx, mon=mon), accepted
+
+    def _push(self, ring: Ring, flows, records, valid):
+        if self.cfg.use_pallas:
+            return ring.push_records(
+                flows, serdes.header_fields(records),
+                records["payload"].to(I32).contiguous(), valid)
+        return ring.push(flows, serdes.pack(records, self.slot_words), valid)
 
     def host_rx_drain(self, st: FabricState, max_n: int):
         """Completion-queue drain: read + consume RX ring entries."""
@@ -152,20 +185,83 @@ class DaggerFabric:
         mon = monitor.bump(st.mon, rpcs_completed=n.sum(dtype=I32))
         return _replace(st, rx=rx, mon=mon), serdes.unpack(slots), valid
 
+    # ------------------------------------------------ tenant-stacked states
+    # The batched forms of the host and fetch stages, on a state with a
+    # leading [T] tenant (or tier) axis on every leaf.  Per-flow ring work
+    # runs on the T stacks of rings folded into one ring of T*F queues
+    # (``_fold``): one call, and one kernel launch where the stage has
+    # one, for all T; per-tenant registers keep their [T] axis.
+
+    def host_tx_enqueue_batch(self, st: FabricState, records, flow_ids,
+                              valid=None):
+        """``host_tx_enqueue`` for every tenant at once: ``records`` with
+        [T, N, ...] leaves, ``flow_ids`` [N] or [T, N], ``valid`` [T, N].
+        Returns (state', accepted [T, N])."""
+        payload = records["payload"]
+        t, n = payload.shape[:2]
+        dev = payload.device
+        if valid is None:
+            valid = torch.ones((t, n), dtype=torch.bool, device=dev)
+        f = self.cfg.n_flows
+        flows = torch.as_tensor(flow_ids, device=dev).to(I32) % f \
+            + torch.arange(t, dtype=I32, device=dev)[:, None] * f
+        flat = {k: torch.broadcast_to(x, (t, n) + tuple(x.shape[2:]))
+                .reshape((t * n,) + tuple(x.shape[2:]))
+                for k, x in records.items()}
+        vflat = valid.reshape(-1)
+        tx, accepted = self._push(_fold(st.tx), flows.reshape(-1), flat,
+                                  vflat)
+        rejected = (vflat & ~accepted).reshape(t, n).sum(1, dtype=I32)
+        mon = monitor.bump(st.mon, drops_tx_full=rejected)
+        return (_replace(st, tx=_unfold(tx, t), mon=mon),
+                accepted.reshape(t, n))
+
+    def host_rx_drain_batch(self, st: FabricState, max_n: int):
+        """``host_rx_drain`` for every tenant: records [T, F, max_n, ...],
+        valid [T, F, max_n]."""
+        t, f = st.rx.head.shape
+        rx = _fold(st.rx)
+        slots, valid = rx.peek(max_n)
+        n = valid.sum(1, dtype=I32)
+        mon = monitor.bump(st.mon, rpcs_completed=n.reshape(t, f).sum(
+            1, dtype=I32))
+        recs = serdes.unpack(slots.reshape((t, f) + tuple(slots.shape[1:])))
+        return (_replace(st, rx=_unfold(rx.advance(n), t), mon=mon), recs,
+                valid.reshape(t, f, max_n))
+
+    def nic_fetch_batch(self, st: FabricState):
+        """``nic_fetch`` for every tenant: slots [T, F, Bmax, W], valid
+        [T, F, Bmax]; each tenant's ``soft.batch`` applies to its
+        flows."""
+        t, f = st.tx.head.shape
+        b = st.soft.batch.clamp(1, self.cfg.batch_size).repeat_interleave(f)
+        tx, slots, valid, take = self._fetch(_fold(st.tx), b)
+        mon = monitor.bump(st.mon, rpcs_ingested=take.reshape(t, f).sum(
+            1, dtype=I32))
+        return (_replace(st, tx=_unfold(tx, t), mon=mon),
+                slots.reshape((t, f) + tuple(slots.shape[1:])),
+                valid.reshape(t, f, -1))
+
     # ----------------------------------------------------------- NIC side
     def nic_fetch(self, st: FabricState):
         """CCI-P batched fetch from host TX rings (paper RX path).
 
         Returns (state, slots [F, Bmax, W], valid [F, Bmax])."""
-        bmax = self.cfg.batch_size
-        b = st.soft.batch.clamp(1, bmax)
-        take = torch.minimum(st.tx.occupancy(), b)
-        slots, _ = st.tx.peek(bmax)
-        lanes = torch.arange(bmax, dtype=I32, device=slots.device)
-        valid = lanes[None, :] < take[:, None]
-        tx = st.tx.advance(take)
+        b = st.soft.batch.clamp(1, self.cfg.batch_size)
+        tx, slots, valid, take = self._fetch(st.tx, b)
         mon = monitor.bump(st.mon, rpcs_ingested=take.sum(dtype=I32))
         return _replace(st, tx=tx, mon=mon), slots, valid
+
+    def _fetch(self, tx: Ring, b):
+        """Take up to ``b`` (a scalar, or one per queue) slots from each
+        queue head: (ring', slots [Q, Bmax, W], valid [Q, Bmax], take
+        [Q])."""
+        bmax = self.cfg.batch_size
+        take = torch.minimum(tx.occupancy(), b)
+        slots, _ = tx.peek(bmax)
+        lanes = torch.arange(bmax, dtype=I32, device=slots.device)
+        valid = lanes[None, :] < take[:, None]
+        return tx.advance(take), slots, valid, take
 
     def nic_deliver(self, st: FabricState, slots, valid, use_pallas=None):
         """Network -> request buffer -> steer -> flow FIFOs (TX path).

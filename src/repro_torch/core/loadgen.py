@@ -119,14 +119,15 @@ def counter_uniform(key, ctr, salt):
 def _poisson_count(lam, u, tile: int):
     """Inverse-CDF Poisson(lam) sample truncated at ``tile`` (float32,
     the reference's formula: pmf by ``p_k = p_{k-1} * lam / k``, count =
-    number of CDF entries <= u)."""
+    number of CDF entries <= u).  ``lam`` and ``u`` are scalars or [T]
+    (one sample a lane)."""
     dev = lam.device
     k = torch.arange(tile, dtype=torch.float32, device=dev)
     ratio = torch.where(k == 0, torch.ones_like(k),
-                        lam / torch.clamp(k, min=1.0))
-    pmf = torch.exp(-lam) * torch.cumprod(ratio, 0)
-    cdf = torch.cumsum(pmf, 0)
-    return (u >= cdf).sum(dtype=I32)
+                        lam[..., None] / torch.clamp(k, min=1.0))
+    pmf = torch.exp(-lam)[..., None] * torch.cumprod(ratio, -1)
+    cdf = torch.cumsum(pmf, -1)
+    return (u[..., None] >= cdf).sum(-1, dtype=I32)
 
 
 class LoadGen:
@@ -190,12 +191,41 @@ class LoadGen:
             injected=s(0), dropped=s(0),
             arr_hist=torch.zeros((ARR_BINS,), dtype=I32, device=dev))
 
+    def init_state_batch(self, rates: Sequence[float],
+                         seeds: Optional[Sequence[int]] = None,
+                         conns: Optional[Sequence[int]] = None,
+                         device="cuda") -> LoadGenState:
+        """Stacked per-lane states (leading tenant/tier axis): lane i
+        offers ``rates[i]`` requests/step from its own PRNG key
+        (``seeds[i]``, default i) on connection ``conns[i]`` (default 1);
+        ``arr_hist`` is [T, ARR_BINS]."""
+        n = len(rates)
+        seeds = list(range(n)) if seeds is None else [int(x) for x in seeds]
+        conns = [1] * n if conns is None else [int(x) for x in conns]
+        if not len(seeds) == len(conns) == n:
+            raise ValueError("rates/seeds/conns must have equal length")
+        for seed in seeds:
+            if not INT32_MIN <= seed <= INT32_MAX:
+                raise ValueError(f"seed {seed} does not fit int32")
+        dev = resolve(device)
+
+        def vec(v):
+            return torch.tensor(v, dtype=I32, device=dev)
+        z = [0] * n
+        return LoadGenState(
+            key=vec(seeds), step=vec(z), rate=vec([rate_q16(r) for r in rates]),
+            acc=vec(z), burst_on=vec([1] * n), conn=vec(conns),
+            next_rpc=vec(z), offered=vec(z), injected=vec(z), dropped=vec(z),
+            arr_hist=torch.zeros((n, ARR_BINS), dtype=I32, device=dev))
+
     # --------------------------------------------------------- arrivals
     def arrivals(self, gst: LoadGenState):
         """One step of the arrival process: ``(raw_count, gst')``.
 
         Advances only the process state (step, arrears, burst phase);
-        ``raw_count`` is this step's arrivals before the tile clip.
+        ``raw_count`` is this step's arrivals before the tile clip.  On a
+        stacked state (``init_state_batch``) every lane draws its own:
+        lane i's counts are its independent state's, bit for bit.
         """
         step0 = gst.step
         if self.mode == MODE_POISSON:
@@ -219,10 +249,11 @@ class LoadGen:
             acc = gst.acc + rate
             raw = acc >> RATE_SHIFT
             acc = acc & (RATE_ONE - 1)
-        b = raw.clamp(0, gst.arr_hist.shape[-1] - 1)
-        ah = add_drop(gst.arr_hist, (b.reshape(1),),
-                      torch.ones((1,), dtype=I32, device=b.device),
-                      torch.ones((1,), dtype=torch.bool, device=b.device))
+        b = raw.clamp(0, gst.arr_hist.shape[-1] - 1).reshape(-1)
+        lanes = torch.arange(b.shape[0], device=b.device)
+        idx = (b,) if gst.arr_hist.dim() == 1 else (lanes, b)
+        ah = add_drop(gst.arr_hist, idx, torch.ones_like(b),
+                      torch.ones_like(b, dtype=torch.bool))
         gst = dataclasses.replace(gst, step=step0 + 1, acc=acc.to(I32),
                                   burst_on=burst.to(I32), arr_hist=ah)
         return raw.to(I32), gst
@@ -240,39 +271,60 @@ class LoadGen:
     def _flows(self, gst: LoadGenState, lane):
         if self.flow_cdf_q16 is None:
             # deterministic round-robin, continuous across steps
-            return (gst.next_rpc + lane) % self.fab.cfg.n_flows
-        u16 = (counter_hash(gst.key, gst.step * self.tile + lane,
+            return (gst.next_rpc[..., None] + lane) % self.fab.cfg.n_flows
+        u16 = (counter_hash(gst.key[..., None],
+                            gst.step[..., None] * self.tile + lane,
                             _SALT_FLOW) & LOW16).to(I32)
         cdf = torch.tensor(self.flow_cdf_q16, dtype=I32, device=lane.device)
-        return (u16[:, None] >= cdf[None, :]).sum(1, dtype=I32)
+        return (u16[..., None] >= cdf).sum(-1, dtype=I32)
+
+    def _payload(self, gst: LoadGenState, lane, rpc_id):
+        if self.payload_fn is None:
+            return (lane[:, None] + 1).expand(self.tile, self.pw) \
+                + rpc_id[..., None]
+        if gst.step.dim():
+            raise ValueError("payload_fn takes one lane's state; a stacked "
+                             "generator state has the default payload only")
+        return torch.as_tensor(self.payload_fn(gst, lane, rpc_id),
+                               dtype=I32, device=lane.device)
 
     def inject(self, cst: FabricState, gst: LoadGenState):
         """One open-loop injection inside the step: draw this step's
         arrival count, pack step-stamped records, push them into the
         client TX rings, and account every arrival as injected or
-        dropped.  Returns ``(cst', gst')``."""
+        dropped.  Returns ``(cst', gst')``.
+
+        With a stacked generator state (``init_state_batch``) ``cst`` is
+        the matching tenant-stacked fabric state and every lane injects
+        into its own rings in one enqueue (``host_tx_enqueue_batch``):
+        what the reference's ``jax.vmap(inject)`` computes."""
         step0 = gst.step
         raw, gst = self.arrivals(gst)
         n = torch.clamp(raw, max=self.tile)
         dev = raw.device
         lane = torch.arange(self.tile, dtype=I32, device=dev)
-        valid = lane < n
-        rpc_id = gst.next_rpc + lane
-        if self.payload_fn is None:
-            pay = (lane[:, None] + 1).expand(self.tile, self.pw) \
-                + rpc_id[:, None]
-        else:
-            pay = torch.as_tensor(self.payload_fn(gst, lane, rpc_id),
-                                  dtype=I32, device=dev)
+        valid = lane < n[..., None]
+        rpc_id = gst.next_rpc[..., None] + lane
+        pay = self._payload(gst, lane, rpc_id)
         origin = self._flows(gst, lane)
+        shape = valid.shape
+
+        def full(v):
+            return torch.broadcast_to(v[..., None], shape).to(I32)
         # origin-flow tag in flags bits 8+ (handlers echo flags)
-        recs = serdes.make_records(
-            torch.ones((self.tile,), dtype=I32, device=dev) * gst.conn,
-            rpc_id, torch.full((self.tile,), self.fn_id, dtype=I32,
-                               device=dev),
-            origin << 8, pay, timestamp=step0)
-        cst, accepted = self.fab.host_tx_enqueue(cst, recs, origin, valid)
-        n_acc = accepted.sum(dtype=I32)
+        recs = {"conn_id": full(gst.conn), "rpc_id": rpc_id,
+                "fn_id": torch.full(shape, self.fn_id, dtype=I32, device=dev),
+                "flags": origin << 8,
+                "payload_len": torch.full(shape, pay.shape[-1] * 4,
+                                          dtype=I32, device=dev),
+                "frag_idx": torch.zeros(shape, dtype=I32, device=dev),
+                "timestamp": full(step0), "payload": pay}
+        if gst.step.dim() == 0:
+            cst, accepted = self.fab.host_tx_enqueue(cst, recs, origin, valid)
+        else:
+            cst, accepted = self.fab.host_tx_enqueue_batch(cst, recs, origin,
+                                                           valid)
+        n_acc = accepted.sum(-1, dtype=I32)
         gst = dataclasses.replace(
             gst, next_rpc=(gst.next_rpc + n).to(I32),
             offered=(gst.offered + raw).to(I32),

@@ -13,6 +13,12 @@ package importing the other:
   or from any object with those attributes — e.g. a ``repro`` state
   whose leaves ``np.asarray`` accepts.
 
+Leaves keep whatever leading axes they have, so a tier- or
+tenant-stacked state (every leaf [T, ...]) moves as it is — the flight
+service's stacked switch state, its per-tier ``Telemetry`` and its
+``WorkerRing`` (``worker_ring_*``); the flight tier's float32 weight goes
+in as the numpy array it is (``FlightRegistrationApp(heavy_w=...)``).
+
 Every leaf must already have the reference's dtype (int32; bool for
 ``force_flush``): a round trip never widens or narrows a type.  The one
 exception is the KVS store's ``tags``: the reference keeps them as
@@ -33,6 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.apps.flight import WorkerRing
 from repro_torch.core import monitor
 from repro_torch.core.connection import ConnTable
 from repro_torch.core.fabric import FabricState, SoftConfig
@@ -71,6 +78,8 @@ def _load(cls, src, dev):
         v = _get(src, f.name)
         if cls is FabricState and f.name in _NESTED:
             kw[f.name] = _load(_NESTED[f.name], v, dev)
+        elif cls is WorkerRing and f.name == "ring":
+            kw[f.name] = _load(Ring, v, dev)
         elif cls is FabricState and f.name == "mon":
             kw[f.name] = {k: _leaf(_get(v, k), dev, k)
                           for k in monitor.COUNTERS}
@@ -110,6 +119,14 @@ def loadgen_state_from_numpy(src, device="cuda") -> LoadGenState:
 
 def loadgen_state_to_numpy(gst: LoadGenState) -> dict:
     return _dump(gst)
+
+
+def worker_ring_from_numpy(src, device="cuda") -> WorkerRing:
+    return _load(WorkerRing, src, resolve(device))
+
+
+def worker_ring_to_numpy(wr: WorkerRing) -> dict:
+    return _dump(wr)
 
 
 def kvs_state_from_numpy(src, device="cuda") -> KVSState:

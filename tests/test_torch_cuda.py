@@ -528,3 +528,127 @@ def test_decode_attention_kernel_all_lengths_zero(cuda, dtype):
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     torch.testing.assert_close(got, mean_v, rtol=tol, atol=tol)
+
+
+def _tenant_start(cuda, t, n_flows):
+    from repro_torch.config import FabricConfig
+    from repro_torch.core.engine import stack_states
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.load_balancer import LB_ROUND_ROBIN
+    cfg = FabricConfig(n_flows=n_flows, ring_entries=16, batch_size=4,
+                       dynamic_batching=False)
+    fab = DaggerFabric(cfg)
+    cst, sst = fab.init_state(cuda), fab.init_state(cuda)
+    sst = fab.open_connection(sst, 1, 0, 0, LB_ROUND_ROBIN)
+    return cfg, (stack_states([cst] * t), stack_states([sst] * t))
+
+
+@pytest.mark.parametrize("n_flows", [4, 64])
+def test_tenant_engine_in_place_from_clone(cuda, n_flows):
+    """``TenantEngine`` over 8 tenants at unequal loads: the kernel route
+    (one ``switch_step_fused`` launch a receive side for all tenants, one
+    ``ring_push_packed`` an enqueue) run from a clone equals the plain
+    route bit for bit, through ``run_steps`` and a ``run_until`` whose
+    lanes freeze at different steps; the returned tables are the clone's
+    own storage."""
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.engine import TenantEngine
+    from repro_torch.core.fabric import DaggerFabric, tree_map
+
+    cfg, start = _tenant_start(cuda, 8, n_flows)
+    rates = [0.5 * n_flows * (8 - i) / 8 for i in range(8)]
+    targets = [int(r * (3 + 2 * i)) for i, r in enumerate(rates)]
+    runs = {}
+    for use in (False, True):
+        fab = DaggerFabric(cfg.replace(use_pallas=use))
+        gen = lg.LoadGen(fab, mode=lg.MODE_POISSON)
+        eng = TenantEngine(fab, fab, lambda r, v: dict(r), loadgen=gen)
+        cst, sst = tree_map(torch.clone, start)
+        tel = tlm.create_batch(8, device=cuda)
+        gst = gen.init_state_batch(rates, device=cuda)
+        before = ops.launch_counts()
+        a = eng.run_steps(cst, sst, 10, tel=tel, gen=gst)
+        b = eng.run_until(a[0], a[1], targets, 40, tel=a[3], gen=a[4])
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        grew = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        loop = 10 + int(b[3].max())
+        if use:
+            assert grew == {"switch_step_fused": 2 * loop,
+                            "ring_push_packed": 2 * loop}, grew
+            for name, get in (("rx.buf", lambda st: st.rx.buf),
+                              ("req_table", lambda st: st.req_table)):
+                assert (get(cst).untyped_storage().data_ptr()
+                        == get(b[0]).untyped_storage().data_ptr()), name
+        else:
+            assert not grew
+        runs[use] = (a[2], b)
+    assert len(set(runs[True][1][3].tolist())) > 2
+    for x, y in zip(_leaves(runs[True]), _leaves(runs[False])):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _flight_switch(cuda, use_pallas):
+    from repro_torch.apps.flight import FlightRegistrationApp
+    return FlightRegistrationApp(threading="optimized", batch=8,
+                                 use_pallas=use_pallas, device=cuda)
+
+
+def test_switch_step_stacked_routes_at_8_tiers(cuda):
+    """The flight service's 8-tier switch on the card: 24 switch steps on
+    the fused route (one fetch-mode ``switch_step_fused`` launch a step),
+    the staged route (``nic_deliver_fused`` and ``ring_push_gathered`` per
+    tier) and the plain route, from one start state with registrations in
+    flight: states, completions and telemetry equal bit for bit."""
+    from repro_torch.core.fabric import tree_map
+
+    app = _flight_switch(cuda, True)
+    tiles, tvalid = app.make_tiles(8, 8, np.random.default_rng(0))
+    app.run_window(tiles, tvalid)
+    start = tree_map(torch.clone, (app.stacked, app.tel))
+    outs = {}
+    for route, use, stage in (("fused", True, None), ("staged", True, False),
+                              ("plain", False, None)):
+        sw = _flight_switch(cuda, use)
+        stacked, tel = tree_map(torch.clone, start)
+        before = ops.launch_counts()
+        comps = []
+        for _ in range(24):
+            stacked, c, tel = sw.switch.switch_step_stacked(
+                stacked, sw.handlers, tel=tel, use_pallas=stage)
+            comps.append(c)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        grew = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        if route == "fused":
+            assert grew["switch_step_fused"] == 24
+        elif route == "staged":
+            assert grew["nic_deliver_fused"] == grew["ring_push_gathered"] \
+                == 8 * 24 and "switch_step_fused" not in grew
+        else:
+            assert not grew
+        outs[route] = (stacked, tel, comps)
+    for route in ("staged", "plain"):
+        for x, y in zip(_leaves(outs["fused"]), _leaves(outs[route])):
+            assert x.dtype == y.dtype and torch.equal(x, y), route
+
+
+@pytest.mark.parametrize("threading", ["simple", "optimized"])
+def test_flight_window_routes(cuda, threading):
+    """Two windows of the flight service at Table 4's latency load (2
+    registrations a step) on the kernel and plain routes: passenger
+    completions, stacked states, telemetry and worker ring equal bit for
+    bit."""
+    from repro_torch.apps.flight import FlightRegistrationApp
+    outs = {}
+    for use in (True, False):
+        app = FlightRegistrationApp(threading=threading, batch=8,
+                                    use_pallas=use, device=cuda)
+        rng = np.random.default_rng(4)
+        comps = [app.run_window(*app.make_tiles(16, 2, rng))
+                 for _ in range(2)]
+        outs[use] = (comps, app.stacked, app.tel, app.wring)
+    assert int(outs[True][2].n_done[0]) > 0
+    for x, y in zip(_leaves(outs[True]), _leaves(outs[False])):
+        assert x.dtype == y.dtype and torch.equal(x, y)
