@@ -41,7 +41,12 @@ exit, no result line) on any mismatch:
    destinations, responses returning by SRQ, full flow FIFOs and rx
    rings) and its ext route over 8 tenants x 2,048 rows (dest =
    tenant), and the packed push on 8 tenants' TX rings folded into one
-   [4,096, 64, 16] ring;
+   [4,096, 64, 16] ring; and at the shapes of phases 9-11: the ext route
+   over 8 x 16 (KVS) and 4 x 32 (decode, serving) rows, the packed push
+   on the folded [16, 64, 16] and [32, 64, 16] TX rings,
+   ``hash_bucket_tag`` at 128 keys read in place at word 5 of the
+   drained slots, ``kv_probe`` on the 8 folded stores ([2^22, 4] tags,
+   128 queries) and decode attention over 4 x 32 = 128 slots;
 2. quickstart parity: the README's echo pair (4 flows, 8 RPCs, 4 steps)
    through the kernels and through the plain path, and
    ``examples/quickstart.py``'s flow (IDL stubs, ``RpcThreadedServer``,
@@ -89,15 +94,45 @@ exit, no result line) on any mismatch:
    every registration complete with its Airport and Citizens marks, one
    fetch-mode ``switch_step_fused`` launch a switch step; it prints
    Table 4's quantities with the card's name and power limit;
+9. KVS tenants: ``DeviceKVS.make_tenant_engine`` over 8 of KVSRig's
+   fabric pairs, each tenant a 2^19-bucket x 4-way store (8 x 88 MiB,
+   phase 5's bytes in MICA's per-core partitions) loaded with 2^20 keys
+   and read back (every key hits unless evicted); rounds of 16 Zipf 0.99
+   GET/SETs a tenant enqueued for all tenants at once and drained with
+   ``run_until`` and telemetry, 40 rounds at 50/50 and 40 at 5/95,
+   kernel route against plain route from one start state (stores, [T]
+   counters, telemetry, done and steps, fabric states) and lane 0
+   against its own ``make_engine`` run; the launches a step are phase
+   5's (2 ``switch_step_fused``, 2 ``hash_bucket_tag``, 1 ``kv_probe``
+   and 1 ``ring_push_packed``, and 1 more a round), whatever T;
+10. decode tenants: ``DecodeEngine.make_tenant_run_steps`` with phase
+   6's pool for 4 tenants (Poisson 0.065 requests/step each, seeds
+   0-3, ``LM_TENANT_STEPS`` steps; one pool of 128 slots a step), kernel
+   route against plain route (slots, telemetry, generators, every
+   non-token word of the completion tiles; ledgers balanced; the equal-
+   token share printed), lane 0 against a single-tenant run at its rate
+   and seed, phase 6's launches a step (28 ``decode_attention``); then
+   ``sweep_rates`` at 0.065, 0.13 and 0.26 requests/step, printing TTFT
+   and ITL p99 per rate;
+11. serving: ``ServingEngine`` at Qwen2-1.5B (32 slots, 1,024 rows,
+   ``launch/serve.py``'s fabric): ``prefill_sessions`` of 32 seeded
+   prompts of 256 tokens, ``make_run_steps`` with telemetry over 32
+   staged tiles of "sample for me" requests, ``make_tenant_run_steps``
+   for 4 tenants over 32 tiles of new sessions, kernel route against
+   plain route (sessions but their last token, served counts, telemetry,
+   non-token egress words), the same launches a step for 4 tenants as
+   for one; and the first decode step's logits after the prefill
+   against the same prompts fed one decode step at a time, within
+   ``LOGIT_TOL``;
 4. kernel summary (run last): one JSON line with each kernel's launches
-   on the main paths (phases 3, 5, 6, 7 and 8) and, at the shape with the most
+   on the main paths (phases 3 and 5-11) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
    version's, its bound and, for decode attention, the time of
    ``F.scaled_dot_product_attention`` on the same inputs.  Every kernel
    is timed at every shape its main paths give it (``by_shape`` in the
    details: launches by path, ms, call ms, bound, device activities a
    call), on inputs captured at that shape in one more step of phases
-   3, 5, 6, 7 and 8; the launches by shape are the ``ops`` wrappers' own
+   3 and 5-11; the launches by shape are the ``ops`` wrappers' own
    counts (``ops.launch_shapes``) from the main-path runs.  The switch
    step's graph restores its captured state before every call, and its
    time is that graph's less a graph of the restores.  Four kernels run
@@ -161,9 +196,9 @@ LM_ARCH = "qwen2-1.5b"
 LM_POOL = dict(n_slots=32, max_seq=1024, max_prompt=512, max_new_cap=256)
 LM_FLOWS = 8
 LM_RATE = 0.065
-LM_STEPS = 1000                    # cut from 2,000 to make room for phases 7, 8
+LM_STEPS = 600                     # cut from 2,000 (PR 19: 1,000; PR 20: 600)
 LM_BINS = 1024                      # TTFT reaches max_prompt + 1 and more
-LM_PROFILE_STEPS = 10              # profiled steps per route (slow to trace)
+LM_PROFILE_STEPS = 4               # profiled steps per route (slow to trace)
 # one decode step's logits, kernel route against plain route, from the
 # same state: bf16 activations round differently once an attention
 # output differs in its last bit; held at the reference's bf16
@@ -188,6 +223,28 @@ FLIGHT_RUNS = (("latency", 48, 2, 384), ("throughput", 192, 8, 512))
 FLIGHT_WINDOW = 16
 FLIGHT_BINS = 128
 PROFILE_STEPS = 4                   # profiled steps a route, phases 7 and 8
+# KVS tenants: 8 of KVSRig's fabric pairs, each with a 2^19-bucket x
+# 4-way store (8 x 88 MiB = phase 5's 704 MiB split into MICA's per-core
+# partitions) loaded with 2^20 keys; rounds of 16 Zipf 0.99 GET/SETs a
+# tenant at 50/50, then at 5/95
+KVS_TENANTS = 8
+KVS_TENANT_STORE = dict(KVS_STORE, n_buckets=2**19)
+KVS_TENANT_KEYS = 2**20
+KVS_TENANT_CHUNK = 2**17            # keys a bulk SET, 1/4 of the buckets
+# (cut from 100 rounds a mix to keep the script under 600 s)
+KVS_TENANT_ROUNDS = (("write_z99", 0.5, 40), ("read_z99", 0.05, 40))
+# decode tenants: phase 6's pool for 4 tenants at Poisson 0.065
+# requests/step each (seeds 0-3), then the rate sweep
+LM_TENANTS = 4
+LM_TENANT_STEPS = 200              # cut from 250 to keep under 600 s
+LM_SWEEP_RATES = (0.065, 0.13, 0.26)
+LM_SWEEP_STEPS = 64                # cut from 128
+NEW_PROFILE_STEPS = 2              # profiled steps (rounds) a run, 9-11
+# serving: 32 sessions prefilled with 256-token prompts, then 32 staged
+# tiles of "sample for me" requests; 4 tenants over 32 tiles of new
+# sessions
+SERVE_PROMPT = 256
+SERVE_TILES = 32                    # cut from 64 to keep under 600 s
 
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
@@ -711,6 +768,29 @@ def phase_kernels(torch, dev):
     buf, qid, pos, _ = push_inputs(rnd, TENANTS * f, e, w, TENANTS * n)
     run("ring_push_packed", ops.ring_push_packed, rp.ring_push_packed_plain,
         (buf, qid, pos, *pack_inputs(rnd, TENANTS * n, 11), w), pure=True)
+    # phases 9-11's tenant receive sides: the ext route over the KVS
+    # tenants' 8 x 16 rows (KVSRig's fabric: 2 flows, B 8, request buffer
+    # 16) and the decode and serving tenants' 4 x 32 rows (8 flows, B 4,
+    # request buffer 32), dest = tenant; and their enqueues, the packed
+    # push on the folded [8 x 2, 64, 16] and [4 x 8, 64, 16] TX rings
+    kf = KVS_FABRIC["n_flows"]
+    kvs_t = dict(t=KVS_TENANTS, f=kf, e=64, w=w, r=kf * 8, d=64, c=c, b=8,
+                 nb=2, m=KVS_TENANTS * kf * 8)
+    lm_t = dict(t=LM_TENANTS, f=LM_FLOWS, e=64, w=w, r=LM_FLOWS * 4, d=64,
+                c=c, b=4, nb=2, m=LM_TENANTS * LM_FLOWS * 4)
+    for kw, full in ((kvs_t, None), (kvs_t, "free_full"), (lm_t, None),
+                     (lm_t, "rx")):
+        args, include_fetch = switch_inputs(rnd, full=full, by_tenant=True,
+                                            **kw)
+        run("switch_step_fused", ops.switch_step_fused,
+            ss.switch_step_fused_plain, args, bmax=kw["b"],
+            include_fetch=include_fetch,
+            in_place={**ss.IN_PLACE, **ss.EXT_PASSED})
+        buf, qid, pos, _ = push_inputs(rnd, kw["t"] * kw["f"], 64, w,
+                                       kw["m"])
+        run("ring_push_packed", ops.ring_push_packed,
+            rp.ring_push_packed_plain,
+            (buf, qid, pos, *pack_inputs(rnd, kw["m"], 11), w), pure=True)
     # KVS kernels: small shapes with edges, then phase 5's shapes (the
     # fabric's 16-row enqueues and the 2^20-row bulk calls on the store)
     kb = KVS_FABRIC["n_flows"] * KVS_FABRIC["batch_size"]
@@ -741,6 +821,12 @@ def phase_kernels(torch, dev):
                     hs.hash_bucket_tag_plain,
                     (keys, KVS_STORE["n_buckets"], KVS_STORE["ways"],
                      key_words))
+    # phase 9's folded handler: the 8 tenants' 128 keys read in place at
+    # word 5 of the drained [128, 16] slots, a tenant store's 2^19 buckets
+    pay = rnd.ints(-2**31, 2**31 - 1, (KVS_TENANTS * kb, 16))
+    run("hash_bucket_tag", ops.hash_bucket_tag, hs.hash_bucket_tag_plain,
+        (pay[:, 5:5 + kw_], KVS_TENANT_STORE["n_buckets"],
+         KVS_STORE["ways"], kw_))
     nbk, ways, vw = (KVS_STORE["n_buckets"], KVS_STORE["ways"],
                      KVS_STORE["value_words"])
     # both paths: vector (4 ways, whole 16-byte value rows; N not a
@@ -752,7 +838,10 @@ def phase_kernels(torch, dev):
                        ((64, 4, 3, 77), False), ((4096, 4, 8, 3001), "tags"),
                        ((4096, 4, 8, 3001), "values"),
                        ((nbk, ways, vw, kb), True),
-                       ((nbk, ways, vw, KVS_CHUNK), True)):
+                       ((nbk, ways, vw, KVS_CHUNK), True),
+                       # phase 9: the 8 folded tenant stores, 128 queries
+                       ((KVS_TENANTS * KVS_TENANT_STORE["n_buckets"], ways,
+                         vw, KVS_TENANTS * kb), True)):
         args = list(probe_inputs(rnd, *shape))
         if vec in ("tags", "values"):
             i = 0 if vec == "tags" else 1
@@ -773,6 +862,9 @@ def phase_kernels(torch, dev):
                for hd_ in (64, 128, 256)]
     shapes += [(5, 12, 2, 128, 333, "zero"),
                (LM_POOL["n_slots"], lm.n_heads, lm.n_kv_heads,
+                lm.resolved_head_dim, LM_POOL["max_seq"]),
+               # phases 10 and 11: 4 tenants' pools as one of 128 slots
+               (LM_TENANTS * LM_POOL["n_slots"], lm.n_heads, lm.n_kv_heads,
                 lm.resolved_head_dim, LM_POOL["max_seq"])]
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
@@ -1647,12 +1739,25 @@ def lane_of(torch, tree, i):
 def profile_steps(torch, fn, steps, wall_us):
     """Device time, activities and busy share a step over ``steps`` steps
     run by ``fn`` under ``torch.profiler``, against ``wall_us`` a step of
-    the unprofiled run."""
+    the unprofiled run, and the five activities with the most device
+    time a step.  ``steps`` may be a callable, read after the run."""
     ev = device_events(torch, fn, 1)
+    steps = steps() if callable(steps) else steps
     dev_us = sum(us for _, us in ev) / steps
+    by_name = {}
+    for name, us in ev:
+        by_name[name[:70]] = by_name.get(name[:70], 0.0) + us / steps
     return {"device_us_per_step": dev_us, "wall_us_per_step": wall_us,
             "busy_share": dev_us / wall_us if ev else None,
-            "activities_per_step": len(ev) / steps}
+            "activities_per_step": len(ev) / steps,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:5]}
+
+
+def say_profile(what, sh):
+    say(f"{what} device time: {sh['device_us_per_step']:.1f} us/step of "
+        f"{sh['wall_us_per_step']:.1f} us/step wall "
+        f"({sh['activities_per_step']:.1f} device activities/step); top "
+        + "; ".join(f"{n} {us:.1f}" for n, us in sh["top"]))
 
 
 def phase_tenant(torch, dev, seen):
@@ -1905,6 +2010,579 @@ def phase_flight(torch, dev, seen, card):
     return report, counts, tally, switch_steps
 
 
+def kvs_tenant_requests(torch, dev, pw):
+    """Per mix of ``KVS_TENANT_ROUNDS``: payloads [R, T, 16, pw] (key
+    words, then value words from word 2) and SET flags [R, T, 16]; tenant
+    t draws its own ``ZipfKVWorkload`` stream (seed t) over its 2^20
+    keys.  Made in bulk and moved to the card once."""
+    import numpy as np
+    from repro_torch.data import ZipfKVWorkload
+    out = {}
+    for name, set_fraction, rounds in KVS_TENANT_ROUNDS:
+        pay = np.zeros((rounds, KVS_TENANTS, KVS_BATCH, pw), np.int32)
+        is_set = np.zeros((rounds, KVS_TENANTS, KVS_BATCH), np.int32)
+        for t in range(KVS_TENANTS):
+            gen = ZipfKVWorkload(n_keys=KVS_TENANT_KEYS, skew=0.99,
+                                 set_fraction=set_fraction, key_bytes=8,
+                                 value_bytes=8, seed=t).batches(KVS_BATCH)
+            for r in range(rounds):
+                _, s_, kw, vw = next(gen)
+                pay[r, t, :, :kw.shape[1]] = kw
+                pay[r, t, :, 2:2 + vw.shape[1]] = vw
+                is_set[r, t] = s_
+        out[name] = (torch.from_numpy(pay).to(dev),
+                     torch.from_numpy(is_set).to(dev))
+    return out
+
+
+def kvs_tenant_serve(torch, dev, fab, eng, state, requests, tel, lane=None):
+    """Phase 9's loop: per round, 16 requests a tenant stamped with the
+    tenant's step go onto flows ``arange(16) % 2`` of every tenant in one
+    enqueue, and ``run_until(16, 8)`` drains them with telemetry.  With
+    ``lane`` it drives that tenant's requests alone through a
+    single-tenant engine.  Returns (state, per-round (done, steps),
+    telemetry, loop steps, seconds)."""
+    from repro_torch.core import serdes
+    cst, sst, db = state
+    pay, is_set = requests
+    single = lane is not None
+    shape = (KVS_BATCH,) if single else (KVS_TENANTS, KVS_BATCH)
+    rows = torch.arange(KVS_BATCH, dtype=torch.int32, device=dev) \
+        .expand(shape)
+    ones = torch.ones(shape, dtype=torch.int32, device=dev)
+    flows = rows % KVS_FABRIC["n_flows"]
+    enqueue = fab.host_tx_enqueue if single else fab.host_tx_enqueue_batch
+    counts, loop, base = [], 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(pay.shape[0]):
+        stamp = tel.step if single else tel.step[:, None].expand(shape)
+        p, f = (pay[r, lane], is_set[r, lane]) if single else (pay[r],
+                                                               is_set[r])
+        recs = serdes.make_records(ones, rows + base, f, 0 * ones, p,
+                                   timestamp=stamp)
+        base += KVS_BATCH
+        cst, _ = enqueue(cst, recs, flows)
+        cst, sst, db, done, steps, tel = eng.run_until(
+            cst, sst, KVS_BATCH, 8, hstate=db, tel=tel)
+        counts.append((done.tolist(), steps.tolist()))
+        loop += int(steps.max())
+    torch.cuda.synchronize()
+    return (cst, sst, db), counts, tel, loop, time.perf_counter() - t0
+
+
+def phase_kvs_tenants(torch, dev, seen, kvs_serve_counts, kvs_serve_steps):
+    """KVS tenants: ``make_tenant_engine`` over 8 of KVSRig's fabric pairs,
+    each tenant a 2^19-bucket store loaded with 2^20 keys; rounds of 16
+    Zipf GET/SETs a tenant, kernel route against plain route from one
+    start state, and lane 0 against its own ``make_engine`` run."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import serdes
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.engine import lane_view, stack_states
+    from repro_torch.core.fabric import DaggerFabric, tree_map
+    from repro_torch.core.load_balancer import LB_OBJECT
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.kvs import DeviceKVS
+
+    cfg0 = FabricConfig(**KVS_FABRIC)
+    fab0 = DaggerFabric(cfg0)
+    pw = fab0.slot_words - serdes.HEADER_WORDS
+    c0 = fab0.open_connection(fab0.init_state(dev), 1, 0, 1, LB_OBJECT)
+    s0 = fab0.open_connection(fab0.init_state(dev), 1, 0, 0, LB_OBJECT)
+    # load every tenant's store with its 2^20 keys in bulk SETs of 2^17
+    # (kernel route), then read every key back.  The store is lossy: a
+    # key is lost to a later key of its full bucket (an eviction) or of
+    # its own SET batch (new keys of one bucket take its first empty way,
+    # the last row wins).  Every key the store holds must hit with its
+    # value, so hits = occupied ways
+    kvs = DeviceKVS(**KVS_TENANT_STORE, use_pallas=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+    keys = torch.arange(KVS_TENANT_KEYS, dtype=torch.int64, device=dev)
+    kw = kvs_key_words(torch, keys)
+    t0 = time.perf_counter()
+    stores, held = [], []
+    for t in range(KVS_TENANTS):
+        vals = torch.randint(0, 2**31 - 1, (KVS_TENANT_KEYS,
+                                            KVS_STORE["value_words"]),
+                             generator=gen, dtype=torch.int32, device=dev)
+        db = kvs.init_state(dev)
+        for i in range(0, KVS_TENANT_KEYS, KVS_TENANT_CHUNK):
+            db = kvs.set(db, kw[i:i + KVS_TENANT_CHUNK],
+                         vals[i:i + KVS_TENANT_CHUNK])
+        db, got, hit = kvs.get(db, kw)
+        n_hit, occupied = int(hit.sum()), int((db.tags != 0).sum())
+        check(n_hit == occupied and torch.equal(got[hit], vals[hit]),
+              f"kvs tenant {t}: {n_hit} of {KVS_TENANT_KEYS} loaded keys "
+              f"hit, {occupied} ways occupied, or a hit's value differs")
+        held.append(n_hit)
+        stores.append(db)
+        del vals, got, hit
+    store = stack_states(stores)
+    del stores
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    store_mib = sum(x.numel() * 4 for x in (store.tags, store.keys,
+                                            store.vals)) / 2**20
+    start = (stack_states([c0] * KVS_TENANTS),
+             stack_states([s0] * KVS_TENANTS), store)
+    mixes = kvs_tenant_requests(torch, dev, pw)
+    say(f"kvs tenants: {KVS_TENANTS} x {KVS_TENANT_STORE['n_buckets']} "
+        f"buckets, {store_mib:.0f} MiB of stores, {KVS_TENANT_KEYS} keys a "
+        f"tenant loaded and read back in {load_s:.2f} s, held {held}")
+    runs = {}
+    for route in ("kernels", "plain"):
+        use = route == "kernels"
+        fab = DaggerFabric(cfg0.replace(use_pallas=use))
+        eng = DeviceKVS(**KVS_TENANT_STORE, use_pallas=use) \
+            .make_tenant_engine(fab, fab)
+        state = fresh(torch, start)
+        tel = tlm.create_batch(KVS_TENANTS, device=dev)
+        ops.reset_launch_counts()
+        counts, loop, secs, mix = [], 0, 0.0, {}
+        for name, _, rounds in KVS_TENANT_ROUNDS:
+            state, c, tel, n_loop, dt = kvs_tenant_serve(
+                torch, dev, fab, eng, state, mixes[name], tel)
+            counts += c
+            loop += n_loop
+            secs += dt
+            done = sum(sum(d) for d, _ in c)
+            mix[name] = dict(done=done, loop_steps=n_loop, secs=dt)
+            say(f"kvs tenants {route} {name}: {done} ops in {n_loop} steps "
+                f"({rounds} rounds), {dt:.3f} s, {done / dt:.1f} ops/s, "
+                f"{n_loop / dt:.1f} steps/s")
+        db = state[2]
+        runs[route] = dict(state=state, counts=counts, tel=tel, loop=loop,
+                           secs=secs, mix=mix, eng=eng, fab=fab,
+                           launches=ops.launch_counts(),
+                           tally=ops.launch_shapes())
+        q = tlm.quantiles(tel.hist)
+        hit_share = int(db.n_hit.sum()) / max(1, int(db.n_get.sum()))
+        runs[route].update(p50=q[0.5], p99=q[0.99], hit_share=hit_share)
+        say(f"kvs tenants {route}: p50 {q[0.5]} / p99 {q[0.99]} steps, "
+            f"GET hits {hit_share:.4f}, evictions {db.n_evict.tolist()}; "
+            f"launches {runs[route]['launches']}")
+    k, p = runs["kernels"], runs["plain"]
+    check(k["counts"] == p["counts"],
+          "kvs tenants: per-round done/steps differ between routes")
+    tree_equal(torch, (k["state"], k["tel"]), (p["state"], p["tel"]),
+               "kvs_tenants.end_state")
+    n_rounds = sum(r for _, _, r in KVS_TENANT_ROUNDS)
+    offered = n_rounds * KVS_BATCH * KVS_TENANTS
+    done = sum(sum(d) for d, _ in k["counts"])
+    check(done >= 0.99 * offered and int(k["tel"].n_done.sum()) == done,
+          f"kvs tenants: {done} of {offered} ops completed")
+    # every key a round names was loaded, and this data's loads and
+    # rounds evict none: every GET hits
+    db = k["state"][2]
+    check(torch.equal(db.n_hit, db.n_get) and not bool(db.n_evict.any())
+          and held == [KVS_TENANT_KEYS] * KVS_TENANTS,
+          f"kvs tenants: GET hits {db.n_hit.tolist()} of "
+          f"{db.n_get.tolist()}, evictions {db.n_evict.tolist()}, "
+          f"{held} keys held after the load")
+    # one tenant's launches a step: what phase 5's single-tenant engine
+    # launches (the client enqueue once a round, outside the steps)
+    for name, counts, steps, rounds in (
+            ("phase 9", k["launches"], k["loop"], n_rounds),
+            ("phase 5", kvs_serve_counts, kvs_serve_steps,
+             KVS_BATCHES * len(KVS_MIXES))):
+        want = dict(switch_step_fused=2 * steps, hash_bucket_tag=2 * steps,
+                    kv_probe=steps, ring_push_packed=steps + rounds)
+        check(all(counts.get(x, 0) == want.get(x, 0) for x in KERNELS),
+              f"kvs tenants: {name} launches {counts}, expected {want} for "
+              f"{steps} steps and {rounds} rounds")
+    check(all(dict(kw_).get("include_fetch") is False
+              for (name, (_, kw_)), _ in k["tally"].items()
+              if name == "switch_step_fused"),
+          "kvs tenant switch steps not on the ext route")
+    check(not any(p["launches"].values()),
+          f"kvs tenants plain route launched kernels: {p['launches']}")
+    # lane 0 against a single-tenant make_engine run on its requests
+    fab = k["fab"]
+    eng1 = kvs.make_engine(fab, fab)
+    state1 = tree_map(lambda x: x.clone(), lane_view(start, 0))
+    tel1 = tlm.create(device=dev)
+    counts1 = []
+    for name, _, _ in KVS_TENANT_ROUNDS:
+        state1, c, tel1, _, _ = kvs_tenant_serve(
+            torch, dev, fab, eng1, state1, mixes[name], tel1, lane=0)
+        counts1 += c
+    check(counts1 == [(d[0], s_[0]) for d, s_ in k["counts"]],
+          "kvs tenants: lane 0's done/steps differ from its own engine's")
+    tree_equal(torch, (state1, tel1),
+               (lane_view(k["state"], 0), lane_view(k["tel"], 0)),
+               "kvs_tenants.lane0")
+    say(f"kvs tenants: routes equal (stores, counters, telemetry, fabric "
+        f"states), lane 0 equals its own engine; {done} ops, "
+        f"{k['loop']} steps")
+    # device time a step over 2 more read-mix rounds from each end state
+    read = KVS_TENANT_ROUNDS[-1][0]
+    pay, is_set = mixes[read]
+    for route, r in runs.items():
+        box = {}
+        state, tel = fresh(torch, (r["state"], r["tel"]))
+
+        def window(r=r, state=state, tel=tel, box=box):
+            box["res"] = kvs_tenant_serve(torch, dev, r["fab"], r["eng"],
+                                          state, (pay[:NEW_PROFILE_STEPS],
+                                                  is_set[:NEW_PROFILE_STEPS]),
+                                          tel)
+        r["share"] = profile_steps(
+            torch, window, lambda box=box: box["res"][3],
+            r["mix"][read]["secs"] / r["mix"][read]["loop_steps"] * 1e6)
+        say_profile(f"kvs tenants {route}", r["share"])
+    # phase 4's inputs at this path's shapes: one more round
+    with recording(seen):
+        kvs_tenant_serve(torch, dev, fab, k["eng"], fresh(torch, k["state"]),
+                         (pay[:1], is_set[:1]), fresh(torch, k["tel"]))
+    torch.cuda.synchronize()
+    report = {route: {"secs": r["secs"], "loop_steps": r["loop"],
+                      "steps_per_s": r["loop"] / r["secs"],
+                      "ops_per_s": done / r["secs"], "p50": r["p50"],
+                      "p99": r["p99"], "hit_share": r["hit_share"],
+                      "mixes": r["mix"], "launches": r["launches"],
+                      **r["share"]}
+              for route, r in runs.items()}
+    report.update(store_mib=store_mib, load_s=load_s, held=held)
+    del start, runs["plain"]
+    return report, k["launches"], k["tally"], k["loop"]
+
+
+def phase_lm_tenants(torch, dev, seen, lm_counts):
+    """Decode tenants: ``make_tenant_run_steps`` with phase 6's pool for 4
+    tenants (one pool of 128 slots a step), kernel route against plain
+    route from one start state, lane 0 against a single-tenant run at
+    its rate and seed; then ``sweep_rates`` on the kernel route."""
+    import dataclasses
+    from repro_torch.apps.lm_decode import sweep_rates
+    from repro_torch.core import serdes
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.fabric import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.decode import DecodeSlots
+
+    engines = lm_engines(torch, dev)
+    k_eng = engines["kernels"]
+    cfg = k_eng.cfg
+    seeds = list(range(LM_TENANTS))
+    start = k_eng.init_states_batch([LM_RATE] * LM_TENANTS, seeds=seeds)
+    tok_word = serdes.HEADER_WORDS + 1
+    runs = {}
+    for route, eng in engines.items():
+        st = tree_map(torch.clone, start)
+        run = eng.make_tenant_run_steps(LM_TENANT_STEPS)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, (comp, valid) = run(st)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        recs = serdes.unpack(comp)
+        frag = valid & ((recs["flags"] & serdes.FLAG_FRAGMENT) != 0)
+        sl = st.slots
+        qt, qi = tlm.quantiles(st.ttft.hist), tlm.quantiles(st.itl.hist)
+        r = dict(st=st, comp=comp, valid=valid, frag=frag, secs=secs,
+                 counts=ops.launch_counts(), tally=ops.launch_shapes(),
+                 tokens=int(frag.sum()), completed=sl.completed.tolist(),
+                 admitted=sl.admitted.tolist(), rejected=sl.rejected.tolist(),
+                 active=(sl.req_id >= 0).sum(1).tolist(), ttft_p50=qt[0.5],
+                 ttft_p99=qt[0.99], itl_p50=qi[0.5], itl_p99=qi[0.99])
+        runs[route] = r
+        say(f"lm tenants {route}: {LM_TENANTS} x {LM_POOL['n_slots']} slots, "
+            f"{LM_TENANT_STEPS} steps in {secs:.3f} s, "
+            f"{LM_TENANT_STEPS / secs:.2f} steps/s, {r['tokens']} tokens, "
+            f"{r['tokens'] / secs:.1f} tokens/s; admitted {r['admitted']} "
+            f"completed {r['completed']} rejected {r['rejected']}; TTFT p50 "
+            f"{qt[0.5]} / p99 {qt[0.99]}, ITL p50 {qi[0.5]} / p99 "
+            f"{qi[0.99]} steps; launches {r['counts']}")
+    k, p = runs["kernels"], runs["plain"]
+
+    def int_parts_equal(a, b, what):
+        """Everything the tokens do not steer: slots but ``tok``,
+        telemetry, generator, valid masks and the non-token words of the
+        completion tiles."""
+        for fld in dataclasses.fields(DecodeSlots):
+            if fld.name != "tok":
+                tree_equal(torch, getattr(a["st"].slots, fld.name),
+                           getattr(b["st"].slots, fld.name),
+                           f"{what}.slots.{fld.name}")
+        for name in ("ttft", "itl", "gst"):
+            tree_equal(torch, getattr(a["st"], name),
+                       getattr(b["st"], name), f"{what}.{name}")
+        check(torch.equal(a["valid"], b["valid"]),
+              f"{what}: completion valid masks differ")
+        words = [w for w in range(a["comp"].shape[-1]) if w != tok_word]
+        check(torch.equal(a["comp"][a["valid"]][:, words],
+                          b["comp"][b["valid"]][:, words]),
+              f"{what}: a non-token word of the completion tiles differs")
+        ta = a["comp"][a["frag"]][:, tok_word]
+        tb = b["comp"][b["frag"]][:, tok_word]
+        return float((ta == tb).float().mean()) if ta.numel() else 1.0
+    share = int_parts_equal(k, p, "lm_tenants")
+    for t in range(LM_TENANTS):
+        check(k["admitted"][t] == k["completed"][t] + k["active"][t]
+              + k["rejected"][t], f"lm tenants: lane {t} ledger unbalanced")
+    g = k["st"].gst
+    check(torch.equal(g.offered, g.injected + g.dropped),
+          "lm tenants: generator ledger unbalanced")
+    check(bool((k["st"].ttft.n_done > 0).all()) and sum(k["completed"]) > 0,
+          f"lm tenants: a lane streamed no first token, or nothing "
+          f"completed: TTFT counts {k['st'].ttft.n_done.tolist()}, "
+          f"completed {k['completed']}")
+    # a step launches what phase 6's single-tenant step launches
+    kc = k["counts"]
+    check(kc["decode_attention"] == cfg.n_layers * LM_TENANT_STEPS
+          and all(kc.get(x, 0) * LM_STEPS == lm_counts.get(x, 0)
+                  * LM_TENANT_STEPS for x in KERNELS),
+          f"lm tenants: launches {kc} for {LM_TENANT_STEPS} steps, phase 6 "
+          f"{lm_counts} for {LM_STEPS}")
+    check(not any(p["counts"].values()),
+          f"lm tenants plain route launched kernels: {p['counts']}")
+    # lane 0 against a single-tenant run at its rate and seed
+    one = k_eng.init_states(LM_RATE, seed=seeds[0])
+    one, (oc, ov) = k_eng.make_run_steps(LM_TENANT_STEPS)(one)
+    lane0 = dict(st=tree_map(lambda x: x[0], k["st"]), comp=k["comp"][:, 0],
+                 valid=k["valid"][:, 0], frag=k["frag"][:, 0])
+    rec1 = serdes.unpack(oc)
+    single = dict(st=one, comp=oc, valid=ov,
+                  frag=ov & ((rec1["flags"] & serdes.FLAG_FRAGMENT) != 0))
+    lane_share = int_parts_equal(lane0, single, "lm_tenants.lane0")
+    say(f"lm tenants: routes equal (slots, telemetry, generators, "
+        f"completion headers), ledgers balance, equal tokens {share:.4f}; "
+        f"lane 0 equals its single-tenant run, equal tokens "
+        f"{lane_share:.4f}")
+    del one, single, lane0
+    for route, r in runs.items():
+        run = engines[route].make_tenant_run_steps(NEW_PROFILE_STEPS)
+        st = fresh(torch, r["st"])
+        r["share"] = profile_steps(torch, lambda: run(st), NEW_PROFILE_STEPS,
+                                   r["secs"] / LM_TENANT_STEPS * 1e6)
+        say_profile(f"lm tenants {route}", r["share"])
+        del st
+    # phase 4's inputs at this path's shapes: one more step
+    with recording(seen):
+        k_eng.make_tenant_run_steps(1)(fresh(torch, k["st"]))
+    torch.cuda.synchronize()
+    # the latency-vs-offered-load sweep on the kernel route
+    t0 = time.perf_counter()
+    sweep = sweep_rates(k_eng, LM_SWEEP_RATES, n_tenants=LM_TENANTS,
+                        n_steps=LM_SWEEP_STEPS)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    for rate, row in sweep.items():
+        say(f"lm sweep {rate} requests/step x {LM_TENANTS} tenants, "
+            f"{LM_SWEEP_STEPS} steps: TTFT p99 {row['ttft_p99_steps']} / "
+            f"ITL p99 {row['itl_p99_steps']} steps, completed "
+            f"{row['completed']}, rejected {row['rejected']}")
+    report = {route: {key: r[key] for key in (
+        "secs", "tokens", "completed", "rejected", "admitted", "active",
+        "ttft_p50", "ttft_p99", "itl_p50", "itl_p99", "counts", "share")}
+        for route, r in runs.items()}
+    report.update(same_token_share=share, lane0_token_share=lane_share,
+                  sweep={str(r): v for r, v in sweep.items()},
+                  sweep_s=sweep_s)
+    return report, k["counts"], k["tally"]
+
+
+def serve_tiles(torch, dev, fab, n_tenants, first_id, prompts=None):
+    """``SERVE_TILES`` staged ingress tiles [K, T, 8, W] (``n_tenants``
+    None: [K, 8, W]), 8 = F*B requests a tile: tile k carries sessions
+    ``8 (k % 4) .. + 8`` of the 32, a tenant's ids from ``first_id +
+    1000 t``, each stamped with k.  Without ``prompts`` every request
+    asks "sample for me" (token -1) of a prefilled session; with them
+    the first 4 tiles open the sessions (NEW, the prompt's first token)
+    and the rest sample."""
+    from repro_torch.core import serdes
+    from repro_torch.runtime.serving import FLAG_NEW
+    t = n_tenants or 1
+    n = fab.cfg.n_flows * fab.cfg.batch_size
+    groups = LM_POOL["n_slots"] // n
+    pw = fab.slot_words - serdes.HEADER_WORDS
+    i32 = dict(dtype=torch.int32, device=dev)
+    k = torch.arange(SERVE_TILES, **i32)[:, None, None]
+    sess = (k % groups) * n + torch.arange(n, **i32)             # [K, 1, n]
+    sid = sess + first_id + 1000 * torch.arange(t, **i32)[:, None]
+    pay = torch.zeros((SERVE_TILES, t, n, pw), **i32)
+    pay[..., 0] = sid
+    pay[..., 1] = -1
+    if prompts is not None:
+        opening = k < groups
+        pay[..., 1] = torch.where(opening, prompts[sess.expand_as(sid), 0],
+                                  -1)
+        pay[..., 2] = torch.where(opening, FLAG_NEW, 0)
+    z = torch.zeros(sid.shape, **i32)
+    rpc = (k * n + torch.arange(n, **i32)).expand_as(sid)
+    slots = serdes.pack(serdes.make_records(
+        z, rpc, z, z, pay, timestamp=k.expand_as(sid)), fab.slot_words)
+    valid = torch.ones(sid.shape, dtype=torch.bool, device=dev)
+    if n_tenants is None:
+        return slots[:, 0], valid[:, 0]
+    return slots, valid
+
+
+def phase_serving(torch, dev, seen):
+    """Serving at Qwen2-1.5B: ``prefill_sessions`` of 32 prompts of 256
+    tokens, ``make_run_steps`` with telemetry over 32 staged tiles, then
+    ``make_tenant_run_steps`` for 4 tenants over 32 tiles of new
+    sessions, kernel route against plain route; and the first decode
+    step after the prefill against the same prompts fed one decode step
+    at a time."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import serdes
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.fabric import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serving import ServingEngine
+
+    n_slots, max_seq = LM_POOL["n_slots"], LM_POOL["max_seq"]
+    engines = {}
+    for route in ("kernels", "plain"):
+        use = route == "kernels"
+        # launch/serve.py's fabric: 2 flows, ring 64, B 4
+        fcfg = FabricConfig(n_flows=2, ring_entries=64, batch_size=4,
+                            dynamic_batching=False, use_pallas=use)
+        cfg = get_lm_config().replace(use_pallas=use)
+        engines[route] = ServingEngine(cfg, fcfg, n_slots=n_slots,
+                                       max_seq=max_seq, seed=0, device=dev)
+    engines["plain"].model.load_state_dict(
+        engines["kernels"].model.state_dict())
+    k_eng = engines["kernels"]
+    model = k_eng.model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    prompts = torch.randint(0, k_eng.cfg.vocab, (n_slots, SERVE_PROMPT),
+                            generator=gen, dtype=torch.int32, device=dev)
+    fst, cache, sess = k_eng.init_states()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, sess, nxt = k_eng.prefill_sessions(
+        cache, sess, prompts, torch.arange(n_slots, dtype=torch.int32,
+                                           device=dev) + 1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(sess.pos.tolist() == [SERVE_PROMPT] * n_slots,
+          "serving: prefill left a session at another position")
+    # the first decode step after the prefill, against the prompts fed
+    # one decode step at a time (both on the kernel route)
+    pos = torch.full((n_slots,), SERVE_PROMPT, dtype=torch.int32, device=dev)
+    after, _ = model.decode_step(tree_map(torch.clone, cache), nxt[:, None],
+                                 pos)
+    step_cache = model.cache_init(n_slots, max_seq)
+    t0 = time.perf_counter()
+    for j in range(SERVE_PROMPT):
+        _, step_cache = model.decode_step(
+            step_cache, prompts[:, j:j + 1],
+            torch.full((n_slots,), j, dtype=torch.int32, device=dev))
+    fed, _ = model.decode_step(step_cache, nxt[:, None], pos)
+    torch.cuda.synchronize()
+    fed_s = time.perf_counter() - t0
+    del step_cache
+    logit_err = float((after - fed).abs().max())
+    logit_scale = float(fed.abs().max())
+    check(bool(torch.isfinite(after).all())
+          and after.shape == (n_slots, k_eng.cfg.vocab)
+          and logit_err <= LOGIT_TOL * logit_scale,
+          f"serving: logits after prefill differ by {logit_err} from the "
+          f"token-by-token decode (largest |logit| {logit_scale})")
+    argmax_share = float((after.argmax(-1) == fed.argmax(-1)).float().mean())
+    say(f"serving: prefill of {n_slots} x {SERVE_PROMPT} tokens in "
+        f"{prefill_s:.3f} s ({n_slots * SERVE_PROMPT / prefill_s:.0f} "
+        f"tokens/s), {SERVE_PROMPT} decode steps in {fed_s:.3f} s; next "
+        f"step's logits max |diff| {logit_err:.4g} of max |logit| "
+        f"{logit_scale:.4g}, argmax equal on {argmax_share:.3f} of slots")
+    tok_word = serdes.HEADER_WORDS + 1
+    start1 = (fst, cache, sess)
+    start_t = k_eng.init_states_batch(LM_TENANTS)
+    tiles1 = serve_tiles(torch, dev, k_eng.fabric, None, 1)
+    tiles_t = serve_tiles(torch, dev, k_eng.fabric, LM_TENANTS, 5001,
+                          prompts)
+    runs = {}
+    for route, eng in engines.items():
+        r = {}
+        for kind, start, tiles, runner, tel in (
+                ("single", start1, tiles1, eng.make_run_steps(),
+                 tlm.create(LM_BINS, device=dev)),
+                ("tenants", start_t, tiles_t, eng.make_tenant_run_steps(),
+                 tlm.create_batch(LM_TENANTS, LM_BINS, device=dev))):
+            states = tree_map(torch.clone, start)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = runner(*states, *tiles, tel=tel)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            q = tlm.quantiles(out[6].hist)
+            r[kind] = dict(out=out, secs=secs, counts=ops.launch_counts(),
+                           tally=ops.launch_shapes(), p50=q[0.5],
+                           p99=q[0.99], runner=runner, tiles=tiles)
+            say(f"serving {kind} {route}: {SERVE_TILES} tiles in {secs:.3f} "
+                f"s, {SERVE_TILES / secs:.2f} steps/s, served "
+                f"{out[3].tolist()}, residency p50 {q[0.5]} / p99 {q[0.99]} "
+                f"steps; launches {r[kind]['counts']}")
+        runs[route] = r
+    shares = {}
+    for kind in ("single", "tenants"):
+        a, b = runs["kernels"][kind]["out"], runs["plain"][kind]["out"]
+        # sessions but their last token, served counts, telemetry, the
+        # egress valid masks and every non-token word of the egress tiles
+        tree_equal(torch, (a[2].session_id, a[2].pos, a[3], a[6], a[5]),
+                   (b[2].session_id, b[2].pos, b[3], b[6], b[5]),
+                   f"serving.{kind}")
+        words = [w for w in range(a[4].shape[-1]) if w != tok_word]
+        check(torch.equal(a[4][..., words], b[4][..., words]),
+              f"serving {kind}: a non-token word of the egress differs")
+        ta, tb = a[4][a[5]][:, tok_word], b[4][b[5]][:, tok_word]
+        shares[kind] = float((ta == tb).float().mean())
+        check(int(a[3].sum()) > 0, f"serving {kind}: nothing served")
+    ks = runs["kernels"]
+    c1, ct = ks["single"]["counts"], ks["tenants"]["counts"]
+    check(c1["decode_attention"] == k_eng.cfg.n_layers * SERVE_TILES
+          and c1["switch_step_fused"] == SERVE_TILES
+          and c1["ring_push_packed"] == SERVE_TILES
+          and all(ct.get(x, 0) == c1.get(x, 0) for x in KERNELS),
+          f"serving: launches {c1} (single), {ct} (tenants) for "
+          f"{SERVE_TILES} steps")
+    for route in ("plain",):
+        for kind in ("single", "tenants"):
+            check(not any(runs[route][kind]["counts"].values()),
+                  f"serving {kind} plain route launched kernels")
+    say(f"serving: routes equal (sessions, served, telemetry, egress "
+        f"headers); equal tokens {shares['single']:.4f} (single), "
+        f"{shares['tenants']:.4f} (tenants)")
+    for route, r in runs.items():
+        for kind, v in r.items():
+            states = fresh(torch, v["out"][:3])
+            tiles = tuple(x[:NEW_PROFILE_STEPS] for x in v["tiles"])
+            v["share"] = profile_steps(
+                torch, lambda v=v, states=states, tiles=tiles: v["runner"](
+                    *states, *tiles), NEW_PROFILE_STEPS,
+                v["secs"] / SERVE_TILES * 1e6)
+            say_profile(f"serving {kind} {route}", v["share"])
+            del states
+    # phase 4's inputs at these paths' shapes: one more step each
+    with recording(seen):
+        for kind in ("single", "tenants"):
+            r = ks[kind]
+            r["runner"](*fresh(torch, r["out"][:3]),
+                        *(x[:1] for x in r["tiles"]))
+    torch.cuda.synchronize()
+    counts = {x: c1.get(x, 0) + ct.get(x, 0) for x in KERNELS}
+    tally = dict(ks["single"]["tally"])
+    for key, v in ks["tenants"]["tally"].items():
+        tally[key] = tally.get(key, 0) + v
+    report = {route: {kind: {"secs": v["secs"],
+                             "served": v["out"][3].tolist(),
+                             "p50": v["p50"], "p99": v["p99"],
+                             "launches": v["counts"], **v["share"]}
+                      for kind, v in r.items()}
+              for route, r in runs.items()}
+    report.update(prefill_s=prefill_s, logit_err=logit_err,
+                  logit_scale=logit_scale, argmax_share=argmax_share,
+                  token_share=shares)
+    return report, counts, tally, 2 * SERVE_TILES
+
+
 def card_label():
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
@@ -2129,6 +2807,9 @@ def phase_summary(torch, paths, seen):
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "bytes",
                                     "call_ms", "plain_call_ms", "shape")},
+            "shapes": [{"shape": brief(r["shape"]), "launches": r[count],
+                        "ms": r["ms"], "bound_ms": r["bound_ms"],
+                        "plain_ms": r["plain_ms"]} for r in shapes],
             count + "_per_step": {
                 path: sum(c for (k, _), c in t.items() if k == host) / st
                 for path, (_, t, st) in paths.items() if st},
@@ -2154,6 +2835,7 @@ def main():
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     torch.manual_seed(0)
     report = {"device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -2214,9 +2896,26 @@ def main():
         torch, dev, seen, card)
     say(f"phase 8: flight routes equal ({time.perf_counter() - t0:.1f} s)")
 
-    t0 = time.perf_counter()
     kvs_steps = sum(m["steps"] for m in kvs["kernels"]["serve"].values())
     kk = kvs["kernels"]
+    t0 = time.perf_counter()
+    report["kvs_tenants"], kt_counts, kt_tally, kt_steps = \
+        phase_kvs_tenants(torch, dev, seen, kk["serve_counts"], kvs_steps)
+    say(f"phase 9: KVS tenant routes equal ({time.perf_counter() - t0:.1f} "
+        f"s)")
+
+    t0 = time.perf_counter()
+    report["lm_tenants"], lt_counts, lt_tally = phase_lm_tenants(
+        torch, dev, seen, lm_counts)
+    say(f"phase 10: decode tenant routes equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    report["serving"], sv_counts, sv_tally, sv_steps = phase_serving(
+        torch, dev, seen)
+    say(f"phase 11: serving routes equal ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
     paths = {"fused": (runs["fused"]["counts"], runs["fused"]["tally"],
                        FULL_STEPS),
              "staged": (runs["staged"]["counts"], runs["staged"]["tally"],
@@ -2225,18 +2924,23 @@ def main():
              "kvs_serve": (kk["serve_counts"], kk["serve_tally"], kvs_steps),
              "lm_decode": (lm_counts, lm_tally, LM_STEPS),
              "tenant": (tn_counts, tn_tally, tn_steps),
-             "flight": (fl_counts, fl_tally, fl_steps)}
+             "flight": (fl_counts, fl_tally, fl_steps),
+             "kvs_tenants": (kt_counts, kt_tally, kt_steps),
+             "lm_tenants": (lt_counts, lt_tally, LM_TENANT_STEPS),
+             "serving": (sv_counts, sv_tally, sv_steps)}
     rows = phase_summary(torch, paths, seen)
     report["kernels"] = rows
     say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")
 
     report["nvidia_smi"] = card
+    report["total_s"] = time.perf_counter() - t_start
+    say(f"chip_smoke: all phases in {report['total_s']:.1f} s")
     (ROOT / "build" / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1))
     say("details " + json.dumps(report))
     keys = ("name", "route", "source", "replaces", "launches",
             "launched_inside", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "shapes")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

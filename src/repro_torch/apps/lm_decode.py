@@ -12,15 +12,17 @@ under open-loop load.  Two fabric shapes matter:
   drains at most one token per flow per step and offered load beyond
   that queues in the rings.
 
-``sweep_rates`` waits for the tenant-batched loop.
+``sweep_rates`` reads the TTFT/ITL tails against the offered rate on
+the tenant-batched loop.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 from repro_torch.config import FabricConfig
 from repro_torch.configs.repro_100m import REDUCED
 from repro_torch.core import loadgen as lg
+from repro_torch.core import telemetry as tlm
 from repro_torch.runtime.decode import DecodeEngine
 
 # tiny dense GQA: 2 layers, TP-divisible heads/ff/vocab for 2- and
@@ -54,3 +56,34 @@ def build_engine(cfg=None, fabric_cfg: Optional[FabricConfig] = None,
     return DecodeEngine(cfg, fabric_cfg=fabric_cfg, n_slots=n_slots,
                         max_prompt=max_prompt, max_new_cap=max_new_cap,
                         mode=mode, seed=seed, **kw)
+
+
+def sweep_rates(engine: DecodeEngine, rates: Sequence[float],
+                n_tenants: int = 4, n_steps: int = 192,
+                mesh=None) -> Dict[float, dict]:
+    """Latency-vs-offered-load sweep: for each rate, run ``n_tenants``
+    tenants at that rate for ``n_steps`` steps of
+    ``make_tenant_run_steps`` (tenant t of point i seeded ``100 i + t``)
+    and read their TTFT/ITL histograms.  Returns ``{rate:
+    {ttft_p99_steps, itl_p99_steps, ttft_done, itl_done, completed,
+    rejected}}``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sweep_rates on a device mesh waits for the multi-GPU port "
+            "(ROADMAP queue 1, item 4)")
+    run = engine.make_tenant_run_steps(n_steps)
+    out = {}
+    for i, rate in enumerate(rates):
+        st = engine.init_states_batch(
+            [rate] * n_tenants,
+            seeds=[100 * i + t for t in range(n_tenants)])
+        st, _ = run(st)
+        out[rate] = {
+            "ttft_p99_steps": tlm.quantiles(st.ttft.hist, (0.99,))[0.99],
+            "itl_p99_steps": tlm.quantiles(st.itl.hist, (0.99,))[0.99],
+            "ttft_done": int(st.ttft.n_done.sum()),
+            "itl_done": int(st.itl.n_done.sum()),
+            "completed": int(st.slots.completed.sum()),
+            "rejected": int(st.slots.rejected.sum()),
+        }
+    return out

@@ -25,9 +25,12 @@ tenant axis (``stack_states``), the reference's ``jax.vmap`` of the
 loopback step written out by hand: the per-flow ring work runs on the
 T stacks of rings folded into one ring of T*F queues
 (``DaggerFabric.*_batch``), each receive side of a ``use_pallas`` pair
-is ONE ``switch_step_fused`` launch for all T tenants (their wire tiles
-concatenated as the ``ext`` candidate list with dest = tenant), and the
-user's handler runs under ``torch.func.vmap``.  Its fused route updates
+is ONE ``switch_step_fused`` launch for all T tenants (``tenant_receive``:
+their wire tiles concatenated as the ``ext`` candidate list with dest =
+tenant), and the user's handler runs under ``torch.func.vmap`` — or,
+with ``batched=True``, is written over the tenant axis itself, as the
+KVS tenant's is (vmap refuses its dataclass state, in-place scatters
+and kernel calls).  Its fused route updates
 the stacked states in place on the card, as ``LoopbackEngine``'s does.
 """
 from __future__ import annotations
@@ -240,46 +243,56 @@ def vmap_handler(handler):
     return call
 
 
+def tenant_receive(fab: DaggerFabric, st: FabricState, slots, valid):
+    """The receive side of T stacked NICs (``nic_pipeline`` of every
+    tenant): ``slots`` [T, n, W] and ``valid`` [T, n] are each tenant's
+    wire-ingress tile.  On a ``use_pallas`` fabric it is ONE ext-route
+    ``switch_step_fused`` launch for all T (the tiles concatenated as the
+    candidate list, dest = tenant; in place on the card, see
+    ``fabric.fused_switch_front``); without it every tenant runs the
+    plain ``nic_pipeline`` on its slice.  Returns (st', records [T, F*B,
+    ...], valid [T, F*B])."""
+    t, n, w = slots.shape
+    f, bmax = fab.cfg.n_flows, fab.cfg.batch_size
+    if fab.cfg.use_pallas:
+        dest = torch.arange(t, dtype=I32, device=slots.device) \
+            .repeat_interleave(n)
+        st, recs, rvalid, _ = fused_switch_front(
+            fab, st, None, ext=(slots.reshape(t * n, w),
+                                valid.reshape(-1).to(I32), dest))
+    else:
+        outs = [fab.nic_pipeline(lane_view(st, i), slots[i], valid[i],
+                                 use_pallas=False) for i in range(t)]
+        st = stack_states([o[0] for o in outs])
+        recs = {k: torch.stack([o[1][k] for o in outs]).flatten(1, 2)
+                for k in outs[0][1]}
+        rvalid = torch.stack([o[2] for o in outs]).reshape(t, f * bmax)
+    return st, recs, rvalid
+
+
 def make_tenant_step(client: DaggerFabric, server: DaggerFabric,
-                     handler: Callable):
+                     handler: Callable, batched: bool = False):
     """One step of T stacked client/server pairs: the reference's
     ``jax.vmap(make_loopback_step_stateful(client, server, handler))``.
 
     ``handler(records, valid, hstate) -> (response, hstate')`` is written
-    for one tenant and runs under ``vmap_handler``.  On a ``use_pallas``
-    fabric each receive side is ONE ``switch_step_fused`` launch over the
-    T tenants' tiers (``fused_switch_front`` with the concatenated wire
-    tiles as its ``ext`` list, dest = tenant; in place on the card);
-    without it every tenant runs the plain ``nic_pipeline`` on its slice.
-    Fetches, enqueues and drains run once for all tenants on the folded
-    rings.  Returns ``step(cst, sst, hstate) -> (cst', sst', hstate',
-    done records [T, F, B, ...], dvalid [T, F, B])``."""
-    vh = vmap_handler(handler)
-
-    def receive(fab: DaggerFabric, st: FabricState, slots, valid):
-        t, n, w = slots.shape
-        f, bmax = fab.cfg.n_flows, fab.cfg.batch_size
-        if fab.cfg.use_pallas:
-            dest = torch.arange(t, dtype=I32, device=slots.device) \
-                .repeat_interleave(n)
-            st, recs, rvalid, _ = fused_switch_front(
-                fab, st, None, ext=(slots.reshape(t * n, w),
-                                    valid.reshape(-1).to(I32), dest))
-        else:
-            outs = [fab.nic_pipeline(lane_view(st, i), slots[i], valid[i],
-                                     use_pallas=False) for i in range(t)]
-            st = stack_states([o[0] for o in outs])
-            recs = {k: torch.stack([o[1][k] for o in outs]).flatten(1, 2)
-                    for k in outs[0][1]}
-            rvalid = torch.stack([o[2] for o in outs]).reshape(t, f * bmax)
-        return st, recs, rvalid
+    for one tenant and runs under ``vmap_handler``; with ``batched=True``
+    it takes the tenant axis itself (records [T, N, ...], valid [T, N],
+    hstate with [T]-leading leaves) and is called as it is.  Each receive
+    side is ``tenant_receive``: ONE ``switch_step_fused`` launch over the
+    T tenants on a ``use_pallas`` fabric.  Fetches, enqueues and drains
+    run once for all tenants on the folded rings.  Returns ``step(cst,
+    sst, hstate) -> (cst', sst', hstate', done records [T, F, B, ...],
+    dvalid [T, F, B])``."""
+    vh = handler if batched else vmap_handler(handler)
 
     def step(cst: FabricState, sst: FabricState, hstate):
         # every client NIC fetches its host-written requests
         cst, slots, valid = client.nic_fetch_batch(cst)
         t, w = slots.shape[0], slots.shape[-1]
-        sst, reqs, rvalid = receive(server, sst, slots.reshape(t, -1, w),
-                                    valid.reshape(t, -1))
+        sst, reqs, rvalid = tenant_receive(server, sst,
+                                           slots.reshape(t, -1, w),
+                                           valid.reshape(t, -1))
         resp, hstate = vh(reqs, rvalid, hstate)
         resp = dict(resp)
         resp["flags"] = resp["flags"] | serdes.FLAG_RESPONSE
@@ -288,8 +301,9 @@ def make_tenant_step(client: DaggerFabric, server: DaggerFabric,
             .repeat_interleave(server.cfg.batch_size)
         sst, _ = server.host_tx_enqueue_batch(sst, resp, flow_of, rvalid)
         sst, rslots, rvalid2 = server.nic_fetch_batch(sst)
-        cst, done, dvalid = receive(client, cst, rslots.reshape(t, -1, w),
-                                    rvalid2.reshape(t, -1))
+        cst, done, dvalid = tenant_receive(client, cst,
+                                           rslots.reshape(t, -1, w),
+                                           rvalid2.reshape(t, -1))
         f, bmax = client.cfg.n_flows, client.cfg.batch_size
         done = {k: x.reshape((t, f, bmax) + tuple(x.shape[2:]))
                 for k, x in done.items()}
@@ -316,9 +330,10 @@ def _batched_run_until(step, cst, sst, carry, target, max_steps):
     keeps stepping (lanes never interact), a lane's slices of the states
     and the carry are cloned at the step it first becomes inactive, its
     counting stops, and the snapshots are written back into their lanes
-    at the end.  ``target`` and ``max_steps`` are per-lane host ints; the
-    done counters are read once a step.  Returns (cst, sst, carry, done
-    [T], steps [T])."""
+    at the end.  Lanes that go inactive on the step that ends the loop
+    need no snapshot: no step runs after it.  ``target`` and
+    ``max_steps`` are per-lane host ints; the done counters are read once
+    a step.  Returns (cst, sst, carry, done [T], steps [T])."""
     t = len(target)
     done, steps = [0] * t, [0] * t
     snaps = {}
@@ -327,9 +342,11 @@ def _batched_run_until(step, cst, sst, carry, target, max_steps):
         return done[i] < target[i] and steps[i] < max_steps[i]
 
     def freeze(state):
-        for i in range(t):
-            if i not in snaps and not active(i):
-                snaps[i] = tree_map(lambda x, i=i: x[i].clone(), state)
+        newly = [i for i in range(t) if i not in snaps and not active(i)]
+        last = len(snaps) + len(newly) == t
+        for i in newly:
+            snaps[i] = None if last else tree_map(
+                lambda x, i=i: x[i].clone(), state)
     freeze((cst, sst, carry))
     while len(snaps) < t:
         cst, sst, carry, _, dvalid = step(cst, sst, carry)
@@ -340,6 +357,8 @@ def _batched_run_until(step, cst, sst, carry, target, max_steps):
                 steps[i] += 1
         freeze((cst, sst, carry))
     for i, snap in snaps.items():
+        if snap is None:
+            continue
         for dst, src in zip(tree_leaves((cst, sst, carry)),
                             tree_leaves(snap)):
             dst[i].copy_(src)
@@ -355,8 +374,10 @@ class TenantEngine:
 
     Tenants share the hard configuration (the fabric pair) and carry
     independent soft state.  The handler is written for one tenant and
-    must be batchable by ``torch.func.vmap``; with ``stateful=True`` its
-    ``hstate`` has a [T]-leading axis on every leaf.  ``run_steps`` /
+    must be batchable by ``torch.func.vmap``, or, with ``batched=True``,
+    takes the tenant axis itself (``make_tenant_step``); with
+    ``stateful=True`` its ``hstate`` has a [T]-leading axis on every
+    leaf.  ``run_steps`` /
     ``run_until`` over T stacked pairs give exactly the states T
     independent ``LoopbackEngine`` runs would.
 
@@ -370,7 +391,8 @@ class TenantEngine:
     """
 
     def __init__(self, client: DaggerFabric, server: DaggerFabric,
-                 handler: Callable, stateful: bool = False, loadgen=None):
+                 handler: Callable, stateful: bool = False, loadgen=None,
+                 batched: bool = False):
         self.client = client
         self.server = server
         self.stateful = stateful
@@ -379,7 +401,7 @@ class TenantEngine:
         else:
             def h(recs, valid, hstate):
                 return handler(recs, valid), hstate
-        self._step = make_tenant_step(client, server, h)
+        self._step = make_tenant_step(client, server, h, batched=batched)
         self.loadgen = loadgen
 
     _wrapped = LoopbackEngine._wrapped

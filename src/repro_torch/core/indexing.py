@@ -58,10 +58,11 @@ def set_drop_last(dsts, idx, vals, keep):
     a row is kept if it is its target's maximum.  Returns a tuple.
     """
     lin, nl = _linear(dsts[0].shape, idx, keep)
+    lin = lin.reshape(-1)               # rows in row-major order
     rows = torch.arange(lin.numel(), dtype=torch.int64, device=lin.device)
     last = torch.full((nl + 1,), -1, dtype=torch.int64, device=lin.device)
     last.scatter_reduce_(0, lin, rows, reduce="amax")
-    won = (lin < nl) & (last[lin] == rows)
+    won = ((lin < nl) & (last[lin] == rows)).reshape(keep.shape)
     return tuple(set_drop(d, idx, v, won) for d, v in zip(dsts, vals))
 
 
@@ -88,6 +89,17 @@ def get_fill(src, idx, fill: int = 0):
     rows = src[torch.where(ok, idx, 0)]
     mask = ok.reshape(ok.shape + (1,) * (src.dim() - 1))
     return torch.where(mask, rows, torch.full_like(rows, fill))
+
+
+def get_fill_rows(src, idx, fill: int = 0):
+    """``get_fill`` along dim 1, row by row: ``src`` [T, N], ``idx``
+    [T, M] -> [T, M], where row t reads ``src[t]`` (the reference's
+    ``vmap`` of a filled gather)."""
+    n = src.shape[1]
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    rows = torch.gather(src, 1, torch.where(ok, idx, 0).to(torch.int64))
+    return torch.where(ok, rows, torch.full_like(rows, fill))
 
 
 def clip_index(idx, n: int):

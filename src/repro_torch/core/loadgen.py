@@ -156,7 +156,8 @@ class LoadGen:
         self.fn_id = int(fn_id)
         self.pw = fab.slot_words - serdes.HEADER_WORDS
         # payload_fn(gst, lane, rpc_id) -> [tile, pw] int32 overrides the
-        # default synthetic payload (a pure function of counter state)
+        # default synthetic payload (a pure function of counter state);
+        # on a stacked state rpc_id is [T, tile] and it gives [T, tile, pw]
         self.payload_fn = payload_fn
         self.p_on_q16 = int(round(p_on * (1 << 16)))
         self.p_off_q16 = int(round(p_off * (1 << 16)))
@@ -282,11 +283,15 @@ class LoadGen:
         if self.payload_fn is None:
             return (lane[:, None] + 1).expand(self.tile, self.pw) \
                 + rpc_id[..., None]
-        if gst.step.dim():
-            raise ValueError("payload_fn takes one lane's state; a stacked "
-                             "generator state has the default payload only")
-        return torch.as_tensor(self.payload_fn(gst, lane, rpc_id),
-                               dtype=I32, device=lane.device)
+        pay = torch.as_tensor(self.payload_fn(gst, lane, rpc_id),
+                              dtype=I32, device=lane.device)
+        if pay.shape != rpc_id.shape + (self.pw,):
+            raise ValueError(
+                f"payload_fn gave {tuple(pay.shape)}, expected "
+                f"{tuple(rpc_id.shape) + (self.pw,)}: on a stacked "
+                f"generator state it takes every lane at once (gst leaves "
+                f"[T], rpc_id [T, tile])")
+        return pay
 
     def inject(self, cst: FabricState, gst: LoadGenState):
         """One open-loop injection inside the step: draw this step's

@@ -67,7 +67,8 @@ def _i32(x, device):
 
 def make_records(conn_id, rpc_id, fn_id, flags, payload, payload_len=None,
                  frag_idx=None, timestamp=None, device=None):
-    """Build a record batch; ``payload``: [N, payload_words] int32.
+    """Build a record batch; ``payload``: [N, payload_words] int32 (or
+    [..., N, payload_words] with fields of the leading shape).
 
     ``timestamp`` is the issue step stamped into header word 4 (scalar or
     [N]; default 0 = unstamped).  Tensors are made on ``device``, which
@@ -79,12 +80,12 @@ def make_records(conn_id, rpc_id, fn_id, flags, payload, payload_len=None,
                   else resolve())
     conn_id = _i32(conn_id, device)
     payload = _i32(payload, device)
-    n = conn_id.shape[0]
+    n = conn_id.shape
     if payload_len is None:
-        payload_len = torch.full((n,), payload.shape[-1] * 4,
+        payload_len = torch.full(n, payload.shape[-1] * 4,
                                  dtype=torch.int32, device=device)
     if frag_idx is None:
-        frag_idx = torch.zeros((n,), dtype=torch.int32, device=device)
+        frag_idx = torch.zeros(n, dtype=torch.int32, device=device)
     if timestamp is None:
         timestamp = torch.zeros_like(conn_id)
     return {
@@ -117,7 +118,7 @@ def header_fields(records):
 
 
 def pack(records, slot_words: int):
-    """records -> slots [N, slot_words] int32."""
+    """records -> slots [..., N, slot_words] int32."""
     pw = payload_words(slot_words)
     conn_id, rpc_id, fn_id, flags, plen, frag, ts = header_fields(records)
     w2 = (fn_id & 0xFFFF) | (flags << 16)
@@ -127,7 +128,7 @@ def pack(records, slot_words: int):
         payload = torch.nn.functional.pad(
             payload, (0, pw - payload.shape[-1]))
     else:
-        payload = payload[:, :pw]
+        payload = payload[..., :pw]
     header = torch.stack([conn_id, rpc_id, w2, w3, ts], dim=-1)
     return torch.cat([header, payload.to(torch.int32)], dim=-1)
 

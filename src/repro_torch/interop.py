@@ -30,7 +30,10 @@ the reference's parameter pytree (``{"embed", "decoder", "final_norm"}``,
 the decoder's layers stacked per segment along a leading dim) into a
 ``models.Model``, and ``decode_cache_*`` convert the reference's stacked
 cache to the port's one-dict-per-layer list and back.  Their dtypes are
-carried exactly too (bfloat16 as its bits).
+carried exactly too (bfloat16 as its bits).  Tenant-stacked decode
+states (``DecodeEngine.init_states_batch``), ``ServingEngine`` state
+triples (``serving_states_*``, single or stacked) and stacked
+``KVSState`` stores cross the same way.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from repro_torch.device import resolve
 from repro_torch.models.transformer import segments_from_kinds
 from repro_torch.runtime.decode import DecodeSlots, DecodeStates
 from repro_torch.runtime.kvs import KVSState
+from repro_torch.runtime.serving import SessionState
 
 _NESTED = {"tx": Ring, "rx": Ring, "free": FreeFifo, "flow_fifo": Ring,
            "conn": ConnTable, "soft": SoftConfig}
@@ -214,30 +218,37 @@ def model_params_from_numpy(model, params):
 
 def decode_cache_from_numpy(cfg, src, device="cuda") -> list:
     """The reference's decode cache pytree -> the port's list of
-    per-layer ``{"k", "v"}`` tensors."""
+    per-layer ``{"k", "v"}`` tensors.  A tenant-stacked cache (every leaf
+    [T, ...], the layers of a segment stacked behind the tenant axis)
+    gives [T, N, S, nkv, hd] tensors."""
     dev = resolve(device)
     out = []
     for i, sub, period in _layer_sources(cfg, src):
         layer = {}
         for name in ("k", "v"):
             t = _float_tensor(_get(sub, name), f"cache.layer{i}.{name}")
-            layer[name] = (t[period] if period is not None else t) \
-                .contiguous().to(dev)
+            if period is not None:
+                # the period dim comes after any tenant axis
+                t = t.select(t.dim() - 5, period)
+            layer[name] = t.contiguous().to(dev)
         out.append(layer)
     return out
 
 
 def decode_cache_to_numpy(cfg, cache) -> dict:
     """The port's per-layer cache list -> the reference's pytree layout
-    (layers of a segment stacked along a leading dim)."""
+    (layers of a segment stacked along a leading dim, behind the tenant
+    axis of a stacked cache)."""
     out, i = {}, 0
+    lead = cache[0]["k"].dim() - 4          # 1 for a tenant-stacked cache
     for si, (pat, reps) in enumerate(
             segments_from_kinds(cfg._layer_kinds())):
         seg = {}
         for j in range(len(pat)):
             idx = [i + r * len(pat) + j for r in range(reps)]
             seg[f"pos{j}"] = {
-                name: (np.stack([_float_numpy(cache[x][name]) for x in idx])
+                name: (np.stack([_float_numpy(cache[x][name]) for x in idx],
+                                axis=lead)
                        if reps > 1 else _float_numpy(cache[idx[0]][name]))
                 for name in ("k", "v")}
         out[f"seg{si}"] = seg
@@ -246,8 +257,9 @@ def decode_cache_to_numpy(cfg, cache) -> dict:
 
 
 def decode_states_from_numpy(src, cfg, device="cuda") -> DecodeStates:
-    """A reference ``DecodeStates`` (or nested dicts of the same names)
-    -> the port's; ``cfg`` is the model's ``ModelConfig``."""
+    """A reference ``DecodeStates`` (or nested dicts of the same names),
+    single or tenant-stacked (``init_states_batch``), -> the port's;
+    ``cfg`` is the model's ``ModelConfig``."""
     dev = resolve(device)
     return DecodeStates(
         cst=_load(FabricState, _get(src, "cst"), dev),
@@ -264,3 +276,21 @@ def decode_states_to_numpy(st: DecodeStates, cfg) -> dict:
            for f in dataclasses.fields(st) if f.name != "cache"}
     out["cache"] = decode_cache_to_numpy(cfg, st.cache)
     return out
+
+
+# --------------------------------------------------------------- serving
+def serving_states_from_numpy(src, cfg, device="cuda"):
+    """A reference ``ServingEngine`` state triple ``(fabric, cache,
+    sessions)`` — ``init_states()`` or the stacked
+    ``init_states_batch(T)`` — as numpy trees (sessions as an object
+    with the ``SessionState`` field names, or a dict) -> the port's."""
+    dev = resolve(device)
+    fst, cache, sess = src
+    return (_load(FabricState, fst, dev),
+            decode_cache_from_numpy(cfg, cache, dev),
+            _load(SessionState, sess, dev))
+
+
+def serving_states_to_numpy(states, cfg) -> tuple:
+    fst, cache, sess = states
+    return _dump(fst), decode_cache_to_numpy(cfg, cache), _dump(sess)

@@ -1,10 +1,13 @@
 """GQA decode attention: one new token per slot against its KV cache.
 
-The port serves the global GQA decode path of the reference's
+The port serves the global GQA paths of the reference's
 ``models/attention.py``: ``_qkv`` (with QKV biases), ``_sdpa`` (float32
-scores), ``pos_vec`` and ``gqa_decode``.  Full-sequence, sliding-window,
-cross and MLA attention wait for the prefill and other-architecture
-slices.
+scores), ``_causal_mask``, ``gqa_full`` (causal self-attention over a
+whole prompt, the prefill path; plain PyTorch, as the reference computes
+it outside any Pallas kernel), ``pos_vec`` and ``gqa_decode``.
+Sliding-window, cross and MLA attention, and the reference's
+online-softmax ``_flash_sdpa`` (reached only with ``cfg.flash_block``),
+wait for the other-architecture slice.
 """
 from __future__ import annotations
 
@@ -74,6 +77,29 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask):
         w = w.to(v.dtype).to(torch.float32)
     out = torch.einsum("bkgst,btkd->bskgd", w, v.to(torch.float32))
     return out.reshape(b, s, nq, hd).to(q.dtype)
+
+
+def _causal_mask(s: int, t: int, device, q_offset: int = 0):
+    """[1, 1, 1, S, T]: query i (at ``i + q_offset``) sees keys 0..i."""
+    qpos = torch.arange(s, device=device)[:, None] + q_offset
+    kpos = torch.arange(t, device=device)[None, :]
+    return (kpos <= qpos)[None, None, None]
+
+
+def gqa_full(cfg: ModelConfig, p, x, positions):
+    """Causal self-attention over the whole sequence. x: [B, S, d];
+    positions: [B, S].  Returns (out [B, S, d], (k, v) [B, S, nkv, hd])
+    — the K/V a prefill writes into the cache."""
+    if cfg.flash_block:
+        raise NotImplementedError(
+            "cfg.flash_block: the reference's _flash_sdpa (online-softmax "
+            "attention over KV blocks) is not ported")
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = _sdpa(cfg, q, k, v, _causal_mask(q.shape[1], k.shape[1],
+                                           x.device))
+    return mm(out.reshape(*x.shape[:-1], -1), p["wo"]), (k, v)
 
 
 def pos_vec(pos, b, device):

@@ -1,16 +1,18 @@
-"""Top-level ``Model``: embedding, decoder stack and head, in decode mode.
+"""Top-level ``Model``: embedding, decoder stack and head, in prefill and
+decode modes.
 
 ``Model(cfg, device=..., generator=...)`` holds the weights as an
 ``nn.Module`` (parameter names follow the reference's pytree:
 ``embed.tok``, ``layers.<i>.attn.wq``, ``final_norm.scale``, ...):
 
 * ``cache_init(batch, max_seq)``          -> zeroed cache (one dict per layer)
+* ``prefill(tokens, cache)``              -> (last-token logits [B, V] f32, cache)
 * ``decode_step(cache, tokens, pos)``     -> (logits [B, V] f32, cache)
 
 It serves the decoder-only dense GQA architectures (Qwen2, the in-house
 repro-100m) and raises ``NotImplementedError`` for every feature of the
 reference's ``ModelConfig`` that it does not serve, rather than taking
-another path.  ``prefill`` and ``loss`` wait for later slices.
+another path.  ``loss`` waits for a later slice.
 """
 from __future__ import annotations
 
@@ -72,14 +74,27 @@ class Model(nn.Module):
                                    self.device)
 
     def forward(self, tokens, mode: str = "decode", cache=None, pos=None):
-        """tokens [B, S] -> (final-norm hidden states, new cache)."""
+        """tokens [B, S] -> (final-norm hidden states, new cache); the
+        sequence sits at positions 0..S-1 (prefill) or at ``pos``
+        (decode)."""
         cfg = self.cfg
         x = embed_apply(cfg, self.embed, tokens)
         if cfg.name.startswith("gemma"):
             x = x * cfg.d_model ** 0.5
+        positions = torch.arange(x.shape[1], device=x.device) \
+            .expand(x.shape[:2])
         x, new_cache = tf.stack_apply(cfg, self.layers, x, self.dec_kinds,
-                                      mode=mode, cache=cache, pos=pos)
+                                      mode=mode, cache=cache, pos=pos,
+                                      positions=positions)
         return norm_apply(cfg, self.final_norm, x), new_cache
+
+    def prefill(self, tokens, cache):
+        """Run the prompts ``tokens`` [B, S] through the stack and write
+        their K/V into cache rows [0, S) in place.  Returns (last-token
+        logits [B, V] float32, cache)."""
+        x, new_cache = self.forward(tokens, mode="prefill", cache=cache)
+        logits = unembed_apply(self.cfg, self.embed, x[:, -1:])
+        return logits[:, 0], new_cache
 
     def decode_step(self, cache, tokens, pos):
         """One decode step. tokens: [B, 1] int; pos: scalar or [B] int32.

@@ -70,15 +70,29 @@ def layer_cache_init(cfg: ModelConfig, kind: int, batch: int, max_seq: int,
 
 
 def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
-                mode: str = "decode", cache=None, pos=None):
-    """Apply one layer in decode mode: ln1 -> attention -> residual ->
-    ln2 -> MLP -> residual.  Returns (x, cache)."""
+                mode: str = "decode", cache=None, pos=None, positions=None):
+    """Apply one layer: ln1 -> attention -> residual -> ln2 -> MLP ->
+    residual.  Returns (x, cache).
+
+    ``mode="decode"``: one token a row at ``pos`` against the cache.
+    ``mode="prefill"``: the whole sequence at ``positions`` [B, S] with
+    causal attention (``gqa_full``); its K/V go into cache rows [0, S) in
+    place, the rows past S keep what they held (the reference's
+    ``_left_pad``, a ``dynamic_update_slice`` at offset 0)."""
     _served(kind, is_moe)
-    if mode != "decode":
-        raise NotImplementedError(f"mode {mode!r}: the port serves decode")
+    if mode not in ("decode", "prefill"):
+        raise NotImplementedError(
+            f"mode {mode!r}: the port serves decode and prefill")
     h = norm_apply(cfg, p["ln1"], x)
-    out, (ck, cv) = attn.gqa_decode(cfg, p["attn"], h, cache["k"],
-                                    cache["v"], pos)
+    if mode == "decode":
+        out, (ck, cv) = attn.gqa_decode(cfg, p["attn"], h, cache["k"],
+                                        cache["v"], pos)
+    else:
+        out, (k, v) = attn.gqa_full(cfg, p["attn"], h, positions)
+        ck, cv = cache["k"], cache["v"]
+        s = k.shape[1]
+        ck[:, :s] = k.to(ck.dtype)
+        cv[:, :s] = v.to(cv.dtype)
     x = x + out
     if "mlp" in p:
         x = x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
@@ -92,11 +106,11 @@ def stack_cache_init(cfg: ModelConfig, kinds: List[LayerSpec], batch: int,
 
 
 def stack_apply(cfg: ModelConfig, layers, x, kinds: List[LayerSpec], *,
-                mode: str = "decode", cache=None, pos=None):
+                mode: str = "decode", cache=None, pos=None, positions=None):
     """Run the whole stack, layer by layer.  Returns (x, new cache)."""
     new_cache = []
     for p, (kind, is_moe), c in zip(layers, kinds, cache):
         x, nc = layer_apply(cfg, p, x, kind=kind, is_moe=is_moe, mode=mode,
-                            cache=c, pos=pos)
+                            cache=c, pos=pos, positions=positions)
         new_cache.append(nc)
     return x, new_cache

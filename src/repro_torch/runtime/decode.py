@@ -38,12 +38,17 @@ hashes; a token rides only in payload word 1), so slots, telemetry,
 generator state and completion headers are exact int32 functions of the
 start state, whatever the logits.
 
-PyTorch runs eagerly: ``make_run_steps`` is a Python loop over the step.
-The KV cache is updated in place (``models.attention.gqa_decode``).  On
-the card with ``use_pallas`` fabrics the client and server fabric states
-are updated in place too (the fused switch step's contract,
-``core.fabric``); on CPU tensors the rest of the state is rebuilt each
-step and left untouched.  Clone a state you reuse.
+The step is written over a leading tenant axis
+(``make_tenant_run_steps``, states from ``init_states_batch``): the T
+decode pools run as one pool of T*N slots, so a step launches what one
+tenant's step launches; ``make_run_steps`` runs the same step on its
+state viewed as one tenant.  PyTorch runs eagerly: both are Python loops
+over the step.  The KV cache is updated in place
+(``models.attention.gqa_decode``).  On the card with ``use_pallas``
+fabrics the client and server fabric states are updated in place too
+(the fused switch step's contract, ``core.fabric``); on CPU tensors the
+rest of the state is rebuilt each step and left untouched.  Clone a
+state you reuse.
 """
 from __future__ import annotations
 
@@ -56,7 +61,8 @@ from repro_torch.config import FabricConfig, ModelConfig
 from repro_torch.core import loadgen as lg
 from repro_torch.core import serdes
 from repro_torch.core import telemetry as tlm
-from repro_torch.core.fabric import DaggerFabric
+from repro_torch.core.engine import stack_states, tenant_receive
+from repro_torch.core.fabric import DaggerFabric, tree_map
 from repro_torch.core.indexing import set_drop
 from repro_torch.core.load_balancer import LB_ROUND_ROBIN
 from repro_torch.device import resolve
@@ -180,21 +186,23 @@ class DecodeEngine:
     # ------------------------------------------------------------ requests
     def _request_payload(self, gst, lane, rpc_id):
         """LoadGen payload hook: (req_id, seed, plen, max_new), all pure
-        hashes of the lane key and rpc_id."""
+        hashes of the lane key and rpc_id ([tile], or [T, tile] on a
+        stacked generator state)."""
+        key = gst.key[..., None]
         # sign-bit clamp on a PRNG draw (payload word, not a header
         # wire field): # fabriclint: allow(FL004)
-        seed = (lg.counter_hash(gst.key, rpc_id, _SALT_SEED)
+        seed = (lg.counter_hash(key, rpc_id, _SALT_SEED)
                 & 0x7FFFFFFF).to(I32)
-        plen = 1 + (lg.counter_hash(gst.key, rpc_id, _SALT_PLEN)
+        plen = 1 + (lg.counter_hash(key, rpc_id, _SALT_PLEN)
                     % self.max_prompt).to(I32)
-        mnew = 1 + (lg.counter_hash(gst.key, rpc_id, _SALT_MNEW)
+        mnew = 1 + (lg.counter_hash(key, rpc_id, _SALT_MNEW)
                     % self.max_new_cap).to(I32)
-        pay = torch.zeros((lane.shape[0], self.pw), dtype=I32,
+        pay = torch.zeros(rpc_id.shape + (self.pw,), dtype=I32,
                           device=lane.device)
-        pay[:, 0] = rpc_id
-        pay[:, 1] = seed
-        pay[:, 2] = plen
-        pay[:, 3] = mnew
+        pay[..., 0] = rpc_id
+        pay[..., 1] = seed
+        pay[..., 2] = plen
+        pay[..., 3] = mnew
         return pay
 
     # --------------------------------------------------------------- state
@@ -214,34 +222,51 @@ class DecodeEngine:
             ttft=tlm.create(self.n_bins, device=dev),
             itl=tlm.create(self.n_bins, device=dev))
 
+    def init_states_batch(self, rates, seeds=None) -> DecodeStates:
+        """Stacked per-tenant states (leading tenant axis): tenant i
+        offers ``rates[i]`` requests/step with its own generator key
+        (``seeds[i]``, default i)."""
+        seeds = list(range(len(rates))) if seeds is None else list(seeds)
+        return stack_states([self.init_states(r, seed=s)
+                             for r, s in zip(rates, seeds)])
+
     # ---------------------------------------------------------- serve step
     def _make_serve_step(self):
-        """Server half of the step: deliver -> decode pool -> stream
-        tokens -> free -> admit -> NACK -> egress fetch.
+        """Server half of the step over a leading tenant axis: deliver ->
+        decode pool -> stream tokens -> free -> admit -> NACK -> egress
+        fetch.
 
-        ``(sst, slots, cache, ttft, itl, in_slots, in_valid) -> (sst,
-        slots, cache, ttft, itl, out_slots, out_valid)``."""
-        model, fab, n = self.model, self.server, self.n_slots
+        ``(sst, slots, cache, ttft, itl, in_slots [T, M, W], in_valid
+        [T, M]) -> (sst, slots, cache, ttft, itl, out_slots [T, F*B, W],
+        out_valid [T, F*B])`` on stacked states (slot tables [T, N], the
+        cache [T, N, S, ...] a layer).  The T pools decode as ONE pool of
+        T*N slots (the weights are shared: the reference's ``vmap`` with
+        ``in_axes=(0, None)``), the receive side is ``tenant_receive``
+        and the enqueues ``host_tx_enqueue_batch``, so the kernel route
+        launches what one tenant's step launches, whatever T.  The
+        free-list sort, the admission rank and the slot scatters run
+        along dim 1."""
+        fab, n = self.server, self.n_slots
         vocab, pw = self.cfg.vocab, self.pw
 
         def step(sst, slots: DecodeSlots, cache, ttft, itl, in_slots,
                  in_valid):
             dev = in_slots.device
-            step_now = ttft.step
-            # 1. wire -> NIC: deliver arrivals through the server NIC
-            sst, recs, rvalid = fab.nic_pipeline(sst, in_slots, in_valid)
-            req = {k: x.reshape((-1,) + tuple(x.shape[2:]))
-                   for k, x in recs.items()}
-            rv = rvalid.reshape(-1)
+            t = in_slots.shape[0]
+            step_now = ttft.step                            # [T]
+            # 1. wire -> NIC: deliver arrivals through the server NICs
+            sst, req, rv = tenant_receive(fab, sst, in_slots, in_valid)
             is_req = rv & ((req["flags"] & serdes.FLAG_RESPONSE) == 0)
 
             # 2. decode the WHOLE pool at per-slot positions.  Free slots
             # decode rows they never advance past; those rows are
             # rewritten before any admitted request attends them.
             active = slots.req_id >= 0
-            logits, cache = model.decode_step(cache, slots.tok[:, None],
-                                              slots.pos)
-            nxt = torch.argmax(logits, dim=-1).to(I32)
+            logits, cache = self.model.decode_step(
+                _fold_cache(cache), slots.tok.reshape(-1, 1),
+                slots.pos.reshape(-1))
+            cache = _unfold_cache(cache, t)
+            nxt = torch.argmax(logits, dim=-1).to(I32).reshape(t, n)
 
             in_prompt = slots.pos < slots.prompt_len - 1
             gen = active & ~in_prompt
@@ -249,20 +274,19 @@ class DecodeEngine:
             last = gen & (slots.emitted + 1 >= slots.max_new)
 
             # 3. stream: each token is one fragment of the response
-            pay = torch.zeros((n, pw), dtype=I32, device=dev)
-            pay[:, 0] = slots.req_id
-            pay[:, 1] = nxt
-            pay[:, 2] = slots.emitted
-            pay[:, 3] = slots.tstamp
+            pay = torch.zeros((t, n, pw), dtype=I32, device=dev)
+            pay[..., 0] = slots.req_id
+            pay[..., 1] = nxt
+            pay[..., 2] = slots.emitted
+            pay[..., 3] = slots.tstamp
             flags = (serdes.FLAG_RESPONSE | serdes.FLAG_FRAGMENT
                      | torch.where(last, serdes.FLAG_LAST_FRAGMENT, 0)
                      | (slots.flow << 8)).to(I32)
             out = serdes.make_records(slots.conn, slots.req_id,
-                                      torch.zeros((n,), dtype=I32,
-                                                  device=dev),
+                                      torch.zeros_like(slots.req_id),
                                       flags, pay, frag_idx=slots.emitted,
                                       timestamp=slots.tstamp)
-            sst, acc = fab.host_tx_enqueue(sst, out, slots.flow, gen)
+            sst, acc = fab.host_tx_enqueue_batch(sst, out, slots.flow, gen)
             acc = acc & gen
 
             # 4. telemetry at the acceptance edge (the egress decision)
@@ -279,34 +303,38 @@ class DecodeEngine:
                                               vocab), nxt), slots.tok)
             pos2 = slots.pos + adv.to(I32)
             emitted2 = slots.emitted + acc.to(I32)
-            last_emit2 = torch.where(acc, step_now, slots.last_emit)
+            last_emit2 = torch.where(acc, step_now[:, None],
+                                     slots.last_emit)
 
             # 6. free finished slots — re-admissible this same step
             done = acc & last
             req_id2 = torch.where(done, -1, slots.req_id).to(I32)
-            completed = slots.completed + done.sum(dtype=I32)
+            completed = slots.completed + done.sum(1, dtype=I32)
 
             # 7. admission: argsort free-list, arrivals ranked
             # first-free-first, overflow rejected (stable, as JAX's)
             free = req_id2 < 0
             idx = torch.arange(n, dtype=I32, device=dev)
-            order = torch.argsort(torch.where(free, idx, n + 1),
+            order = torch.argsort(torch.where(free, idx, n + 1), dim=1,
                                   stable=True)
-            n_free = free.sum(dtype=I32)
-            rank = torch.cumsum(is_req.to(I32), 0, dtype=I32) - 1
-            ok = is_req & (rank < n_free)
-            slot = order[rank.clamp(0, n - 1)].to(I32)
+            n_free = free.sum(1, dtype=I32)
+            rank = torch.cumsum(is_req.to(I32), 1, dtype=I32) - 1
+            ok = is_req & (rank < n_free[:, None])
+            slot = torch.gather(order, 1, rank.clamp(0, n - 1).long()) \
+                .to(I32)
+            lane = torch.arange(t, dtype=I32, device=dev)[:, None] \
+                .expand_as(slot)
 
-            r_seed = req["payload"][:, 1]
-            r_plen = req["payload"][:, 2].clamp(1, self.max_prompt)
-            r_mnew = req["payload"][:, 3].clamp(1, self.max_new_cap)
+            r_seed = req["payload"][..., 1]
+            r_plen = req["payload"][..., 2].clamp(1, self.max_prompt)
+            r_mnew = req["payload"][..., 3].clamp(1, self.max_new_cap)
             r_flow = (req["flags"] >> 8) & 0xFF
             zeros = torch.zeros_like(r_plen)
 
             def sca(dst, val):
-                return set_drop(dst, (slot,), val, ok)
+                return set_drop(dst, (lane, slot), val, ok)
             slots2 = DecodeSlots(
-                req_id=sca(req_id2, req["payload"][:, 0]),
+                req_id=sca(req_id2, req["payload"][..., 0]),
                 conn=sca(slots.conn, req["conn_id"]),
                 flow=sca(slots.flow, r_flow),
                 tstamp=sca(slots.tstamp, req["timestamp"]),
@@ -317,55 +345,71 @@ class DecodeEngine:
                 tok=sca(tok2, prompt_token(r_seed, 0, vocab)),
                 emitted=sca(emitted2, zeros),
                 last_emit=sca(last_emit2, torch.broadcast_to(
-                    step_now, r_plen.shape)),
-                admitted=slots.admitted + is_req.sum(dtype=I32),
+                    step_now[:, None], r_plen.shape)),
+                admitted=slots.admitted + is_req.sum(1, dtype=I32),
                 completed=completed,
-                rejected=slots.rejected + (is_req & ~ok).sum(dtype=I32))
+                rejected=slots.rejected + (is_req & ~ok).sum(1, dtype=I32))
 
             # 8. NACK rejections so the client can account every arrival
             rej = is_req & ~ok
-            npay = torch.zeros((rv.shape[0], pw), dtype=I32, device=dev)
-            npay[:, 0] = req["payload"][:, 0]
-            npay[:, 1] = -1
+            npay = torch.zeros(rv.shape + (pw,), dtype=I32, device=dev)
+            npay[..., 0] = req["payload"][..., 0]
+            npay[..., 1] = -1
             nack = serdes.make_records(
                 req["conn_id"], req["rpc_id"],
                 torch.zeros_like(req["rpc_id"]),
                 serdes.FLAG_RESPONSE | serdes.FLAG_LAST_FRAGMENT
                 | (r_flow << 8), npay, timestamp=req["timestamp"])
-            sst, _ = fab.host_tx_enqueue(sst, nack, r_flow, rej)
+            sst, _ = fab.host_tx_enqueue_batch(sst, nack, r_flow, rej)
 
             ttft = tlm.tick(ttft)
             itl = tlm.tick(itl)
             # 9. NIC -> wire: fetch the token stream off the TX rings
-            sst, out_slots, out_valid = fab.nic_fetch(sst)
+            sst, out_slots, out_valid = fab.nic_fetch_batch(sst)
             w = out_slots.shape[-1]
             return (sst, slots2, cache, ttft, itl,
-                    out_slots.reshape(-1, w), out_valid.reshape(-1))
+                    out_slots.reshape(t, -1, w), out_valid.reshape(t, -1))
+
+        return step
+
+    def make_tenant_decode_step(self):
+        """The full step of T stacked tenants: ``DecodeStates`` (every
+        leaf [T]-leading) ``-> (DecodeStates, (comp_slots [T, F*B, W],
+        comp_valid [T, F*B]))`` — the client-delivered token fragments,
+        packed.  Injection is the stacked ``LoadGen.inject``, the client
+        fetch ``nic_fetch_batch`` and the client delivery
+        ``tenant_receive``: what the reference's ``vmap`` of
+        ``make_decode_step`` computes, one tenant at a time."""
+        serve = self._make_serve_step()
+        gen, client = self.loadgen, self.client
+
+        def step(st: DecodeStates):
+            cst, gst = gen.inject(st.cst, st.gst)
+            cst, cl_slots, cl_valid = client.nic_fetch_batch(cst)
+            t, w = cl_slots.shape[0], cl_slots.shape[-1]
+            sst, slots, cache, ttft, itl, sv_out, sv_valid = serve(
+                st.sst, st.slots, st.cache, st.ttft, st.itl,
+                cl_slots.reshape(t, -1, w), cl_valid.reshape(t, -1))
+            cst, crecs, cvalid = tenant_receive(client, cst, sv_out,
+                                                sv_valid)
+            comp = serdes.pack(crecs, client.slot_words)
+            st = DecodeStates(cst, sst, gst, slots, cache, ttft, itl)
+            return st, (comp, cvalid)
 
         return step
 
     def make_decode_step(self):
         """The full tenant step: ``DecodeStates -> (DecodeStates,
         (comp_slots [N, W], comp_valid [N]))`` — the client-delivered
-        token fragments, packed."""
-        serve = self._make_serve_step()
-        gen, client = self.loadgen, self.client
+        token fragments, packed.  It is ``make_tenant_decode_step`` on
+        the state viewed as one tenant."""
+        step = self.make_tenant_decode_step()
 
-        def step(st: DecodeStates):
-            cst, gst = gen.inject(st.cst, st.gst)
-            cst, cl_slots, cl_valid = client.nic_fetch(cst)
-            w = cl_slots.shape[-1]
-            sst, slots, cache, ttft, itl, sv_out, sv_valid = serve(
-                st.sst, st.slots, st.cache, st.ttft, st.itl,
-                cl_slots.reshape(-1, w), cl_valid.reshape(-1))
-            cst, crecs, cvalid = client.nic_pipeline(cst, sv_out, sv_valid)
-            flat = {k: x.reshape((-1,) + tuple(x.shape[2:]))
-                    for k, x in crecs.items()}
-            comp = serdes.pack(flat, client.slot_words)
-            st = DecodeStates(cst, sst, gst, slots, cache, ttft, itl)
-            return st, (comp, cvalid.reshape(-1))
+        def one(st: DecodeStates):
+            st, (comp, valid) = step(tree_map(lambda x: x[None], st))
+            return tree_map(lambda x: x[0], st), (comp[0], valid[0])
 
-        return step
+        return one
 
     # -------------------------------------------------------- entry points
     def make_run_steps(self, n_steps: int):
@@ -374,17 +418,44 @@ class DecodeEngine:
         inside.  The cache of ``st`` is updated in place, and on the card
         with ``use_pallas`` fabrics so are the fabric states (the fused
         switch step's in-place contract); clone ``st`` to keep it."""
-        step = self.make_decode_step()
+        return _run_loop(self.make_decode_step(), n_steps)
 
-        def run(st):
-            comps, valids = [], []
-            for _ in range(n_steps):
-                st, (comp, valid) = step(st)
-                comps.append(comp)
-                valids.append(valid)
-            return st, (torch.stack(comps), torch.stack(valids))
+    def make_tenant_run_steps(self, n_steps: int):
+        """Tenant-batched loop: ``run(st) -> (st, (comp_slots [K, T, N,
+        W], comp_valid [K, T, N]))`` on states from ``init_states_batch``
+        (one set of weights for all tenants).  Each step runs the T
+        decode pools as ONE ``Model.decode_step`` over T*N slots and each
+        receive side as one ``tenant_receive``, so the kernel route
+        launches a step what ``make_run_steps`` launches (28
+        ``decode_attention`` at Qwen2-1.5B), whatever T.  In place as
+        ``make_run_steps``: the stacked cache, and on the card with
+        ``use_pallas`` fabrics the stacked fabric states, are updated
+        where they lie; clone ``st`` to keep it."""
+        return _run_loop(self.make_tenant_decode_step(), n_steps)
 
-        return run
+
+def _run_loop(step, n_steps: int):
+    def run(st):
+        comps, valids = [], []
+        for _ in range(n_steps):
+            st, (comp, valid) = step(st)
+            comps.append(comp)
+            valids.append(valid)
+        return st, (torch.stack(comps), torch.stack(valids))
+
+    return run
+
+
+def _fold_cache(cache):
+    """A stacked cache ([T, N, S, ...] a layer) as one of T*N slots
+    (views of the contiguous stack, so in-place writes reach it)."""
+    return [{k: x.reshape((-1,) + tuple(x.shape[2:])) for k, x in c.items()}
+            for c in cache]
+
+
+def _unfold_cache(cache, t: int):
+    return [{k: x.reshape((t, -1) + tuple(x.shape[1:]))
+             for k, x in c.items()} for c in cache]
 
 
 # --------------------------------------------------------------- host side

@@ -73,6 +73,14 @@ class DeviceKVS:
                              device=dev),
             n_set=z(), n_get=z(), n_hit=z(), n_evict=z())
 
+    def init_state_batch(self, n_tenants: int, device="cuda") -> KVSState:
+        """Stacked per-tenant stores (leading tenant axis, contiguous) for
+        the tenant-batched engine: each tenant owns an isolated partition
+        set, as MICA's per-core partitions across NIC slots."""
+        from repro_torch.core.engine import stack_states
+        return stack_states([self.init_state(device)
+                             for _ in range(n_tenants)])
+
     # ------------------------------------------------------------------
     def _bucket_tag(self, key_words):
         """(bucket, tag bits, victim way), each [N] int32, of the keys
@@ -85,24 +93,9 @@ class DeviceKVS:
 
     def get(self, st: KVSState, key_words, valid=None):
         """key_words: [N, KW] -> (state', values [N, VW], hit [N])."""
-        n = key_words.shape[0]
-        if valid is None:
-            valid = torch.ones((n,), dtype=torch.bool,
-                               device=key_words.device)
+        valid = self._valid(key_words, valid)
         bucket, tag, _ = self._bucket_tag(key_words)
-        if self.use_pallas:
-            from repro_torch.kernels import ops as kops
-            val, tag_hit = kops.kv_probe(st.tags, st.vals, bucket, tag)
-            bk = st.keys[bucket]                    # key verify (anti-alias)
-            way = self._match_way(st, bucket, tag, key_words)[1]
-            rows = torch.arange(n, device=key_words.device)
-            key_ok = (bk[rows, way] == key_words).all(dim=-1)
-            hit = tag_hit & key_ok & valid
-        else:
-            match, way = self._match_way(st, bucket, tag, key_words)
-            hit = match.any(dim=1) & valid
-            val = st.vals[bucket, way]
-        val = torch.where(hit[:, None], val, 0)
+        val, hit = self._probe(st, key_words, valid, bucket, tag)
         st2 = _bump(st, n_get=valid.sum(dtype=I32),
                     n_hit=hit.sum(dtype=I32))
         return st2, val, hit
@@ -110,11 +103,40 @@ class DeviceKVS:
     def set(self, st: KVSState, key_words, val_words, valid=None):
         """Insert/update [N] records; of several rows for one slot the
         last one is stored."""
-        n = key_words.shape[0]
+        valid = self._valid(key_words, valid)
+        st2, evictions = self._store(st, key_words, val_words, valid,
+                                     *self._bucket_tag(key_words))
+        return _bump(st2, n_set=valid.sum(dtype=I32),
+                     n_evict=evictions.sum(dtype=I32))
+
+    @staticmethod
+    def _valid(key_words, valid):
         if valid is None:
-            valid = torch.ones((n,), dtype=torch.bool,
-                               device=key_words.device)
-        bucket, tag, way_v = self._bucket_tag(key_words)
+            return torch.ones((key_words.shape[0],), dtype=torch.bool,
+                              device=key_words.device)
+        return valid
+
+    def _probe(self, st: KVSState, key_words, valid, bucket, tag):
+        """GET of [N] keys at the given buckets: (values [N, VW], hit
+        [N])."""
+        if self.use_pallas:
+            from repro_torch.kernels import ops as kops
+            val, tag_hit = kops.kv_probe(st.tags, st.vals, bucket, tag)
+            bk = st.keys[bucket]                    # key verify (anti-alias)
+            way = self._match_way(st, bucket, tag, key_words)[1]
+            rows = torch.arange(key_words.shape[0], device=key_words.device)
+            key_ok = (bk[rows, way] == key_words).all(dim=-1)
+            hit = tag_hit & key_ok & valid
+        else:
+            match, way = self._match_way(st, bucket, tag, key_words)
+            hit = match.any(dim=1) & valid
+            val = st.vals[bucket, way]
+        return torch.where(hit[:, None], val, 0), hit
+
+    def _store(self, st: KVSState, key_words, val_words, valid, bucket, tag,
+               way_v):
+        """SET of [N] records at the given buckets: (state' with the
+        counters as they were, evictions [N])."""
         match, way_m = self._match_way(st, bucket, tag, key_words)
         exists = match.any(dim=1)
         empty = st.tags[bucket] == 0                # [N, WAYS]
@@ -125,10 +147,8 @@ class DeviceKVS:
         tags, keys, vals = set_drop_last(
             (st.tags, st.keys, st.vals), (bucket, way),
             (tag, key_words, val_words), valid)
-        st2 = KVSState(tags, keys, vals, st.n_set, st.n_get, st.n_hit,
-                       st.n_evict)
-        return _bump(st2, n_set=valid.sum(dtype=I32),
-                     n_evict=evictions.sum(dtype=I32))
+        return dataclasses.replace(st, tags=tags, keys=keys,
+                                   vals=vals), evictions
 
     def _match_way(self, st, bucket, tag, key_words):
         bt = st.tags[bucket]                        # [N, WAYS]
@@ -173,6 +193,70 @@ class DeviceKVS:
         from repro_torch.core.engine import LoopbackEngine
         return LoopbackEngine(client, server, self._record_handler(),
                               stateful=True)
+
+    def make_tenant_engine(self, client, server):
+        """Tenant-batched KVS engine: one NIC slot and one store per
+        tenant.  ``engine.run_steps(csts, ssts, k, hstate=dbs)`` (or
+        ``run_until``) drives T independent client/server/store triples
+        at once; ``dbs`` is ``init_state_batch(T)`` (or any stacked
+        ``KVSState``).  Equal to T separate ``make_engine`` runs.
+
+        The handler takes the tenant axis itself (``TenantEngine(...,
+        batched=True)``): the T stores [T, NB, WAYS(, KW|VW)] are viewed
+        as one store of T*NB buckets (a reshape of the contiguous stack,
+        no copy), tenant t's keys go to buckets ``bucket + t*NB``, and
+        each step hashes the SET half and the GET half once each, probes
+        once and scatters once for all tenants — on the kernel route the
+        launches of one tenant's step.  Within a tenant the last row for
+        a slot wins, as in ``set``; rows of two tenants never share a
+        slot.  The counters come back per tenant, [T].
+        """
+        from repro_torch.core.engine import TenantEngine
+        return TenantEngine(client, server, self._tenant_record_handler(),
+                            stateful=True, batched=True)
+
+    def _tenant_record_handler(self):
+        kw, vw, nb = self.kw, self.vw, self.nb
+
+        def fold(x):
+            return x.reshape((-1,) + tuple(x.shape[2:]))
+
+        def handler(recs, valid, db):
+            t, n = valid.shape
+            payload = fold(recs["payload"])
+            key = payload[:, :kw]
+            val_in = payload[:, kw:kw + vw]
+            is_set = fold(recs["fn_id"]) == 1
+            v = valid.reshape(-1)
+            base = torch.arange(t, dtype=I32, device=v.device) \
+                .repeat_interleave(n) * nb
+            flat = KVSState(fold(db.tags), fold(db.keys), fold(db.vals),
+                            db.n_set, db.n_get, db.n_hit, db.n_evict)
+            set_v, get_v = v & is_set, v & ~is_set
+            bucket, tag, way_v = self._bucket_tag(key)
+            flat, evictions = self._store(flat, key, val_in, set_v,
+                                          bucket + base, tag, way_v)
+            bucket, tag, _ = self._bucket_tag(key)
+            val, hit = self._probe(flat, key, get_v, bucket + base, tag)
+            status = torch.where(is_set, 1, hit.to(I32))
+            out = torch.zeros_like(payload)
+            out[:, 0] = status
+            out[:, 1:1 + vw] = torch.where(is_set[:, None], val_in, val)
+
+            def per(mask):
+                return mask.reshape(t, n).sum(1, dtype=I32)
+            db = _bump(KVSState(
+                flat.tags.reshape(db.tags.shape),
+                flat.keys.reshape(db.keys.shape),
+                flat.vals.reshape(db.vals.shape),
+                db.n_set, db.n_get, db.n_hit, db.n_evict),
+                n_set=per(set_v), n_evict=per(evictions), n_get=per(get_v),
+                n_hit=per(hit))
+            resp = dict(recs)
+            resp["payload"] = out.reshape(recs["payload"].shape)
+            return resp, db
+
+        return handler
 
     def _record_handler(self):
         h = self.make_handler()

@@ -652,3 +652,163 @@ def test_flight_window_routes(cuda, threading):
     assert int(outs[True][2].n_done[0]) > 0
     for x, y in zip(_leaves(outs[True]), _leaves(outs[False])):
         assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _grew(before):
+    after = ops.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] > before[k]}
+
+
+@pytest.mark.parametrize("n_tenants", [1, 4])
+def test_kvs_tenant_engine_routes(cuda, n_tenants):
+    """``DeviceKVS.make_tenant_engine`` on the card: 6 rounds of 16 random
+    GET/SETs a tenant (keys from a small set, so hits, updates and shared
+    buckets) on the kernel route equal the plain route bit for bit, and
+    a step launches what one tenant's step launches whatever T: 2
+    ``switch_step_fused``, 2 ``hash_bucket_tag``, 1 ``kv_probe`` and 1
+    ``ring_push_packed`` (and one more a round, the client's enqueue)."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import serdes
+    from repro_torch.core.engine import stack_states
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.load_balancer import LB_OBJECT
+    from repro_torch.runtime.kvs import DeviceKVS
+
+    cfg = FabricConfig(n_flows=2, ring_entries=64, batch_size=8,
+                       dynamic_batching=False, lb_scheme="object_level")
+    rng = np.random.default_rng(5)
+    t, n = n_tenants, 16
+    pay = rng.integers(0, 40, (6, t, n, 11)).astype(np.int32)
+    pay[..., 0] %= 8                    # 8 keys a tenant
+    pay[..., 1] = 0
+    is_set = (rng.random((6, t, n)) < 0.5).astype(np.int32)
+    outs = {}
+    for use in (True, False):
+        fab = DaggerFabric(cfg.replace(use_pallas=use))
+        kvs = DeviceKVS(n_buckets=32, use_pallas=use)
+        eng = kvs.make_tenant_engine(fab, fab)
+        c = fab.open_connection(fab.init_state(cuda), 1, 0, 1, LB_OBJECT)
+        s = fab.open_connection(fab.init_state(cuda), 1, 0, 0, LB_OBJECT)
+        cst, sst = stack_states([c] * t), stack_states([s] * t)
+        db = kvs.init_state_batch(t, cuda)
+        rows = torch.arange(n, dtype=torch.int32, device=cuda).expand(t, n)
+        before, steps, counts = ops.launch_counts(), 0, []
+        for r in range(6):
+            p, f = _dev((pay[r], is_set[r]), cuda)
+            recs = serdes.make_records(torch.ones_like(rows), rows + n * r,
+                                       f, 0 * rows, p)
+            cst, _ = fab.host_tx_enqueue_batch(cst, recs, rows % 2)
+            cst, sst, db, done, st_ = eng.run_until(cst, sst, n, 8,
+                                                    hstate=db)
+            counts.append((done.tolist(), st_.tolist()))
+            steps += int(st_.max())
+        torch.cuda.synchronize()
+        grew = _grew(before)
+        if use:
+            assert grew == {"switch_step_fused": 2 * steps,
+                            "hash_bucket_tag": 2 * steps,
+                            "kv_probe": steps,
+                            "ring_push_packed": steps + 6}, grew
+        else:
+            assert not grew
+        outs[use] = (counts, cst, sst, db)
+    assert outs[True][0] == outs[False][0]
+    assert int(outs[True][3].n_hit.sum()) > 0
+    for x, y in zip(_leaves(outs[True][1:]), _leaves(outs[False][1:])):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_decode_tenant_run_steps_routes(cuda):
+    """``DecodeEngine.make_tenant_run_steps`` at the tiny dense GQA model
+    for 3 tenants, 32 steps, kernel route (``decode_attention`` over the
+    folded 3 x 4 slots, the fabric kernels) against plain route: every
+    int32 part but the tokens equal, and a step launches what a
+    single-tenant step launches (2 layers of ``decode_attention``)."""
+    import dataclasses
+
+    from repro_torch.apps.lm_decode import build_engine
+    from repro_torch.core import serdes
+    from repro_torch.runtime.decode import DecodeSlots, default_fabric_config
+
+    outs = {}
+    for use in (True, False):
+        eng = build_engine(use_pallas=use, device=cuda,
+                           fabric_cfg=default_fabric_config(use_pallas=use))
+        st = eng.init_states_batch([0.6, 1.2, 0.3])
+        before = ops.launch_counts()
+        st, (comp, valid) = eng.make_tenant_run_steps(32)(st)
+        torch.cuda.synchronize()
+        grew = _grew(before)
+        one = eng.init_states(0.6)
+        before = ops.launch_counts()
+        eng.make_run_steps(32)(one)
+        torch.cuda.synchronize()
+        assert grew == _grew(before)
+        if use:
+            assert grew["decode_attention"] == 2 * 32, grew
+        else:
+            assert not grew
+        outs[use] = (st, comp, valid)
+    (a, ca, va), (b, cb, vb) = outs[True], outs[False]
+    for fld in dataclasses.fields(DecodeSlots):
+        if fld.name != "tok":
+            assert torch.equal(getattr(a.slots, fld.name),
+                               getattr(b.slots, fld.name)), fld.name
+    for x, y in zip(_leaves((a.ttft, a.itl, a.gst)),
+                    _leaves((b.ttft, b.itl, b.gst))):
+        assert torch.equal(x, y)
+    assert torch.equal(va, vb)
+    words = [w for w in range(ca.shape[-1]) if w != serdes.HEADER_WORDS + 1]
+    assert torch.equal(ca[va][:, words], cb[vb][:, words])
+    assert int(a.slots.completed.sum()) > 0
+
+
+def test_serving_tenant_run_steps_routes(cuda):
+    """``ServingEngine.make_tenant_run_steps`` with telemetry for 2
+    tenants over 8 tiles at Qwen2-1.5B ``REDUCED`` (float32): the kernel
+    route equals the plain route in sessions (but their last token),
+    served counts, telemetry and the non-token egress words, and
+    launches what ``make_run_steps`` launches."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import serdes
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.runtime.serving import FLAG_NEW, ServingEngine
+
+    rng = np.random.default_rng(8)
+    k, t, n = 8, 2, 3
+    pay = np.zeros((k, t, n, 11), np.int32)
+    pay[..., 0] = 100 + np.arange(n)
+    pay[..., 1] = np.where(rng.random((k, t, n)) < 0.5, -1,
+                           rng.integers(0, 500, (k, t, n)))
+    pay[0, ..., 2] = FLAG_NEW
+    outs = {}
+    for use in (True, False):
+        eng = ServingEngine(
+            get_config("qwen2-1.5b", reduced=True).replace(use_pallas=use),
+            FabricConfig(n_flows=2, ring_entries=64, batch_size=4,
+                         dynamic_batching=False, use_pallas=use),
+            n_slots=2, max_seq=16, device=cuda)
+        z = torch.zeros((k, t, n), dtype=torch.int32, device=cuda)
+        slots = serdes.pack(serdes.make_records(
+            z, z, z, z, _dev((pay,), cuda)[0]), eng.fabric.slot_words)
+        valid = torch.ones((k, t, n), dtype=torch.bool, device=cuda)
+        before = ops.launch_counts()
+        out = eng.make_tenant_run_steps()(
+            *eng.init_states_batch(t), slots, valid,
+            tel=tlm.create_batch(t, device=cuda))
+        torch.cuda.synchronize()
+        grew = _grew(before)
+        before = ops.launch_counts()
+        eng.make_run_steps()(*eng.init_states(), slots[:, 0], valid[:, 0])
+        torch.cuda.synchronize()
+        assert grew == _grew(before)
+        outs[use] = out
+    a, b = outs[True], outs[False]
+    assert torch.equal(a[2].session_id, b[2].session_id)
+    assert torch.equal(a[2].pos, b[2].pos)
+    words = [w for w in range(a[4].shape[-1]) if w != serdes.HEADER_WORDS + 1]
+    assert torch.equal(a[4][..., words], b[4][..., words])
+    for x, y in zip(_leaves((a[3], a[5], a[6])), _leaves((b[3], b[5], b[6]))):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert int(a[3].sum()) > 0
