@@ -34,8 +34,11 @@ exit, no result line) on any mismatch:
    bfloat16 at per-slot lengths 0, 1, tile - 1, tile, tile + 1, S,
    2 tiles - 1, 2 tiles + 1 and 4 tiles + 1, 1, 6 and 8 query heads a kv
    head at head dims 64, 128 and 256, a batch of length 0 only, cache
-   lengths that are not a multiple of the tile, and Qwen2-1.5B's decode
-   shapes, within the stated tolerance (``DA_TOL``); and at the shapes
+   lengths that are not a multiple of the tile, Qwen2-1.5B's decode
+   shapes and the global layers of gemma3-1b (4 query heads on 1 kv
+   head, hd 256), nemotron-4-15b (48 on 8) and phi3-medium-14b (40 on
+   10) over 32 slots of 1,024 rows, within the stated tolerance
+   (``DA_TOL``); and at the shapes
    of phases 7 and 8: the switch step's fetch route over the flight
    service's 8 tiers (2 flows, B 8, ring 64, request buffer 256: mixed
    destinations, responses returning by SRQ, full flow FIFOs and rx
@@ -99,7 +102,7 @@ exit, no result line) on any mismatch:
    phase 5's bytes in MICA's per-core partitions) loaded with 2^20 keys
    and read back (every key hits unless evicted); rounds of 16 Zipf 0.99
    GET/SETs a tenant enqueued for all tenants at once and drained with
-   ``run_until`` and telemetry, 40 rounds at 50/50 and 40 at 5/95,
+   ``run_until`` and telemetry, 24 rounds at 50/50 and 24 at 5/95,
    kernel route against plain route from one start state (stores, [T]
    counters, telemetry, done and steps, fabric states) and lane 0
    against its own ``make_engine`` run; the launches a step are phase
@@ -116,23 +119,40 @@ exit, no result line) on any mismatch:
    and ITL p99 per rate;
 11. serving: ``ServingEngine`` at Qwen2-1.5B (32 slots, 1,024 rows,
    ``launch/serve.py``'s fabric): ``prefill_sessions`` of 32 seeded
-   prompts of 256 tokens, ``make_run_steps`` with telemetry over 32
-   staged tiles of "sample for me" requests, ``make_tenant_run_steps``
-   for 4 tenants over 32 tiles of new sessions, kernel route against
+   prompts of 256 tokens, ``make_run_steps`` with telemetry over
+   ``SERVE_TILES`` staged tiles of "sample for me" requests,
+   ``make_tenant_run_steps`` for 4 tenants over ``SERVE_TILES`` tiles of
+   new sessions, kernel route against
    plain route (sessions but their last token, served counts, telemetry,
    non-token egress words), the same launches a step for 4 tenants as
    for one; and the first decode step's logits after the prefill
    against the same prompts fed one decode step at a time, within
    ``LOGIT_TOL``;
+12. the dense zoo at full width: gemma3-1b (26 layers, 5:1 sliding-
+   window and global), nemotron-4-15b (32) and phi3-medium-14b (40) at
+   their published widths in bf16 with seeded weights, one model at a
+   time, each freed before the next: 8 prompts (gemma3: 700 tokens, past
+   its 512-row window and not a multiple of it, so the padded chunked
+   attention and the ring wrap run; the others 256) prefilled into
+   1,024 cache rows, then 8 greedy decode steps on the kernel route
+   (``decode_attention`` on the global layers, counted) and the plain
+   route from copies of one cache: logits within ``LOGIT_TOL``, and the
+   last step within ``LOGIT_TOL`` of the prefill of the 8 tokens longer
+   sequence (argmax agreement printed); ``Model.loss`` on 2 x 512
+   tokens, finite (gemma3 also on 1 x 1,024 tokens with flash blocks
+   of 256 against the dense loss, within ``ZOO_FLASH_TOL``); then
+   gemma3-1b's decode tenant on the kernel route at phase 6's pool and
+   traffic for ``ZOO_TENANT_STEPS`` steps (ledgers balanced, 4
+   ``decode_attention`` a step) with a profiled window;
 4. kernel summary (run last): one JSON line with each kernel's launches
-   on the main paths (phases 3 and 5-11) and, at the shape with the most
+   on the main paths (phases 3, 5-12) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
    version's, its bound and, for decode attention, the time of
    ``F.scaled_dot_product_attention`` on the same inputs.  Every kernel
    is timed at every shape its main paths give it (``by_shape`` in the
    details: launches by path, ms, call ms, bound, device activities a
    call), on inputs captured at that shape in one more step of phases
-   3 and 5-11; the launches by shape are the ``ops`` wrappers' own
+   3 and 5-12; the launches by shape are the ``ops`` wrappers' own
    counts (``ops.launch_shapes``) from the main-path runs.  The switch
    step's graph restores its captured state before every call, and its
    time is that graph's less a graph of the restores.  Four kernels run
@@ -196,7 +216,7 @@ LM_ARCH = "qwen2-1.5b"
 LM_POOL = dict(n_slots=32, max_seq=1024, max_prompt=512, max_new_cap=256)
 LM_FLOWS = 8
 LM_RATE = 0.065
-LM_STEPS = 600                     # cut from 2,000 (PR 19: 1,000; PR 20: 600)
+LM_STEPS = 150                     # cut from 2,000 to fit under 600 s
 LM_BINS = 1024                      # TTFT reaches max_prompt + 1 and more
 LM_PROFILE_STEPS = 4               # profiled steps per route (slow to trace)
 # one decode step's logits, kernel route against plain route, from the
@@ -212,9 +232,9 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 
 # tenant batching: 8 of phase 3's 512-flow pairs stacked (16 NICs, about
 # 128 MB of fabric state), deterministic open-loop arrivals at 1,638.4 x
-# (8 - i) / 8 requests/step on lane i, 200 steps, then per-lane targets
+# (8 - i) / 8 requests/step on lane i, 100 steps, then per-lane targets
 TENANTS = 8
-TENANT_STEPS = 200
+TENANT_STEPS = 100                  # cut from 200 to fit under 600 s
 TENANT_BASE = 1638.4
 # the flight service (benchmarks/tab4_flight.py): Table 4's latency run
 # (48 registrations at 2 a step) and throughput run (192 at 8 a step), both
@@ -232,19 +252,38 @@ KVS_TENANT_STORE = dict(KVS_STORE, n_buckets=2**19)
 KVS_TENANT_KEYS = 2**20
 KVS_TENANT_CHUNK = 2**17            # keys a bulk SET, 1/4 of the buckets
 # (cut from 100 rounds a mix to keep the script under 600 s)
-KVS_TENANT_ROUNDS = (("write_z99", 0.5, 40), ("read_z99", 0.05, 40))
+KVS_TENANT_ROUNDS = (("write_z99", 0.5, 24), ("read_z99", 0.05, 24))
 # decode tenants: phase 6's pool for 4 tenants at Poisson 0.065
 # requests/step each (seeds 0-3), then the rate sweep
 LM_TENANTS = 4
 LM_TENANT_STEPS = 200              # cut from 250 to keep under 600 s
 LM_SWEEP_RATES = (0.065, 0.13, 0.26)
-LM_SWEEP_STEPS = 64                # cut from 128
+LM_SWEEP_STEPS = 32                # cut from 128
 NEW_PROFILE_STEPS = 2              # profiled steps (rounds) a run, 9-11
-# serving: 32 sessions prefilled with 256-token prompts, then 32 staged
-# tiles of "sample for me" requests; 4 tenants over 32 tiles of new
+# serving: 32 sessions prefilled with 256-token prompts, then 16 staged
+# tiles of "sample for me" requests; 4 tenants over 16 tiles of new
 # sessions
 SERVE_PROMPT = 256
-SERVE_TILES = 32                    # cut from 64 to keep under 600 s
+SERVE_TILES = 16                    # cut from 64 to keep under 600 s
+# the dense zoo at full width (bf16, seeded weights, full depth), one
+# model at a time: 8 prompts (gemma3: 700 tokens, past its 512 window and
+# not a multiple of it; the others 256) into 1,024 cache rows, 8 decode
+# steps a route; the loss on 2 x 512 tokens (gemma3 also 1 x 1,024 with
+# flash blocks of 256); gemma3's decode tenant at phase 6's pool and
+# traffic
+ZOO = (("gemma3-1b", 700), ("nemotron-4-15b", 256),
+       ("phi3-medium-14b", 256))
+ZOO_SLOTS = 8
+ZOO_ROWS = 1024
+ZOO_DECODE_STEPS = 8
+ZOO_LOSS = (2, 512)
+ZOO_FLASH = (1, 1024, 256)          # batch, tokens, flash block
+# flash against dense loss in bf16: the attention outputs round to bf16
+# in other places, which moves a mean of 1,023 cross-entropies by far
+# less than 2.5 bf16 units of roundoff (2^-8 each), relative
+ZOO_FLASH_TOL = 1e-2
+ZOO_TENANT = "gemma3-1b"
+ZOO_TENANT_STEPS = 200
 
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
@@ -570,8 +609,12 @@ def close(torch, got, want, tol, what):
 # phases
 # --------------------------------------------------------------------------
 
+def get_config(arch):
+    from repro_torch.configs import get_config as config_of
+    return config_of(arch)
+
+
 def get_lm_config():
-    from repro_torch.configs import get_config
     return get_config(LM_ARCH)
 
 
@@ -866,6 +909,11 @@ def phase_kernels(torch, dev):
                # phases 10 and 11: 4 tenants' pools as one of 128 slots
                (LM_TENANTS * LM_POOL["n_slots"], lm.n_heads, lm.n_kv_heads,
                 lm.resolved_head_dim, LM_POOL["max_seq"])]
+    # phase 12: the global layers of the dense zoo over phase 6's pool
+    for arch, _ in ZOO:
+        zc = get_config(arch)
+        shapes.append((LM_POOL["n_slots"], zc.n_heads, zc.n_kv_heads,
+                       zc.resolved_head_dim, LM_POOL["max_seq"]))
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         for b_, nq, nkv, hd, s_, *zero in shapes:
@@ -2423,9 +2471,9 @@ def serve_tiles(torch, dev, fab, n_tenants, first_id, prompts=None):
 
 def phase_serving(torch, dev, seen):
     """Serving at Qwen2-1.5B: ``prefill_sessions`` of 32 prompts of 256
-    tokens, ``make_run_steps`` with telemetry over 32 staged tiles, then
-    ``make_tenant_run_steps`` for 4 tenants over 32 tiles of new
-    sessions, kernel route against plain route; and the first decode
+    tokens, ``make_run_steps`` with telemetry over ``SERVE_TILES`` staged
+    tiles, then ``make_tenant_run_steps`` for 4 tenants over as many tiles
+    of new sessions, kernel route against plain route; and the first decode
     step after the prefill against the same prompts fed one decode step
     at a time."""
     from repro_torch.config import FabricConfig
@@ -2581,6 +2629,236 @@ def phase_serving(torch, dev, seen):
                   logit_scale=logit_scale, argmax_share=argmax_share,
                   token_share=shares)
     return report, counts, tally, 2 * SERVE_TILES
+
+
+def zoo_decode(torch, model, arch, prompt, seen):
+    """One model of phase 12: prefill, 8 decode steps on both routes
+    (kernel route counted), decode against the prefill of the longer
+    sequence, the loss (and for gemma3 the flash loss), and phase 4's
+    inputs at this model's decode shapes."""
+    from repro_torch.kernels import ops
+    dev = model.device
+    cfg = model.cfg
+    plain_cfg = cfg.replace(use_pallas=False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    prompts = torch.randint(0, cfg.vocab, (ZOO_SLOTS, prompt), device=dev,
+                            generator=gen)
+    out = {"prompt": prompt}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(prompts,
+                                      model.cache_init(ZOO_SLOTS, ZOO_ROWS))
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits).all())
+              and logits.shape == (ZOO_SLOTS, cfg.vocab),
+              f"zoo {arch}: prefill logits not finite or misshapen")
+        plain_cache = [{k: v.clone() for k, v in c.items()} for c in cache]
+        fed, errs, agree = [], [], []
+        ops.reset_launch_counts()
+        k_secs = p_secs = 0.0
+        for i in range(ZOO_DECODE_STEPS):
+            tok = logits.argmax(-1)[:, None]
+            fed.append(tok)
+            pos = torch.full((ZOO_SLOTS,), prompt + i, dtype=torch.int32,
+                             device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(cache, tok, pos)
+            torch.cuda.synchronize()
+            k_secs += time.perf_counter() - t0
+            counts, tally = ops.launch_counts(), ops.launch_shapes()
+            model.cfg = plain_cfg
+            t0 = time.perf_counter()
+            lp, plain_cache = model.decode_step(plain_cache, tok, pos)
+            torch.cuda.synchronize()
+            p_secs += time.perf_counter() - t0
+            model.cfg = cfg
+            check(bool(torch.isfinite(logits).all()),
+                  f"zoo {arch}: decode logits not finite")
+            errs.append((float((logits - lp).abs().max()),
+                         float(lp.abs().max())))
+            agree.append(float((logits.argmax(-1) == lp.argmax(-1))
+                               .float().mean()))
+        check(ops.launch_counts() == counts,
+              f"zoo {arch}: the plain route launched kernels")
+        n_global = sum(k == 0 for k, _ in model.dec_kinds)
+        check(counts["decode_attention"] == n_global * ZOO_DECODE_STEPS,
+              f"zoo {arch}: decode_attention launched "
+              f"{counts['decode_attention']} times, expected {n_global} x "
+              f"{ZOO_DECODE_STEPS}")
+        err, scale = max(errs, key=lambda e: e[0] / e[1])
+        check(all(e <= LOGIT_TOL * m for e, m in errs),
+              f"zoo {arch}: kernel and plain route logits differ by "
+              f"{err} (largest |logit| {scale})")
+        # the last decode step against the prefill of the longer sequence
+        ext, _ = model.prefill(torch.cat([prompts] + fed, dim=1),
+                               model.cache_init(ZOO_SLOTS, ZOO_ROWS))
+        ext_err, ext_scale = (float((logits - ext).abs().max()),
+                              float(ext.abs().max()))
+        ext_agree = float((logits.argmax(-1) == ext.argmax(-1)).float()
+                          .mean())
+        check(ext_err <= LOGIT_TOL * ext_scale,
+              f"zoo {arch}: decode after prefill differs from the prefill "
+              f"of the longer sequence by {ext_err} (largest |logit| "
+              f"{ext_scale})")
+        del ext, plain_cache
+        # phase 4's inputs at this model's decode shapes: one more step
+        with recording(seen):
+            model.decode_step([{k: v.clone() for k, v in c.items()}
+                               for c in cache], fed[-1],
+                              torch.full((ZOO_SLOTS,), prompt,
+                                         dtype=torch.int32, device=dev))
+        del cache
+        # the loss
+        b, s = ZOO_LOSS
+        tok = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, metrics = model.loss({"tokens": tok, "labels": tok})
+        torch.cuda.synchronize()
+        out["loss_s"] = time.perf_counter() - t0
+        check(bool(torch.isfinite(loss)) and float(metrics["tokens"])
+              == b * (s - 1), f"zoo {arch}: loss {float(loss)}, metrics "
+              f"{ {k: float(v) for k, v in metrics.items()} }")
+        out["loss"] = float(loss)
+        if arch == ZOO_TENANT:
+            b, s, block = ZOO_FLASH
+            tok = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                                generator=gen)
+            dense, _ = model.loss({"tokens": tok, "labels": tok})
+            model.cfg = cfg.replace(flash_block=block)
+            flash, _ = model.loss({"tokens": tok, "labels": tok})
+            model.cfg = cfg
+            out["flash_loss"], out["flash_dense_loss"] = (float(flash),
+                                                          float(dense))
+            check(abs(float(flash) - float(dense))
+                  <= ZOO_FLASH_TOL * abs(float(dense)),
+                  f"zoo {arch}: flash loss {float(flash)} against dense "
+                  f"{float(dense)}")
+    out.update(counts=counts, tally=tally, logit_err=err, logit_scale=scale,
+               argmax_share=min(agree), ext_err=ext_err,
+               ext_scale=ext_scale, ext_argmax_share=ext_agree,
+               kernel_ms_per_step=k_secs / ZOO_DECODE_STEPS * 1e3,
+               plain_ms_per_step=p_secs / ZOO_DECODE_STEPS * 1e3)
+    say(f"zoo {arch}: prefill {ZOO_SLOTS} x {prompt} in "
+        f"{out['prefill_s']:.3f} s; {ZOO_DECODE_STEPS} decode steps a route,"
+        f" {out['kernel_ms_per_step']:.2f} ms/step kernels, "
+        f"{out['plain_ms_per_step']:.2f} plain; routes' logits max |diff| "
+        f"{err:.4g} of max |logit| {scale:.4g}, argmax equal on "
+        f"{min(agree):.3f} of slots (worst step); decode after prefill "
+        f"against the prefill of {prompt + ZOO_DECODE_STEPS} tokens: max "
+        f"|diff| {ext_err:.4g} of {ext_scale:.4g}, argmax equal on "
+        f"{ext_agree:.3f}; loss {ZOO_LOSS[0]} x {ZOO_LOSS[1]} "
+        f"{out['loss']:.5f} in {out['loss_s']:.3f} s"
+        + (f"; flash loss {out['flash_loss']:.6f} against dense "
+           f"{out['flash_dense_loss']:.6f} ({ZOO_FLASH[0]} x {ZOO_FLASH[1]},"
+           f" blocks of {ZOO_FLASH[2]})" if "flash_loss" in out else "")
+        + f"; launches {counts}")
+    return out
+
+
+def zoo_tenant(torch, dev, seen):
+    """gemma3-1b's decode tenant on the kernel route at phase 6's pool and
+    traffic for ``ZOO_TENANT_STEPS`` steps, then a profiled window."""
+    from repro_torch.apps.lm_decode import build_engine
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core import serdes
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.decode import default_fabric_config
+
+    eng = build_engine(
+        cfg=get_config(ZOO_TENANT),
+        fabric_cfg=default_fabric_config(n_flows=LM_FLOWS, use_pallas=True),
+        mode=lg.MODE_POISSON, seed=0, use_pallas=True, n_bins=LM_BINS,
+        device=dev, **LM_POOL)
+    st = eng.init_states(LM_RATE, seed=7)
+    check([c["k"].shape[1] for c in st.cache[:6]]
+          == [eng.cfg.local_window] * 5 + [LM_POOL["max_seq"]],
+          "zoo tenant: ring and global cache rows")
+    run = eng.make_run_steps(ZOO_TENANT_STEPS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, (comp, valid) = run(st)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, tally = ops.launch_counts(), ops.launch_shapes()
+    sl = st.slots
+    recs = serdes.unpack(comp)
+    tokens = int((valid & ((recs["flags"] & serdes.FLAG_FRAGMENT) != 0))
+                 .sum())
+    qt = tlm.quantiles(st.ttft.hist)
+    r = dict(secs=secs, steps_per_s=ZOO_TENANT_STEPS / secs, tokens=tokens,
+             admitted=int(sl.admitted), completed=int(sl.completed),
+             rejected=int(sl.rejected), active=int((sl.req_id >= 0).sum()),
+             max_pos=int(sl.pos.max()), ttft_p50=qt[0.5], ttft_p99=qt[0.99],
+             counts=counts)
+    check(r["admitted"] == r["completed"] + r["active"] + r["rejected"]
+          and r["admitted"] > 0 and tokens > 0,
+          f"zoo tenant: ledger or traffic: {r}")
+    g = st.gst
+    check(int(g.offered) == int(g.injected) + int(g.dropped),
+          "zoo tenant: generator ledger unbalanced")
+    n_global = sum(k == 0 for k, _ in eng.model.dec_kinds)
+    check(counts["decode_attention"] == n_global * ZOO_TENANT_STEPS
+          and counts["ring_push_packed"] > 0 and counts["rpc_pack"] == 0
+          and counts["switch_step_fused"] > 0,
+          f"zoo tenant: launches {counts}")
+    prof = eng.make_run_steps(LM_PROFILE_STEPS)
+    pst = fresh(torch, st)
+    r["share"] = profile_steps(torch, lambda: prof(pst), LM_PROFILE_STEPS,
+                               secs / ZOO_TENANT_STEPS * 1e6)
+    say(f"zoo tenant {ZOO_TENANT}: {ZOO_TENANT_STEPS} steps in {secs:.3f} s,"
+        f" {r['steps_per_s']:.2f} steps/s, {tokens} tokens; admitted "
+        f"{r['admitted']} completed {r['completed']} rejected "
+        f"{r['rejected']} active {r['active']}, largest position "
+        f"{r['max_pos']}; TTFT p50 {qt[0.5]} / p99 {qt[0.99]} steps; "
+        f"launches {counts}")
+    say_profile(f"zoo tenant {ZOO_TENANT}", r["share"])
+    del pst
+    # phase 4's inputs at this path's shapes: one more step
+    with recording(seen):
+        eng.make_run_steps(1)(fresh(torch, st))
+    torch.cuda.synchronize()
+    return r, tally
+
+
+def phase_zoo(torch, dev, seen):
+    """The dense zoo at full width, one model at a time, each freed before
+    the next: ``zoo_decode`` for each of ``ZOO``, then gemma3-1b's decode
+    tenant.  Returns (report, {path: (counts, tally, steps)})."""
+    import gc
+    from repro_torch.models import Model
+    report, paths = {}, {}
+    for arch, prompt in ZOO:
+        t0 = time.perf_counter()
+        model = Model(get_config(arch).replace(use_pallas=True), device=dev,
+                      seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        say(f"zoo {arch}: {n_params} parameters ({n_params * 2 / 1e9:.3f} "
+            f"GB bf16, param_count {model.cfg.param_count()}), built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        r = zoo_decode(torch, model, arch, prompt, seen)
+        r.update(n_params=n_params, secs=time.perf_counter() - t0)
+        paths[f"zoo_{arch}"] = (r.pop("counts"), r.pop("tally"),
+                                ZOO_DECODE_STEPS)
+        report[arch] = r
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r, tally = zoo_tenant(torch, dev, seen)
+    r["total_s"] = time.perf_counter() - t0
+    paths["zoo_tenant"] = (r.pop("counts"), tally, ZOO_TENANT_STEPS)
+    report["tenant"] = r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, paths
 
 
 def card_label():
@@ -2916,6 +3194,11 @@ def main():
     say(f"phase 11: serving routes equal ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
+    report["zoo"], zoo_paths = phase_zoo(torch, dev, seen)
+    say(f"phase 12: dense zoo at full width ({time.perf_counter() - t0:.1f} "
+        f"s)")
+
+    t0 = time.perf_counter()
     paths = {"fused": (runs["fused"]["counts"], runs["fused"]["tally"],
                        FULL_STEPS),
              "staged": (runs["staged"]["counts"], runs["staged"]["tally"],
@@ -2927,7 +3210,7 @@ def main():
              "flight": (fl_counts, fl_tally, fl_steps),
              "kvs_tenants": (kt_counts, kt_tally, kt_steps),
              "lm_tenants": (lt_counts, lt_tally, LM_TENANT_STEPS),
-             "serving": (sv_counts, sv_tally, sv_steps)}
+             "serving": (sv_counts, sv_tally, sv_steps), **zoo_paths}
     rows = phase_summary(torch, paths, seen)
     report["kernels"] = rows
     say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")

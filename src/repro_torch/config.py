@@ -123,6 +123,58 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self, active_only: bool = False) -> int:
+        """Approximate parameter count (the weight matrices and the
+        embedding; norms and biases left out); ``active_only`` counts the
+        MoE layers' top-k and shared experts only."""
+        d, f, V = self.d_model, self.d_ff, self.vocab
+        hd = self.resolved_head_dim
+        nq, nkv = self.n_heads, self.n_kv_heads
+        glu = 3 if self.mlp_act in ("swiglu", "geglu") else 2
+
+        def attn_params() -> int:
+            if self.attn_kind == "mla":
+                m = self.mla
+                qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+                p = d * m.q_lora_rank + m.q_lora_rank * nq * qk
+                p += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                p += m.kv_lora_rank * nq * (m.qk_nope_head_dim + m.v_head_dim)
+                p += nq * m.v_head_dim * d
+                return p
+            return d * hd * (nq + 2 * nkv) + nq * hd * d
+
+        def dense_ffn() -> int:
+            return glu * d * f
+
+        def moe_ffn(active: bool) -> int:
+            mo = self.moe
+            n = (mo.top_k if active else mo.n_experts) + mo.n_shared
+            return n * glu * d * mo.d_ff_expert + d * mo.n_experts
+
+        def mamba_params() -> int:
+            s = self.ssm
+            di = s.expand * d
+            return (2 * d * di + di * (2 * s.d_state + 2) + di * s.d_conv
+                    + di * d)
+
+        total = V * d  # embedding
+        if not self.tie_embeddings:
+            total += V * d
+        for kind, is_moe in self._layer_kinds():
+            ffn = moe_ffn(active_only) if is_moe else dense_ffn()
+            if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+                total += attn_params() + ffn
+            elif kind == MAMBA:
+                total += mamba_params() + ffn
+            elif kind in (SLSTM, MLSTM):
+                total += 4 * d * d + dense_ffn() // 2
+        if self.enc_layers:
+            # encoder self-attention and FFN, and the decoder's cross
+            # attention
+            total += self.enc_layers * (attn_params() + dense_ffn())
+            total += self.n_layers * attn_params()
+        return int(total)
+
     def _layer_kinds(self):
         """Return [(layer_kind, is_moe)] for the decoder stack."""
         out = []

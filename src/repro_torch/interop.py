@@ -29,7 +29,11 @@ Model weights and KV caches are float: ``model_params_from_numpy`` loads
 the reference's parameter pytree (``{"embed", "decoder", "final_norm"}``,
 the decoder's layers stacked per segment along a leading dim) into a
 ``models.Model``, and ``decode_cache_*`` convert the reference's stacked
-cache to the port's one-dict-per-layer list and back.  Their dtypes are
+cache to the port's one-dict-per-layer list and back, whatever rows a
+layer keeps (gemma3's sliding-window rings of ``local_window`` rows
+beside its global caches of ``max_seq``, segments ``[((L,L,L,L,L,G),
+n), ((L,L), 1)]``); LayerNorm biases and tied embeddings (no
+``lm_head``) load by name like every other weight.  Their dtypes are
 carried exactly too (bfloat16 as its bits).  Tenant-stacked decode
 states (``DecodeEngine.init_states_batch``), ``ServingEngine`` state
 triples (``serving_states_*``, single or stacked) and stacked

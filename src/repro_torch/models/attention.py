@@ -1,17 +1,22 @@
-"""GQA decode attention: one new token per slot against its KV cache.
+"""GQA attention: full (global), sliding-window (local) and one-token
+decode against the KV cache.
 
-The port serves the global GQA paths of the reference's
-``models/attention.py``: ``_qkv`` (with QKV biases), ``_sdpa`` (float32
-scores), ``_causal_mask``, ``gqa_full`` (causal self-attention over a
-whole prompt, the prefill path; plain PyTorch, as the reference computes
-it outside any Pallas kernel), ``pos_vec`` and ``gqa_decode``.
-Sliding-window, cross and MLA attention, and the reference's
-online-softmax ``_flash_sdpa`` (reached only with ``cfg.flash_block``),
-wait for the other-architecture slice.
+The port serves the GQA paths of the reference's ``models/attention.py``:
+``_qkv`` (with QKV biases), ``_sdpa`` (float32 scores, optional logit
+soft-cap), ``_causal_mask``, ``_flash_sdpa`` (online softmax over KV
+blocks, taken by ``gqa_full`` when ``cfg.flash_block`` is set and the
+sequence is longer than a block), ``gqa_full`` (causal self-attention
+over a whole sequence: the prefill and train path), ``gqa_local``
+(sliding-window causal attention, chunked into bands of two windows:
+O(S * 2W) work, not a masked O(S^2)), ``pos_vec`` and ``gqa_decode``.
+All but ``gqa_decode``'s kernel route are plain PyTorch, as the
+reference computes them outside any Pallas kernel.  Cross and MLA
+attention wait for the encoder and MLA slices.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
@@ -59,10 +64,12 @@ def _qkv(cfg: ModelConfig, p, x):
 def _sdpa(cfg: ModelConfig, q, k, v, mask):
     """q: [B,S,nq,hd]; k,v: [B,T,nkv,hd]; mask: broadcastable [B,1,1,S,T].
 
-    Scores and weights in float32.  With ``fast_attn`` the weights are
-    rounded to ``v``'s dtype before the weighted sum, as the reference's
-    ``preferred_element_type`` route does (its float32 accumulation of
-    low-precision products equals the float32 product of upcast values).
+    Scores and weights in float32; with ``cfg.logit_softcap`` c > 0 the
+    scaled scores become ``tanh(scores / c) * c`` before the mask.  With
+    ``fast_attn`` the weights are rounded to ``v``'s dtype before the
+    weighted sum, as the reference's ``preferred_element_type`` route
+    does (its float32 accumulation of low-precision products equals the
+    float32 product of upcast values).
     """
     b, s, nq, hd = q.shape
     nkv = k.shape[2]
@@ -70,6 +77,7 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask):
     qg = q.reshape(b, s, nkv, g, hd).to(torch.float32)
     scores = torch.einsum("bskgd,btkd->bkgst", qg,
                           k.to(torch.float32)) * (hd ** -0.5)
+    scores = _softcap(scores, cfg.logit_softcap)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
@@ -86,20 +94,113 @@ def _causal_mask(s: int, t: int, device, q_offset: int = 0):
     return (kpos <= qpos)[None, None, None]
 
 
+def _softcap(scores, c: float):
+    return torch.tanh(scores / c) * c if c > 0 else scores
+
+
+def _flash_sdpa(q, k, v, block: int, softcap: float = 0.0):
+    """Causal online-softmax attention over KV blocks of ``block`` rows:
+    the live scores are [.., S, block], never [.., S, T].
+
+    q: [B,S,nq,hd]; k: [B,T,nkv,hd]; v: [B,T,nkv,vd] (vd may differ from
+    hd, as MLA's); nq % nkv == 0.  float32 throughout, output in q's
+    dtype.  T must be a multiple of ``min(block, T)``."""
+    b, s, nq, hd = q.shape
+    t, nkv = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    g = nq // nkv
+    block = min(block, t)
+    if t % block:
+        raise ValueError(f"T={t} not a multiple of flash block {block}")
+    qg = q.reshape(b, s, nkv, g, hd).to(torch.float32)
+    qpos = torch.arange(s, device=q.device)
+    m = torch.full((b, nkv, g, s), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, nkv, g, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, nkv, g, s, vd), dtype=torch.float32,
+                      device=q.device)
+    for lo in range(0, t, block):
+        kc = k[:, lo:lo + block].to(torch.float32)
+        vc = v[:, lo:lo + block].to(torch.float32)
+        sc = torch.einsum("bskgd,btkd->bkgst", qg, kc) * (hd ** -0.5)
+        sc = _softcap(sc, softcap)
+        kpos = lo + torch.arange(block, device=q.device)
+        sc = torch.where(kpos[None, :] <= qpos[:, None], sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgst,btkd->bkgsd",
+                                                    p, vc)
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, nq, vd).to(q.dtype)
+
+
 def gqa_full(cfg: ModelConfig, p, x, positions):
     """Causal self-attention over the whole sequence. x: [B, S, d];
     positions: [B, S].  Returns (out [B, S, d], (k, v) [B, S, nkv, hd])
-    — the K/V a prefill writes into the cache."""
-    if cfg.flash_block:
-        raise NotImplementedError(
-            "cfg.flash_block: the reference's _flash_sdpa (online-softmax "
-            "attention over KV blocks) is not ported")
+    — the K/V a prefill writes into the cache.  With ``cfg.flash_block``
+    and S longer than a block, ``_flash_sdpa`` computes it."""
     q, k, v = _qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = _sdpa(cfg, q, k, v, _causal_mask(q.shape[1], k.shape[1],
-                                           x.device))
+    if cfg.flash_block and q.shape[1] > cfg.flash_block:
+        out = _flash_sdpa(q, k, v, cfg.flash_block,
+                          softcap=cfg.logit_softcap)
+    else:
+        out = _sdpa(cfg, q, k, v, _causal_mask(q.shape[1], k.shape[1],
+                                               x.device))
     return mm(out.reshape(*x.shape[:-1], -1), p["wo"]), (k, v)
+
+
+def gqa_local(cfg: ModelConfig, p, x, positions):
+    """Sliding-window causal attention (window ``cfg.local_window``):
+    query i sees keys (i - W, i].  x: [B, S, d]; positions: [B, S].
+    Returns (out [B, S, d], (k, v) [B, S, nkv, hd]).
+
+    S <= W is plain causal attention (``_sdpa``).  Past W the sequence is
+    cut into chunks of W; chunk c attends chunks c - 1 and c under a band
+    mask (the first chunk has no predecessor), with float32 scores and
+    weights whatever ``fast_attn`` says.  A tail that is not a multiple
+    of W is padded (tokens and positions 0) and cut off again: the band
+    keeps padded keys out of every real query's view."""
+    w = cfg.local_window
+    b, s_orig, _ = x.shape
+    if s_orig > w and s_orig % w:
+        pad = w - s_orig % w
+        out, (k, v) = gqa_local(cfg, p, F.pad(x, (0, 0, 0, pad)),
+                                F.pad(positions, (0, pad)))
+        return out[:, :s_orig], (k[:, :s_orig], v[:, :s_orig])
+    s = s_orig
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if s <= w:
+        out = _sdpa(cfg, q, k, v, _causal_mask(s, s, x.device))
+        return mm(out.reshape(b, s, -1), p["wo"]), (k, v)
+    nc = s // w
+    nq, nkv, hd = q.shape[2], k.shape[2], q.shape[3]
+    g = nq // nkv
+    kc = k.reshape(b, nc, w, nkv, hd).to(torch.float32)
+    vc = v.reshape(b, nc, w, nkv, hd).to(torch.float32)
+    # keys and values of chunk c: chunks c - 1 and c, [b, nc, 2w, nkv, hd]
+    k2 = torch.cat([F.pad(kc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], kc], dim=2)
+    v2 = torch.cat([F.pad(vc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], vc], dim=2)
+    qpos = torch.arange(w, device=x.device)[:, None] + w   # in [w, 2w)
+    kpos = torch.arange(2 * w, device=x.device)[None, :]
+    band = (kpos <= qpos) & (kpos > qpos - w)
+    first = (torch.arange(nc, device=x.device) == 0)[:, None, None]
+    mask = torch.where(first, band & (kpos >= w), band)
+    mask = mask.reshape(1, nc, 1, 1, w, 2 * w)            # [b,c,k,g,s,t]
+    qg = q.reshape(b, nc, w, nkv, g, hd).to(torch.float32)
+    scores = torch.einsum("bcskgd,bctkd->bckgst", qg, k2) * (hd ** -0.5)
+    scores = _softcap(scores, cfg.logit_softcap)
+    scores = torch.where(mask, scores, NEG_INF)
+    wts = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bckgst,bctkd->bcskgd", wts, v2)
+    out = out.reshape(b, s, nq * hd).to(x.dtype)
+    return mm(out, p["wo"]), (k, v)
 
 
 def pos_vec(pos, b, device):

@@ -1,18 +1,21 @@
-"""Top-level ``Model``: embedding, decoder stack and head, in prefill and
-decode modes.
+"""Top-level ``Model``: embedding, decoder stack and head, in train,
+prefill and decode modes.
 
 ``Model(cfg, device=..., generator=...)`` holds the weights as an
 ``nn.Module`` (parameter names follow the reference's pytree:
 ``embed.tok``, ``layers.<i>.attn.wq``, ``final_norm.scale``, ...):
 
+* ``loss(batch)``                         -> (scalar loss, metrics)
 * ``cache_init(batch, max_seq)``          -> zeroed cache (one dict per layer)
 * ``prefill(tokens, cache)``              -> (last-token logits [B, V] f32, cache)
 * ``decode_step(cache, tokens, pos)``     -> (logits [B, V] f32, cache)
 
-It serves the decoder-only dense GQA architectures (Qwen2, the in-house
-repro-100m) and raises ``NotImplementedError`` for every feature of the
-reference's ``ModelConfig`` that it does not serve, rather than taking
-another path.  ``loss`` waits for a later slice.
+It serves the decoder-only dense GQA architectures — Qwen2, Phi-3,
+Nemotron-4, Gemma 3 (5:1 sliding-window and global layers, tied
+embeddings) and the in-house repro-100m — with the logit soft-cap and
+flash (``flash_block``) attention, and raises ``NotImplementedError``
+for every feature of the reference's ``ModelConfig`` that it does not
+serve, rather than taking another path.
 """
 from __future__ import annotations
 
@@ -30,13 +33,14 @@ def _refuse_unserved(cfg: ModelConfig) -> None:
     unserved = {
         "moe": cfg.moe is not None,
         "mla": cfg.mla is not None or cfg.attn_kind != "gqa",
-        "ssm": (cfg.ssm is not None or cfg.family == "ssm"
-                or bool(cfg.hybrid_pattern)),
-        "local_window": bool(cfg.local_window or cfg.local_pattern),
+        "ssm": cfg.ssm is not None,
+        "family": cfg.family == "ssm",            # sLSTM / mLSTM layers
+        "hybrid_pattern": bool(cfg.hybrid_pattern),
+        # local layers without a window: the reference gives them no cache
+        "local_pattern": bool(cfg.local_pattern and not cfg.local_window),
         "enc_layers": bool(cfg.enc_layers),
         "frontend": bool(cfg.frontend),
         "mtp_depth": bool(cfg.mtp_depth),
-        "logit_softcap": cfg.logit_softcap != 0,
         "tp_axis": bool(cfg.tp_axis),
     }
     bad = [k for k, v in unserved.items() if v]
@@ -75,8 +79,8 @@ class Model(nn.Module):
 
     def forward(self, tokens, mode: str = "decode", cache=None, pos=None):
         """tokens [B, S] -> (final-norm hidden states, new cache); the
-        sequence sits at positions 0..S-1 (prefill) or at ``pos``
-        (decode)."""
+        sequence sits at positions 0..S-1 (train, prefill) or at ``pos``
+        (decode).  ``mode="train"`` reads and writes no cache."""
         cfg = self.cfg
         x = embed_apply(cfg, self.embed, tokens)
         if cfg.name.startswith("gemma"):
@@ -87,6 +91,20 @@ class Model(nn.Module):
                                       mode=mode, cache=cache, pos=pos,
                                       positions=positions)
         return norm_apply(cfg, self.final_norm, x), new_cache
+
+    def loss(self, batch):
+        """Next-token cross-entropy of ``batch`` = {"tokens" [B, S],
+        "labels" [B, S]} (labels < 0 are ignored): position t's logits
+        against label t + 1.  Returns (loss, metrics) with metrics
+        ``ce``, ``tokens`` (labels counted), ``aux`` and ``loss``, all
+        float32 scalars; ``loss = ce + 0.01 * aux``, where ``aux`` (the
+        MoE balance term) is 0 for the dense models served."""
+        x, _ = self.forward(batch["tokens"], mode="train")
+        logits = unembed_apply(self.cfg, self.embed, x)     # [B,S,V] f32
+        ce, denom = _masked_ce(logits[:, :-1], batch["labels"][:, 1:])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        loss = ce + 0.01 * aux
+        return loss, {"ce": ce, "tokens": denom, "aux": aux, "loss": loss}
 
     def prefill(self, tokens, cache):
         """Run the prompts ``tokens`` [B, S] through the stack and write
@@ -105,3 +123,15 @@ class Model(nn.Module):
                                     pos=pos)
         logits = unembed_apply(self.cfg, self.embed, x[:, -1:])
         return logits[:, 0], new_cache
+
+
+def _masked_ce(logits, labels):
+    """Mean cross-entropy of ``logits`` [.., V] float32 against
+    ``labels`` [..]; labels < 0 are ignored.  Returns (mean, count), the
+    count at least 1."""
+    mask = (labels >= 0).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).to(torch.int64)[..., None])[..., 0]
+    denom = mask.sum().clamp(min=1.0)
+    return ((lse - gold) * mask).sum() / denom, denom

@@ -9,19 +9,23 @@ Layer ``i`` of segment ``(pattern, n_periods)`` starting at layer
 ``base`` is period ``(i - base) // len(pattern)``, position
 ``(i - base) % len(pattern)``.
 
-The cache is a list with one ``{"k", "v"}`` dict per layer.
+The cache is a list with one ``{"k", "v"}`` dict per layer: [B, max_seq,
+nkv, hd] on a global layer, a ring of ``min(local_window, max_seq)`` rows
+on a sliding-window layer (slot ``pos % w`` holds position ``pos``).
 """
 from __future__ import annotations
 
 from typing import List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.config import ATTN_GLOBAL, ModelConfig
+from repro_torch.config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (dtype_of, mlp_apply, mlp_init,
+from repro_torch.models.layers import (dtype_of, mlp_apply, mlp_init, mm,
                                        norm_apply, norm_init)
+from repro_torch.models.rope import apply_rope
 
 LayerSpec = Tuple[int, bool]            # (kind, is_moe)
 Segment = Tuple[Tuple[LayerSpec, ...], int]
@@ -42,10 +46,14 @@ def segments_from_kinds(kinds: List[LayerSpec]) -> List[Segment]:
 
 
 def _served(kind: int, is_moe: bool) -> None:
-    if kind != ATTN_GLOBAL or is_moe:
+    if kind not in (ATTN_GLOBAL, ATTN_LOCAL) or is_moe:
         raise NotImplementedError(
-            f"layer kind {kind} (moe={is_moe}): the port serves global "
-            f"dense GQA layers only")
+            f"layer kind {kind} (moe={is_moe}): the port serves dense GQA "
+            f"layers (global and sliding-window) only")
+
+
+def _is_local(cfg: ModelConfig, kind: int) -> bool:
+    return kind == ATTN_LOCAL and bool(cfg.local_window)
 
 
 def layer_init(gen, cfg: ModelConfig, kind: int,
@@ -61,42 +69,87 @@ def layer_init(gen, cfg: ModelConfig, kind: int,
 
 def layer_cache_init(cfg: ModelConfig, kind: int, batch: int, max_seq: int,
                      device) -> dict:
-    """Zeroed decode cache of one global GQA layer."""
+    """Zeroed decode cache of one GQA layer: ``max_seq`` rows on a global
+    layer, a ring of ``min(local_window, max_seq)`` on a local one."""
     _served(kind, False)
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    rows = (min(cfg.local_window, max_seq) if _is_local(cfg, kind)
+            else max_seq)
+    shape = (batch, rows, cfg.n_kv_heads, cfg.resolved_head_dim)
     cdt = dtype_of(cfg.compute_dtype)
     return {"k": torch.zeros(shape, dtype=cdt, device=device),
             "v": torch.zeros(shape, dtype=cdt, device=device)}
 
 
+def _local_decode(cfg: ModelConfig, p, h, ck, cv, pos):
+    """One-token sliding-window decode against a ring cache of w rows:
+    the new K/V row is written IN PLACE at slot ``pos % w``, then the
+    token attends every slot already written (all w once ``pos >= w``),
+    through the plain ``_sdpa`` (the reference uses no kernel here)."""
+    w, b = ck.shape[1], h.shape[0]
+    q, k, v = attn._qkv(cfg, p, h)
+    pv = attn.pos_vec(pos, b, h.device)
+    q = apply_rope(q, pv[:, None], cfg.rope_theta)
+    k = apply_rope(k, pv[:, None], cfg.rope_theta)
+    rows = torch.arange(b, device=h.device)
+    slot = pv % w
+    ck[rows, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    valid = ((torch.arange(w, device=h.device)[None, :] <= pv[:, None])
+             | (pv[:, None] >= w))
+    out = attn._sdpa(cfg, q, ck, cv, valid[:, None, None, None, :])
+    return mm(out.reshape(b, 1, -1), p["wo"])
+
+
+def _ring_fill(fresh, window: int):
+    """The ring a prefill of ``fresh`` [B, S, ...] leaves: the last
+    ``window`` positions, rolled so that slot ``pos % window`` holds
+    position ``pos``; rows past S are zero when S < window."""
+    s = fresh.shape[1]
+    if s <= window:
+        return F.pad(fresh, (0, 0) * (fresh.dim() - 2) + (0, window - s))
+    return torch.roll(fresh[:, s - window:], (s - window) % window, dims=1)
+
+
 def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
                 mode: str = "decode", cache=None, pos=None, positions=None):
     """Apply one layer: ln1 -> attention -> residual -> ln2 -> MLP ->
-    residual.  Returns (x, cache).
+    residual.  Returns (x, cache), the cache dict the one given.
 
     ``mode="decode"``: one token a row at ``pos`` against the cache.
     ``mode="prefill"``: the whole sequence at ``positions`` [B, S] with
-    causal attention (``gqa_full``); its K/V go into cache rows [0, S) in
-    place, the rows past S keep what they held (the reference's
-    ``_left_pad``, a ``dynamic_update_slice`` at offset 0)."""
+    causal attention (``gqa_full``, or ``gqa_local`` on a sliding-window
+    layer), its K/V written into the cache in place: on a global layer
+    into rows [0, S), the rows past S keep what they held (the
+    reference's ``_left_pad``, a ``dynamic_update_slice`` at offset 0);
+    on a local layer the whole ring is replaced (``_ring_fill``).
+    ``mode="train"``: the same attention as prefill, no cache read or
+    written (``cache`` is returned as given, ``None`` included)."""
     _served(kind, is_moe)
-    if mode not in ("decode", "prefill"):
-        raise NotImplementedError(
-            f"mode {mode!r}: the port serves decode and prefill")
+    if mode not in ("decode", "prefill", "train"):
+        raise ValueError(f"mode {mode!r}: decode, prefill or train")
+    local = _is_local(cfg, kind)
     h = norm_apply(cfg, p["ln1"], x)
-    if mode == "decode":
-        out, (ck, cv) = attn.gqa_decode(cfg, p["attn"], h, cache["k"],
-                                        cache["v"], pos)
+    if mode == "decode" and local:
+        out = _local_decode(cfg, p["attn"], h, cache["k"], cache["v"], pos)
+    elif mode == "decode":
+        out, _ = attn.gqa_decode(cfg, p["attn"], h, cache["k"], cache["v"],
+                                 pos)
     else:
-        out, (k, v) = attn.gqa_full(cfg, p["attn"], h, positions)
-        ck, cv = cache["k"], cache["v"]
-        s = k.shape[1]
-        ck[:, :s] = k.to(ck.dtype)
-        cv[:, :s] = v.to(cv.dtype)
+        fn = attn.gqa_local if local else attn.gqa_full
+        out, (k, v) = fn(cfg, p["attn"], h, positions)
+        if mode == "prefill":
+            ck, cv = cache["k"], cache["v"]
+            if local:
+                ck.copy_(_ring_fill(k, ck.shape[1]))
+                cv.copy_(_ring_fill(v, cv.shape[1]))
+            else:
+                s = k.shape[1]
+                ck[:, :s] = k.to(ck.dtype)
+                cv[:, :s] = v.to(cv.dtype)
     x = x + out
     if "mlp" in p:
         x = x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
-    return x, {"k": ck, "v": cv}
+    return x, cache
 
 
 def stack_cache_init(cfg: ModelConfig, kinds: List[LayerSpec], batch: int,
@@ -107,10 +160,11 @@ def stack_cache_init(cfg: ModelConfig, kinds: List[LayerSpec], batch: int,
 
 def stack_apply(cfg: ModelConfig, layers, x, kinds: List[LayerSpec], *,
                 mode: str = "decode", cache=None, pos=None, positions=None):
-    """Run the whole stack, layer by layer.  Returns (x, new cache)."""
-    new_cache = []
-    for p, (kind, is_moe), c in zip(layers, kinds, cache):
-        x, nc = layer_apply(cfg, p, x, kind=kind, is_moe=is_moe, mode=mode,
-                            cache=c, pos=pos, positions=positions)
-        new_cache.append(nc)
-    return x, new_cache
+    """Run the whole stack, layer by layer.  Returns (x, cache): every
+    layer writes its cache in place, so the cache returned is the one
+    given (``None`` in ``mode="train"`` without one)."""
+    for i, (p, (kind, is_moe)) in enumerate(zip(layers, kinds)):
+        x, _ = layer_apply(cfg, p, x, kind=kind, is_moe=is_moe, mode=mode,
+                           cache=None if cache is None else cache[i],
+                           pos=pos, positions=positions)
+    return x, cache

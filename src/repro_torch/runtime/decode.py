@@ -447,8 +447,10 @@ def _run_loop(step, n_steps: int):
 
 
 def _fold_cache(cache):
-    """A stacked cache ([T, N, S, ...] a layer) as one of T*N slots
-    (views of the contiguous stack, so in-place writes reach it)."""
+    """A stacked cache ([T, N, rows, ...] a layer: ``max_seq`` rows on a
+    global layer, a ring of w on a sliding-window one) as one of T*N
+    slots (views of the contiguous stack, so in-place writes reach
+    it)."""
     return [{k: x.reshape((-1,) + tuple(x.shape[2:])) for k, x in c.items()}
             for c in cache]
 

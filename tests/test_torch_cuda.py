@@ -812,3 +812,92 @@ def test_serving_tenant_run_steps_routes(cuda):
     for x, y in zip(_leaves((a[3], a[5], a[6])), _leaves((b[3], b[5], b[6]))):
         assert x.dtype == y.dtype and torch.equal(x, y)
     assert int(a[3].sum()) > 0
+
+
+# the decode pools of the dense zoo's global layers (32 slots x 1,024
+# rows): (query heads, kv heads, head dim)
+ZOO_DECODE = {"gemma3-1b": (4, 1, 256), "nemotron-4-15b": (48, 8, 128),
+              "phi3-medium-14b": (40, 10, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", sorted(ZOO_DECODE))
+def test_decode_attention_kernel_zoo_shapes(cuda, dtype, arch):
+    """Each dense model's global-layer decode shape over 32 slots of
+    1,024 rows (gemma3: g 4 at hd 256, the kernel's largest shared-memory
+    tiles), lengths at the tile edges and random."""
+    nq, nkv, hd = ZOO_DECODE[arch]
+    b, s = 32, 1024
+    rng = np.random.default_rng(11 + hd + nq)
+    q, k, v = (t.to(dtype) for t in _dev(decode_inputs(rng, b, nq, nkv, hd,
+                                                       s), cuda))
+    edges = edge_lengths(s, decode_attn.TILE)
+    lengths = rng.integers(0, s + 1, b).astype(np.int32)
+    lengths[:len(edges)] = edges
+    (lengths,) = _dev((lengths,), cuda)
+    before = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(q, k, v, lengths)
+    want = decode_attn.decode_attention_plain(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_gemma_reduced_bf16_kernel_route_matches_plain(cuda):
+    """gemma3-1b ``REDUCED`` in bf16 (window 16): a prefill of 20 tokens
+    (the padded chunked local attention and the ring wrap), then 8 decode
+    steps at per-row positions on the kernel route (``decode_attention``
+    on the 2 global layers) and the plain route from one cache: logits
+    within 3e-2 of the largest (the reference's bf16 tolerance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("gemma3-1b", reduced=True).replace(
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = Model(cfg.replace(use_pallas=True), device=cuda, seed=3)
+    plain = Model(cfg, device=cuda, seed=3)
+    plain.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(12)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 20))).to(cuda)
+    _, cache = model.prefill(tok, model.cache_init(4, 64))
+    cache_p = [{k: v.clone() for k, v in c.items()} for c in cache]
+    pos = torch.tensor([20, 20, 17, 12], dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()["decode_attention"]
+    for _ in range(8):
+        nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1))).to(cuda)
+        got, cache = model.decode_step(cache, nxt, pos)
+        want, cache_p = plain.decode_step(cache_p, nxt, pos)
+        scale = float(want.abs().max())
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 3e-2 * scale
+        pos = pos + 1
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + 2 * 8
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "nemotron-4-15b"])
+def test_model_loss_on_the_card_matches_cpu(cuda, arch):
+    """``Model.loss`` of one set of float32 ``REDUCED`` weights over 2 x
+    40 tokens (gemma3: past its window, the padded tail) on the card and
+    on the CPU, every metric within 2e-5; and over 2 x 48 tokens with
+    ``flash_block`` 16 (a multiple of the block)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    for flash in (0, 16):
+        cfg = get_config(arch, reduced=True).replace(flash_block=flash)
+        on_cpu = Model(cfg, device="cpu", seed=4)
+        on_card = Model(cfg, device=cuda, seed=4)
+        on_card.load_state_dict(on_cpu.state_dict())
+        tok = np.random.default_rng(13).integers(
+            0, cfg.vocab, (2, 48 if flash else 40))
+        labels = tok.copy()
+        labels[0, :7] = -1
+        batch = {"tokens": torch.from_numpy(tok),
+                 "labels": torch.from_numpy(labels)}
+        _, want = on_cpu.loss(batch)
+        _, got = on_card.loss({k: v.to(cuda) for k, v in batch.items()})
+        for name in want:
+            torch.testing.assert_close(got[name].cpu(), want[name],
+                                       rtol=2e-5, atol=2e-5)

@@ -233,8 +233,8 @@ def test_params_and_cache_interop_round_trip():
 
 @pytest.mark.parametrize("field,value", [
     ("moe", MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)),
-    ("mla", MLAConfig()), ("local_window", 8), ("enc_layers", 2),
-    ("frontend", "audio"), ("mtp_depth", 1), ("logit_softcap", 30.0),
+    ("mla", MLAConfig()), ("hybrid_pattern", (0, 2)), ("enc_layers", 2),
+    ("frontend", "audio"), ("mtp_depth", 1), ("family", "ssm"),
     ("tp_axis", "model")])
 def test_model_refuses_what_it_does_not_serve(field, value):
     with pytest.raises(NotImplementedError, match=field):

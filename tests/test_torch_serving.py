@@ -189,7 +189,8 @@ def _prompts(b, s, seed=0):
 
 def test_gqa_full_matches_reference():
     """Causal self-attention of layer 0 over an 8-token batch: output and
-    K/V within 2e-5."""
+    K/V within 2e-5; and with ``flash_block`` 4 (online softmax over KV
+    blocks), the output within 2e-5 of the reference's flash route."""
     jeng, eng = _engine()
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 8, eng.cfg.d_model)).astype(np.float32)
@@ -202,10 +203,13 @@ def test_gqa_full_matches_reference():
                                 torch.from_numpy(x), torch.from_numpy(pos))
     for g, w in ((out, jout), (k, jk), (v, jv)):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **TOL)
-    with pytest.raises(NotImplementedError, match="_flash_sdpa"):
-        attn.gqa_full(eng.cfg.replace(flash_block=4),
-                      eng.model.layers[0]["attn"], torch.from_numpy(x),
-                      torch.from_numpy(pos))
+    # flash attention over KV blocks of 4 rows (``_flash_sdpa``)
+    jout, _ = jattn.gqa_full(jeng.cfg.replace(flash_block=4), jp,
+                             jnp.asarray(x), jnp.asarray(pos))
+    out, _ = attn.gqa_full(eng.cfg.replace(flash_block=4),
+                           eng.model.layers[0]["attn"], torch.from_numpy(x),
+                           torch.from_numpy(pos))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **TOL)
 
 
 def test_prefill_matches_reference():
@@ -230,9 +234,14 @@ def test_prefill_matches_reference():
     jax.tree.map(lambda g, w: np.testing.assert_allclose(g, w, **TOL),
                  interop.decode_cache_to_numpy(eng.cfg, cache), _np(jc))
     assert float(cache[0]["k"][:, 10:].min()) == 0.5
-    with pytest.raises(NotImplementedError, match="train"):
-        eng.model.forward(torch.from_numpy(toks), mode="train",
-                          cache=cache)
+    # train mode: the reference's hidden states, the cache untouched
+    kept = [c["k"].clone() for c in cache]
+    jx, _, _ = jeng.model.forward(jeng.params, {"tokens": jnp.asarray(toks)},
+                                  mode="train")
+    x, _ = eng.model.forward(torch.from_numpy(toks), mode="train",
+                             cache=cache)
+    np.testing.assert_allclose(x.detach().numpy(), np.asarray(jx), **TOL)
+    assert all(torch.equal(c["k"], k) for c, k in zip(cache, kept))
 
 
 def test_prefill_sessions_matches_reference_and_decode():
