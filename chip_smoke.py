@@ -37,7 +37,8 @@ exit, no result line) on any mismatch:
    lengths that are not a multiple of the tile, Qwen2-1.5B's decode
    shapes and the global layers of gemma3-1b (4 query heads on 1 kv
    head, hd 256), nemotron-4-15b (48 on 8) and phi3-medium-14b (40 on
-   10) over 32 slots of 1,024 rows, within the stated tolerance
+   10) over 32 slots of 1,024 rows, and phi3.5-moe-42b's (32 on 8, hd
+   128) over 8 and 32 slots, within the stated tolerance
    (``DA_TOL``); and at the shapes
    of phases 7 and 8: the switch step's fetch route over the flight
    service's 8 tiers (2 flows, B 8, ring 64, request buffer 256: mixed
@@ -144,15 +145,37 @@ exit, no result line) on any mismatch:
    gemma3-1b's decode tenant on the kernel route at phase 6's pool and
    traffic for ``ZOO_TENANT_STEPS`` steps (ledgers balanced, 4
    ``decode_attention`` a step) with a profiled window;
+13. the MoE family at full width: phi3.5-moe-42b (24 of its 32 layers:
+   all 32 would not leave room on an 80 GB card) and deepseek-v3-671b
+   (4 of 61: its three dense layers and the first MoE layer; MLA, a
+   shared expert, MTP) in bf16 with seeded weights, one at a time, each
+   freed before the next: 8 prompts of 256 tokens prefilled into 1,024
+   cache rows, 8 greedy decode steps on the kernel route and the plain
+   route from copies of one cache (logits within ``LOGIT_TOL``;
+   ``decode_attention`` 24 times a step on phi3.5-moe, never on
+   deepseek), the last step within ``LOGIT_TOL`` of each sequence's
+   prefill of 8 more tokens, one step in "gather" mode against "dense"
+   from the same cache — each comparison on the kernel route's expert
+   choices (``routing``), with one free plain step's flipped choices
+   and distance printed beside them — a profiled window of 2 steps in
+   each mode, the
+   loss on 2 x 512 tokens (finite, aux > 0; deepseek's ``mtp_ce``
+   finite and its flash loss on 1 x 1,024 tokens in blocks of 256 within
+   ``ZOO_FLASH_TOL`` of the dense one), the parameters and peak memory;
+   then phi3.5-moe served through ``ServingEngine`` at phase 11's fabric
+   and pool: ``prefill_sessions`` of 32 prompts of 256 tokens (the
+   capacity branch), 4 tiles of 8 "sample for me" requests on both
+   routes (every request answered, sessions, served counts, telemetry
+   and non-token egress words equal);
 4. kernel summary (run last): one JSON line with each kernel's launches
-   on the main paths (phases 3, 5-12) and, at the shape with the most
+   on the main paths (phases 3, 5-13) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
    version's, its bound and, for decode attention, the time of
    ``F.scaled_dot_product_attention`` on the same inputs.  Every kernel
    is timed at every shape its main paths give it (``by_shape`` in the
    details: launches by path, ms, call ms, bound, device activities a
    call), on inputs captured at that shape in one more step of phases
-   3 and 5-12; the launches by shape are the ``ops`` wrappers' own
+   3 and 5-13; the launches by shape are the ``ops`` wrappers' own
    counts (``ops.launch_shapes``) from the main-path runs.  The switch
    step's graph restores its captured state before every call, and its
    time is that graph's less a graph of the restores.  Four kernels run
@@ -175,7 +198,9 @@ device line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -284,6 +309,16 @@ ZOO_FLASH = (1, 1024, 256)          # batch, tokens, flash block
 ZOO_FLASH_TOL = 1e-2
 ZOO_TENANT = "gemma3-1b"
 ZOO_TENANT_STEPS = 200
+# the MoE family at full width (bf16, seeded weights), depth cut to fit
+# one 80 GB card: phi3.5-moe-42b at 24 of 32 layers (all 32 are 83.7 GB
+# of weights), deepseek-v3-671b at 4 of 61 (its 3 dense layers and the
+# first MoE layer, 30.4 GB); phase 12's prompts, rows, steps and losses,
+# then phi3.5-moe served at phase 11's fabric and pool for 4 tiles
+MOE = (("phi3.5-moe-42b-a6.6b", 24), ("deepseek-v3-671b", 4))
+MOE_PROMPT = 256
+MOE_SERVE = "phi3.5-moe-42b-a6.6b"
+MOE_SERVE_TILES = 4
+MOE_PROFILE_STEPS = 2
 
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
@@ -914,6 +949,12 @@ def phase_kernels(torch, dev):
         zc = get_config(arch)
         shapes.append((LM_POOL["n_slots"], zc.n_heads, zc.n_kv_heads,
                        zc.resolved_head_dim, LM_POOL["max_seq"]))
+    # phase 13: phi3.5-moe's layers (32 on 8 kv heads, hd 128) over its
+    # decode's 8 slots and the serving pool's 32
+    mc = get_config(MOE_SERVE)
+    for b_ in (ZOO_SLOTS, LM_POOL["n_slots"]):
+        shapes.append((b_, mc.n_heads, mc.n_kv_heads, mc.resolved_head_dim,
+                       ZOO_ROWS))
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         for b_, nq, nkv, hd, s_, *zero in shapes:
@@ -2861,6 +2902,437 @@ def phase_zoo(torch, dev, seen):
     return report, paths
 
 
+def clone_cache(cache):
+    return [{k: v.clone() for k, v in c.items()} for c in cache]
+
+
+class routing:
+    """Within the block ``moe.route`` logs the expert ids of every call
+    in ``log`` or, with ``replay``, hands out the logged ids in call
+    order (with their probabilities) instead of choosing: a run then
+    takes another run's expert choices.  Where two experts' router
+    probabilities nearly tie, the last bit of a bf16 attention output
+    picks between them, and a flipped choice moves a token's output by
+    a whole expert's share; replaying holds two routes to one routing,
+    so that what they compute differently is compared alone."""
+
+    def __init__(self, log, replay=False):
+        self.log, self.replay = log, replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.orig, it = moe.route, iter(self.log)
+
+        self.calls = 0
+
+        def call(probs, k):
+            self.calls += 1
+            if self.replay:
+                ids = next(it)
+                check(ids.shape == probs.shape[:-1] + (k,),
+                      f"routing replay: ids {tuple(ids.shape)} for probs "
+                      f"{tuple(probs.shape)}")
+                return probs.gather(-1, ids), ids
+            vals, ids = self.orig(probs, k)
+            self.log.append(ids)
+            return vals, ids
+        moe.route = call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.orig
+        if self.replay and exc[0] is None:
+            check(self.calls == len(self.log),
+                  f"routing replay: {self.calls} calls for "
+                  f"{len(self.log)} logged")
+        return False
+
+
+def flips(torch, a, b):
+    """Tokens whose expert sets differ between two logs of one step."""
+    return sum(int((torch.sort(x, -1).values != torch.sort(y, -1).values)
+                   .any(-1).sum()) for x, y in zip(a, b))
+
+
+def moe_decode(torch, model, arch, seen):
+    """One model of phase 13: prefill of ``ZOO_SLOTS`` prompts of
+    ``MOE_PROMPT`` tokens, 8 decode steps on both routes (kernel route
+    counted), the last step against each sequence's prefill, one step in
+    "gather" mode against "dense", a profiled window of
+    ``MOE_PROFILE_STEPS`` steps, the loss (deepseek: its MTP term and the
+    flash loss) and phase 4's inputs at this model's decode shapes.
+
+    The comparisons run on the kernel route's expert choices
+    (``routing``): the plain route's steps, each sequence's longer
+    prefill and the gather step replay the choices the kernel route's
+    prefill and steps made.  One free plain step (its own choices) is
+    measured beside them: tokens whose experts differ, and its logits'
+    distance."""
+    from repro_torch.kernels import ops
+    dev = model.device
+    cfg = model.cfg
+    plain_cfg = cfg.replace(use_pallas=False)
+    n_global = sum(k == 0 for k, _ in model.dec_kinds)
+    n_moe = sum(m for _, m in model.dec_kinds)
+    # MLA decode has no kernel (the reference's neither)
+    da_per_step = 0 if cfg.attn_kind == "mla" else n_global
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    prompts = torch.randint(0, cfg.vocab, (ZOO_SLOTS, MOE_PROMPT),
+                            device=dev, generator=gen)
+    out = {"prompt": MOE_PROMPT}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill_log, logs = [], []
+        with routing(prefill_log):
+            logits, cache = model.prefill(
+                prompts, model.cache_init(ZOO_SLOTS, ZOO_ROWS))
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits).all())
+              and logits.shape == (ZOO_SLOTS, cfg.vocab),
+              f"moe {arch}: prefill logits not finite or misshapen")
+        start = clone_cache(cache)
+        plain_cache = clone_cache(cache)
+        fed, errs, agree = [], [], []
+        ops.reset_launch_counts()
+        k_secs = p_secs = 0.0
+        for i in range(ZOO_DECODE_STEPS):
+            tok = logits.argmax(-1)[:, None]
+            fed.append(tok)
+            pos = torch.full((ZOO_SLOTS,), MOE_PROMPT + i,
+                             dtype=torch.int32, device=dev)
+            logs.append([])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with routing(logs[-1]):
+                logits, cache = model.decode_step(cache, tok, pos)
+            torch.cuda.synchronize()
+            k_secs += time.perf_counter() - t0
+            counts, tally = ops.launch_counts(), ops.launch_shapes()
+            if i == 0:
+                first = logits.clone()
+            model.cfg = plain_cfg
+            t0 = time.perf_counter()
+            with routing(logs[-1], replay=True):
+                lp, plain_cache = model.decode_step(plain_cache, tok, pos)
+            torch.cuda.synchronize()
+            p_secs += time.perf_counter() - t0
+            if i == 0:
+                # the free plain step, on its own expert choices
+                own = []
+                with routing(own):
+                    free, _ = model.decode_step(clone_cache(start), tok, pos)
+                out["free_flips"] = flips(torch, logs[0], own)
+                out["free_err"] = float((logits - free).abs().max())
+                out["free_argmax_share"] = float(
+                    (logits.argmax(-1) == free.argmax(-1)).float().mean())
+                del free
+            model.cfg = cfg
+            check(bool(torch.isfinite(logits).all()),
+                  f"moe {arch}: decode logits not finite")
+            errs.append((float((logits - lp).abs().max()),
+                         float(lp.abs().max())))
+            agree.append(float((logits.argmax(-1) == lp.argmax(-1))
+                               .float().mean()))
+        check(ops.launch_counts() == counts,
+              f"moe {arch}: the plain route launched kernels")
+        check(counts["decode_attention"] == da_per_step * ZOO_DECODE_STEPS,
+              f"moe {arch}: decode_attention launched "
+              f"{counts['decode_attention']} times, expected {da_per_step}"
+              f" x {ZOO_DECODE_STEPS}")
+        err, scale = max(errs, key=lambda e: e[0] / e[1])
+        check(all(e <= LOGIT_TOL * m for e, m in errs),
+              f"moe {arch}: kernel and plain route logits differ by {err} "
+              f"(largest |logit| {scale})")
+        del plain_cache
+        # the last decode step against the prefill of each 8-token-longer
+        # sequence, one at a time: 264 tokens stay dropless (t k <=
+        # 8,192) on both models, where the batch of 8 would take
+        # deepseek's capacity branch, which is another function.  Each
+        # replays its tokens' expert choices: the prefill's, then each
+        # step's
+        seqs = torch.cat([prompts] + fed, dim=1)
+        ext = []
+        for j in range(ZOO_SLOTS):
+            own = [torch.cat([pre[:, j * MOE_PROMPT:(j + 1) * MOE_PROMPT]]
+                             + [step[li][:, j:j + 1] for step in logs],
+                             dim=1)
+                   for li, pre in enumerate(prefill_log)]
+            with routing(own, replay=True):
+                ext.append(model.prefill(seqs[j:j + 1],
+                                         model.cache_init(1, ZOO_ROWS))[0])
+        ext = torch.cat(ext)
+        ext_err, ext_scale = (float((logits - ext).abs().max()),
+                              float(ext.abs().max()))
+        ext_agree = float((logits.argmax(-1) == ext.argmax(-1)).float()
+                          .mean())
+        check(ext_err <= LOGIT_TOL * ext_scale,
+              f"moe {arch}: decode after prefill differs from the prefill "
+              f"of the longer sequence by {ext_err} (largest |logit| "
+              f"{ext_scale})")
+        del ext
+        # one step in "gather" mode against the first "dense" step, from
+        # the same cache (kernel route both)
+        pos = torch.full((ZOO_SLOTS,), MOE_PROMPT, dtype=torch.int32,
+                         device=dev)
+        model.cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, decode_mode="gather"))
+        gc = clone_cache(start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with routing(logs[0], replay=True):
+            gathered, _ = model.decode_step(gc, fed[0], pos)
+        torch.cuda.synchronize()
+        out["gather_ms"] = (time.perf_counter() - t0) * 1e3
+        del gc
+        model.cfg = cfg
+        g_err, g_scale = (float((gathered - first).abs().max()),
+                          float(first.abs().max()))
+        check(g_err <= LOGIT_TOL * g_scale,
+              f"moe {arch}: gather decode differs from dense by {g_err} "
+              f"(largest |logit| {g_scale})")
+        out["gather_argmax_share"] = float(
+            (gathered.argmax(-1) == first.argmax(-1)).float().mean())
+        del gathered
+        # device time a step by kernel: a profiled window on each mode
+        for mode in ("dense", "gather"):
+            model.cfg = cfg.replace(moe=dataclasses.replace(
+                cfg.moe, decode_mode=mode))
+            pc = clone_cache(start)
+
+            def window(pc=pc):
+                lg = first
+                for i in range(MOE_PROFILE_STEPS):
+                    lg, _ = model.decode_step(
+                        pc, lg.argmax(-1)[:, None],
+                        torch.full((ZOO_SLOTS,), MOE_PROMPT + i,
+                                   dtype=torch.int32, device=dev))
+            wall = (k_secs / ZOO_DECODE_STEPS * 1e6 if mode == "dense"
+                    else out["gather_ms"] * 1e3)
+            out[f"profile_{mode}"] = profile_steps(torch, window,
+                                                   MOE_PROFILE_STEPS, wall)
+            say_profile(f"moe {arch} decode ({mode})",
+                        out[f"profile_{mode}"])
+            del pc
+        model.cfg = cfg
+        # phase 4's inputs at this model's decode shapes: one more step
+        with recording(seen):
+            model.decode_step(start, fed[0], pos)
+        del start, cache
+        # the loss
+        b, s = ZOO_LOSS
+        tok = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, metrics = model.loss({"tokens": tok, "labels": tok})
+        torch.cuda.synchronize()
+        out["loss_s"] = time.perf_counter() - t0
+        out["metrics"] = {k: float(v) for k, v in metrics.items()}
+        check(all(map(math.isfinite, out["metrics"].values()))
+              and out["metrics"]["aux"] > 0
+              and out["metrics"]["tokens"] == b * (s - 1)
+              and ("mtp_ce" in metrics) == bool(cfg.mtp_depth),
+              f"moe {arch}: loss metrics {out['metrics']}")
+        if cfg.attn_kind == "mla":
+            b, s, block = ZOO_FLASH
+            tok = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                                generator=gen)
+            dense, _ = model.loss({"tokens": tok, "labels": tok})
+            model.cfg = cfg.replace(flash_block=block)
+            flash, _ = model.loss({"tokens": tok, "labels": tok})
+            model.cfg = cfg
+            out["flash_loss"], out["flash_dense_loss"] = (float(flash),
+                                                          float(dense))
+            check(abs(float(flash) - float(dense))
+                  <= ZOO_FLASH_TOL * abs(float(dense)),
+                  f"moe {arch}: flash loss {float(flash)} against dense "
+                  f"{float(dense)}")
+    out.update(counts=counts, tally=tally, logit_err=err, logit_scale=scale,
+               argmax_share=min(agree), ext_err=ext_err,
+               ext_scale=ext_scale, ext_argmax_share=ext_agree,
+               gather_err=g_err, gather_scale=g_scale,
+               kernel_ms_per_step=k_secs / ZOO_DECODE_STEPS * 1e3,
+               plain_ms_per_step=p_secs / ZOO_DECODE_STEPS * 1e3)
+    say(f"moe {arch}: prefill {ZOO_SLOTS} x {MOE_PROMPT} in "
+        f"{out['prefill_s']:.3f} s; {ZOO_DECODE_STEPS} decode steps a route,"
+        f" {out['kernel_ms_per_step']:.2f} ms/step kernels, "
+        f"{out['plain_ms_per_step']:.2f} plain; routes' logits on the "
+        f"kernel route's expert choices max |diff| {err:.4g} of max "
+        f"|logit| {scale:.4g}, argmax equal on {min(agree):.3f} of slots "
+        f"(worst step); a free plain step: {out['free_flips']} tokens' "
+        f"experts differ over {n_moe} MoE layers x {ZOO_SLOTS} tokens, "
+        f"max |diff| {out['free_err']:.4g}, argmax equal on "
+        f"{out['free_argmax_share']:.3f}; decode after prefill "
+        f"against each sequence's prefill of {MOE_PROMPT + ZOO_DECODE_STEPS}"
+        f" tokens: max |diff| {ext_err:.4g} of {ext_scale:.4g}, argmax "
+        f"equal on {ext_agree:.3f}; gather step {out['gather_ms']:.2f} ms, "
+        f"against dense max |diff| {g_err:.4g} of {g_scale:.4g}, argmax "
+        f"equal on {out['gather_argmax_share']:.3f}; loss {ZOO_LOSS[0]} x "
+        f"{ZOO_LOSS[1]} {out['metrics']} in {out['loss_s']:.3f} s"
+        + (f"; flash loss {out['flash_loss']:.6f} against dense "
+           f"{out['flash_dense_loss']:.6f} ({ZOO_FLASH[0]} x {ZOO_FLASH[1]},"
+           f" blocks of {ZOO_FLASH[2]})" if "flash_loss" in out else "")
+        + f"; launches {counts}")
+    return out
+
+
+def moe_engine(cfg, dev):
+    """A ``ServingEngine`` on ``cfg`` (kernel route) at phase 11's fabric
+    (``launch/serve.py``'s: 2 flows, ring 64, B 4) and pool."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.runtime.serving import ServingEngine
+    fcfg = FabricConfig(n_flows=2, ring_entries=64, batch_size=4,
+                        dynamic_batching=False, use_pallas=True)
+    return ServingEngine(cfg, fcfg, n_slots=LM_POOL["n_slots"],
+                         max_seq=LM_POOL["max_seq"], seed=0, device=dev)
+
+
+def moe_serving(torch, eng, seen):
+    """phi3.5-moe served through ``eng`` (``moe_engine``):
+    ``prefill_sessions`` of 32 prompts of 256 tokens (16,384 assignments
+    a layer, the capacity branch), then ``MOE_SERVE_TILES`` staged tiles
+    of 8 "sample for me" requests on the kernel and the plain route from
+    one state.  The plain route is a shallow copy of the engine with the
+    plain fabric: one set of weights serves both."""
+    import copy
+
+    from repro_torch.core import serdes
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.fabric import DaggerFabric, tree_map
+    from repro_torch.kernels import ops
+
+    model = eng.model
+    dev = model.device
+    n_slots = LM_POOL["n_slots"]
+    plain = copy.copy(eng)
+    plain.cfg = eng.cfg.replace(use_pallas=False)
+    plain.fabric = DaggerFabric(dataclasses.replace(eng.fabric.cfg,
+                                                    use_pallas=False))
+    engines = {"kernels": eng, "plain": plain}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    prompts = torch.randint(0, eng.cfg.vocab, (n_slots, SERVE_PROMPT),
+                            generator=gen, dtype=torch.int32, device=dev)
+    fst, cache, sess = eng.init_states()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, sess, _ = eng.prefill_sessions(
+            cache, sess, prompts,
+            torch.arange(n_slots, dtype=torch.int32, device=dev) + 1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        check(sess.pos.tolist() == [SERVE_PROMPT] * n_slots,
+              "moe serving: prefill left a session at another position")
+        slots, valid = serve_tiles(torch, dev, eng.fabric, None, 1)
+        tiles = (slots[:MOE_SERVE_TILES], valid[:MOE_SERVE_TILES])
+        n_req = int(tiles[1].sum())
+        runs = {}
+        for route, e in engines.items():
+            model.cfg = e.cfg
+            states = tree_map(torch.clone, (fst, cache, sess))
+            runner = e.make_run_steps()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            full = runner(*states, *tiles,
+                          tel=tlm.create(LM_BINS, device=dev))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts, tally = ops.launch_counts(), ops.launch_shapes()
+            if route == "kernels":
+                # phase 4's inputs at this path's shapes: one more step
+                with recording(seen):
+                    runner(*fresh(torch, full[:3]),
+                           *(x[:1] for x in tiles))
+                torch.cuda.synchronize()
+            model.cfg = engines["kernels"].cfg
+            o, s2 = full[3:], full[2]
+            runs[route] = dict(out=o, secs=secs, counts=counts, tally=tally,
+                               sess=s2)
+            del states, full
+            check(s2.pos.tolist() == [SERVE_PROMPT + 1] * n_slots,
+                  f"moe serving {route}: session positions "
+                  f"{s2.pos.tolist()}")
+            recs = serdes.unpack(o[1])
+            resp = o[2] & ((recs["flags"] & serdes.FLAG_RESPONSE) != 0)
+            check(int(o[0]) == n_req and int(resp.sum()) == n_req,
+                  f"moe serving {route}: served {int(o[0])}, "
+                  f"{int(resp.sum())} responses left, of {n_req} requests")
+            say(f"moe serving {route}: {MOE_SERVE_TILES} tiles in "
+                f"{secs:.3f} s, {MOE_SERVE_TILES / secs:.2f} steps/s, served "
+                f"{int(o[0])} of {n_req}; launches {counts}")
+    a, b = runs["kernels"], runs["plain"]
+    tok_word = serdes.HEADER_WORDS + 1
+    # served counts, telemetry, egress valid masks and every non-token
+    # word of the egress tiles
+    tree_equal(torch, (a["sess"].session_id, a["sess"].pos, a["out"][0],
+                       a["out"][3], a["out"][2]),
+               (b["sess"].session_id, b["sess"].pos, b["out"][0],
+                b["out"][3], b["out"][2]), "moe serving")
+    words = [w for w in range(a["out"][1].shape[-1]) if w != tok_word]
+    check(torch.equal(a["out"][1][..., words], b["out"][1][..., words]),
+          "moe serving: a non-token word of the egress differs")
+    ta = a["out"][1][a["out"][2]][:, tok_word]
+    tb = b["out"][1][b["out"][2]][:, tok_word]
+    share = float((ta == tb).float().mean())
+    c = a["counts"]
+    check(c["decode_attention"] == model.cfg.n_layers * MOE_SERVE_TILES
+          and c["switch_step_fused"] == MOE_SERVE_TILES
+          and c["ring_push_packed"] == MOE_SERVE_TILES
+          and not any(b["counts"].values()),
+          f"moe serving: launches {c} (kernels), {b['counts']} (plain)")
+    say(f"moe serving: prefill of {n_slots} x {SERVE_PROMPT} tokens in "
+        f"{prefill_s:.3f} s; routes equal (served, telemetry, egress "
+        f"headers); equal tokens {share:.4f}")
+    report = {route: {"secs": r["secs"], "served": int(r["out"][0]),
+                      "launches": r["counts"]} for route, r in runs.items()}
+    report.update(prefill_s=prefill_s, token_share=share, requests=n_req)
+    return report, a["counts"], a["tally"]
+
+
+def phase_moe(torch, dev, seen):
+    """The MoE family at full width, depth cut to fit the card, one model
+    at a time, each freed before the next: ``moe_decode`` for each of
+    ``MOE``, and phi3.5-moe served (``moe_serving``) on the same weights.
+    Returns (report, {path: (counts, tally, steps)})."""
+    import gc
+    from repro_torch.models import Model
+    report, paths = {}, {}
+    for arch, layers in MOE:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch).replace(n_layers=layers, use_pallas=True)
+        # the served model is the engine's own: it is decoded first
+        eng = moe_engine(cfg, dev) if arch == MOE_SERVE else None
+        model = eng.model if eng else Model(cfg, device=dev, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        say(f"moe {arch}: {layers} layers, {n_params} parameters "
+            f"({n_params * 2 / 1e9:.3f} GB bf16, param_count "
+            f"{model.cfg.param_count()}), built in {build_s:.1f} s")
+        r = moe_decode(torch, model, arch, seen)
+        r.update(n_layers=layers, n_params=n_params, build_s=build_s)
+        paths[f"moe_{arch}"] = (r.pop("counts"), r.pop("tally"),
+                                ZOO_DECODE_STEPS)
+        if eng:
+            r["serving"], counts, tally = moe_serving(torch, eng, seen)
+            paths["moe_serving"] = (counts, tally, MOE_SERVE_TILES)
+        r["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        r["secs"] = time.perf_counter() - t0
+        say(f"moe {arch}: peak memory {r['max_memory_gb']:.2f} GB, "
+            f"{r['secs']:.1f} s")
+        report[arch] = r
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report, paths
+
+
 def card_label():
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
@@ -3199,6 +3671,11 @@ def main():
         f"s)")
 
     t0 = time.perf_counter()
+    report["moe"], moe_paths = phase_moe(torch, dev, seen)
+    say(f"phase 13: MoE family at full width ({time.perf_counter() - t0:.1f}"
+        f" s)")
+
+    t0 = time.perf_counter()
     paths = {"fused": (runs["fused"]["counts"], runs["fused"]["tally"],
                        FULL_STEPS),
              "staged": (runs["staged"]["counts"], runs["staged"]["tally"],
@@ -3210,7 +3687,8 @@ def main():
              "flight": (fl_counts, fl_tally, fl_steps),
              "kvs_tenants": (kt_counts, kt_tally, kt_steps),
              "lm_tenants": (lt_counts, lt_tally, LM_TENANT_STEPS),
-             "serving": (sv_counts, sv_tally, sv_steps), **zoo_paths}
+             "serving": (sv_counts, sv_tally, sv_steps), **zoo_paths,
+             **moe_paths}
     rows = phase_summary(torch, paths, seen)
     report["kernels"] = rows
     say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")

@@ -26,15 +26,18 @@ uint32, the port as int32 with the same bits, so ``kvs_state_from_numpy``
 takes either and ``kvs_state_to_numpy`` gives int32.
 
 Model weights and KV caches are float: ``model_params_from_numpy`` loads
-the reference's parameter pytree (``{"embed", "decoder", "final_norm"}``,
-the decoder's layers stacked per segment along a leading dim) into a
-``models.Model``, and ``decode_cache_*`` convert the reference's stacked
-cache to the port's one-dict-per-layer list and back, whatever rows a
-layer keeps (gemma3's sliding-window rings of ``local_window`` rows
-beside its global caches of ``max_seq``, segments ``[((L,L,L,L,L,G),
-n), ((L,L), 1)]``); LayerNorm biases and tied embeddings (no
-``lm_head``) load by name like every other weight.  Their dtypes are
-carried exactly too (bfloat16 as its bits).  Tenant-stacked decode
+the reference's parameter pytree (``{"embed", "decoder", "final_norm"}``
+and DeepSeek's ``"mtp"``, the decoder's layers stacked per segment along
+a leading dim) into a ``models.Model``, and ``decode_cache_*`` convert
+the reference's stacked cache to the port's one-dict-per-layer list and
+back, whatever rows a layer keeps (gemma3's sliding-window rings of
+``local_window`` rows beside its global caches of ``max_seq``, segments
+``[((L,L,L,L,L,G), n), ((L,L), 1)]``) and whatever leaves (MLA's latent
+``ckv``/``kpe``);
+LayerNorm biases, tied embeddings (no ``lm_head``), the MoE layers'
+float32 router and stacked experts (with a nested ``shared`` MLP) and
+the MTP head load by name like every other weight.  Their dtypes
+are carried exactly too (bfloat16 as its bits).  Tenant-stacked decode
 states (``DecodeEngine.init_states_batch``), ``ServingEngine`` state
 triples (``serving_states_*``, single or stacked) and stacked
 ``KVSState`` stores cross the same way.
@@ -54,7 +57,8 @@ from repro_torch.core.loadgen import LoadGenState
 from repro_torch.core.rings import FreeFifo, Ring
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.device import resolve
-from repro_torch.models.transformer import segments_from_kinds
+from repro_torch.models.transformer import (layer_cache_init,
+                                            segments_from_kinds)
 from repro_torch.runtime.decode import DecodeSlots, DecodeStates
 from repro_torch.runtime.kvs import KVSState
 from repro_torch.runtime.serving import SessionState
@@ -209,6 +213,8 @@ def model_params_from_numpy(model, params):
     _assign(model.embed, _get(params, "embed"), None, "embed")
     _assign(model.final_norm, _get(params, "final_norm"), None,
             "final_norm")
+    if model.cfg.mtp_depth:
+        _assign(model.mtp, _get(params, "mtp"), None, "mtp")
     seen = 0
     for i, sub, period in _layer_sources(model.cfg,
                                          _get(params, "decoder")):
@@ -220,20 +226,31 @@ def model_params_from_numpy(model, params):
     return model
 
 
+def _cache_ranks(cfg) -> list:
+    """Each decoder layer's cache leaves and their rank in one pool of
+    the port ({"k": 4, "v": 4} on a GQA layer, {"ckv": 3, "kpe": 3} on
+    an MLA one)."""
+    return [{name: t.dim() for name, t in
+             layer_cache_init(cfg, kind, 1, 1, "cpu").items()}
+            for kind, _ in cfg._layer_kinds()]
+
+
 def decode_cache_from_numpy(cfg, src, device="cuda") -> list:
     """The reference's decode cache pytree -> the port's list of
-    per-layer ``{"k", "v"}`` tensors.  A tenant-stacked cache (every leaf
+    per-layer dicts, each with that layer's own leaves (``{"k", "v"}``,
+    or MLA's ``{"ckv", "kpe"}``).  A tenant-stacked cache (every leaf
     [T, ...], the layers of a segment stacked behind the tenant axis)
-    gives [T, N, S, nkv, hd] tensors."""
+    gives [T, N, ...] tensors."""
     dev = resolve(device)
+    ranks = _cache_ranks(cfg)
     out = []
     for i, sub, period in _layer_sources(cfg, src):
         layer = {}
-        for name in ("k", "v"):
+        for name, rank in ranks[i].items():
             t = _float_tensor(_get(sub, name), f"cache.layer{i}.{name}")
             if period is not None:
                 # the period dim comes after any tenant axis
-                t = t.select(t.dim() - 5, period)
+                t = t.select(t.dim() - rank - 1, period)
             layer[name] = t.contiguous().to(dev)
         out.append(layer)
     return out
@@ -243,18 +260,19 @@ def decode_cache_to_numpy(cfg, cache) -> dict:
     """The port's per-layer cache list -> the reference's pytree layout
     (layers of a segment stacked along a leading dim, behind the tenant
     axis of a stacked cache)."""
+    ranks = _cache_ranks(cfg)
     out, i = {}, 0
-    lead = cache[0]["k"].dim() - 4          # 1 for a tenant-stacked cache
     for si, (pat, reps) in enumerate(
             segments_from_kinds(cfg._layer_kinds())):
         seg = {}
         for j in range(len(pat)):
             idx = [i + r * len(pat) + j for r in range(reps)]
             seg[f"pos{j}"] = {
+                # the period axis goes behind a tenant axis, if any
                 name: (np.stack([_float_numpy(cache[x][name]) for x in idx],
-                                axis=lead)
+                                axis=cache[idx[0]][name].dim() - rank)
                        if reps > 1 else _float_numpy(cache[idx[0]][name]))
-                for name in ("k", "v")}
+                for name, rank in ranks[i + j].items()}
         out[f"seg{si}"] = seg
         i += reps * len(pat)
     return out

@@ -1,5 +1,6 @@
 """GQA attention: full (global), sliding-window (local) and one-token
-decode against the KV cache.
+decode against the KV cache; and DeepSeek-V3's multi-head latent
+attention (MLA) with its compressed cache.
 
 The port serves the GQA paths of the reference's ``models/attention.py``:
 ``_qkv`` (with QKV biases), ``_sdpa`` (float32 scores, optional logit
@@ -9,9 +10,12 @@ sequence is longer than a block), ``gqa_full`` (causal self-attention
 over a whole sequence: the prefill and train path), ``gqa_local``
 (sliding-window causal attention, chunked into bands of two windows:
 O(S * 2W) work, not a masked O(S^2)), ``pos_vec`` and ``gqa_decode``.
-All but ``gqa_decode``'s kernel route are plain PyTorch, as the
-reference computes them outside any Pallas kernel.  Cross and MLA
-attention wait for the encoder and MLA slices.
+MLA (``mla_init``, ``_mla_q``, ``_mla_ckv``, ``mla_full``,
+``mla_decode``) keeps a latent cache of ``kv_lora_rank`` + rope
+columns a position instead of per-head K/V, and decodes in the absorbed
+form.  All but ``gqa_decode``'s kernel route are plain PyTorch, as the
+reference computes them outside any Pallas kernel (MLA decode has no
+kernel there).  Cross attention waits for the encoder slice.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import dense_init, dtype_of, mm, param
+from repro_torch.models.layers import (dense_init, dtype_of, mm, norm_apply,
+                                       norm_init, param)
 from repro_torch.models.rope import apply_rope
 
 NEG_INF = -1e30
@@ -209,6 +214,14 @@ def pos_vec(pos, b, device):
                               (b,))
 
 
+def _check_positions(pv, s: int):
+    """Decode positions must lie in the cache's [0, s) rows: checked on
+    CPU tensors; on the card an index past the end is a device fault."""
+    if pv.device.type == "cpu" and not bool(((pv >= 0) & (pv < s)).all()):
+        raise ValueError(f"decode position outside the cache of {s} rows: "
+                         f"{pv.tolist()}")
+
+
 def gqa_decode(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
     """One-token decode. x: [B,1,d]; cache_[kv]: [B,Smax,nkv,hd];
     pos: scalar or per-row [B] (continuous batching).
@@ -233,9 +246,7 @@ def gqa_decode(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
     q = apply_rope(q, pv[:, None], cfg.rope_theta)
     k = apply_rope(k, pv[:, None], cfg.rope_theta)
     s = cache_k.shape[1]
-    if pv.device.type == "cpu" and not bool(((pv >= 0) & (pv < s)).all()):
-        raise ValueError(f"decode position outside the cache of {s} rows: "
-                         f"{pv.tolist()}")
+    _check_positions(pv, s)
     rows = torch.arange(b, device=x.device)
     cache_k[rows, pv] = k[:, 0].to(cache_k.dtype)
     cache_v[rows, pv] = v[:, 0].to(cache_v.dtype)
@@ -247,3 +258,131 @@ def gqa_decode(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
         mask = torch.arange(s, device=x.device)[None, :] <= pv[:, None]
         out = _sdpa(cfg, q, cache_k, cache_v, mask[:, None, None, None, :])
     return mm(out.reshape(b, 1, -1), p["wo"]), (cache_k, cache_v)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg: ModelConfig) -> nn.ParameterDict:
+    m = cfg.mla
+    d, nq = cfg.d_model, cfg.n_heads
+    dt = dtype_of(cfg.param_dtype)
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return nn.ParameterDict({
+        "w_dq": dense_init(gen, (d, m.q_lora_rank), dt),
+        "q_norm": norm_init(cfg, m.q_lora_rank, gen.device),
+        "w_uq": dense_init(gen, (m.q_lora_rank, nq * qk), dt),
+        "w_dkv": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                            dt),
+        "kv_norm": norm_init(cfg, m.kv_lora_rank, gen.device),
+        "w_ukv": dense_init(gen, (m.kv_lora_rank,
+                                  nq * (m.qk_nope_head_dim + m.v_head_dim)),
+                            dt),
+        "wo": dense_init(gen, (nq * m.v_head_dim, d), dt),
+    })
+
+
+def _mla_q(cfg: ModelConfig, p, x):
+    """x [.., d] -> (q_nope [.., nq, nope], q_pe [.., nq, rope]), the
+    rope part not yet rotated."""
+    m = cfg.mla
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    ql = norm_apply(cfg, p["q_norm"], mm(x, p["w_dq"]))
+    q = mm(ql, p["w_uq"]).reshape(*x.shape[:-1], cfg.n_heads, qk)
+    return q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+
+
+def _mla_ckv(cfg: ModelConfig, p, x, positions):
+    """x [B, S, d] -> (the normed latent c_kv [B, S, r], the rotated
+    shared rope key k_pe [B, S, rope]): what the cache keeps."""
+    m = cfg.mla
+    c_kv, k_pe = mm(x, p["w_dkv"]).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = norm_apply(cfg, p["kv_norm"], c_kv)
+    k_pe = apply_rope(k_pe[..., None, :], positions, cfg.rope_theta)
+    return c_kv, k_pe[..., 0, :]
+
+
+def mla_full(cfg: ModelConfig, p, x, positions):
+    """Train/prefill MLA: expand the compressed KV to per-head K/V and
+    run causal attention.  x: [B, S, d]; positions: [B, S].  Returns
+    (out [B, S, d], (c_kv [B, S, r], k_pe [B, S, rope])), the latents a
+    prefill writes into the cache.  The scale is 1/sqrt(nope + rope),
+    which ``_flash_sdpa`` (past ``flash_block``) takes from q's width;
+    the value width may differ from q/k's."""
+    m = cfg.mla
+    nq = cfg.n_heads
+    b, s, _ = x.shape
+    q_nope, q_pe = _mla_q(cfg, p, x)
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    c_kv, k_pe = _mla_ckv(cfg, p, x, positions)
+    kv = mm(c_kv, p["w_ukv"]).reshape(b, s, nq,
+                                       m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k_pe_b = k_pe[:, :, None, :].expand(b, s, nq, m.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe_b], dim=-1)
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if cfg.flash_block and s > cfg.flash_block:
+        out = _flash_sdpa(q, k, v, cfg.flash_block)
+    else:
+        scores = torch.einsum("bsnd,btnd->bnst", q.to(torch.float32),
+                              k.to(torch.float32)) * qk ** -0.5
+        scores = torch.where(_causal_mask(s, s, x.device)[0], scores,
+                             NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bnst,btnd->bsnd", w, v.to(torch.float32))
+    out = mm(out.reshape(b, s, -1).to(x.dtype), p["wo"])
+    return out, (c_kv, k_pe)
+
+
+def mla_decode(cfg: ModelConfig, p, x, cache_ckv, cache_kpe, pos):
+    """Absorbed-matrix MLA decode: score and aggregate in latent space.
+    x: [B, 1, d]; cache_ckv [B, Smax, r], cache_kpe [B, Smax, rope];
+    pos: scalar or per-row [B].
+
+    The new latent row of each slot is written into the cache IN PLACE at
+    its position (as ``gqa_decode`` writes K/V); the returned cache
+    tensors are the arguments.  The query's nope part is absorbed into
+    the latent space through w_uk, so a step costs O(S * (r + rope) *
+    nq) with no per-head K/V over S; the context comes back through
+    w_uv.  Scores and weights are float32, the scale 1/sqrt(nope +
+    rope).  With ``cfg.fast_attn`` the latent query and the weights are
+    rounded to the cache's dtype first: the reference streams the cache
+    in its storage dtype with float32 accumulation, and the float32
+    product of the rounded values is that."""
+    m = cfg.mla
+    nq = cfg.n_heads
+    b = x.shape[0]
+    pv = pos_vec(pos, b, x.device)
+    positions = pv[:, None]
+    q_nope, q_pe = _mla_q(cfg, p, x)                       # [b,1,nq,*]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    c_kv, k_pe = _mla_ckv(cfg, p, x, positions)            # [b,1,r|rope]
+    s = cache_ckv.shape[1]
+    _check_positions(pv, s)
+    rows = torch.arange(b, device=x.device)
+    cache_ckv[rows, pv] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_kpe[rows, pv] = k_pe[:, 0].to(cache_kpe.dtype)
+    w_uk, w_uv = p["w_ukv"].reshape(m.kv_lora_rank, nq, -1).split(
+        [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    # absorb: q_c[b,1,nq,r] = q_nope @ w_uk^T
+    q_c = torch.einsum("bsnd,rnd->bsnr", q_nope.to(torch.float32),
+                       w_uk.to(torch.float32))
+    ckv = cache_ckv.to(torch.float32)
+    if cfg.fast_attn:
+        q_c = q_c.to(cache_ckv.dtype).to(torch.float32)
+    s_c = torch.einsum("bsnr,btr->bnst", q_c, ckv)
+    s_pe = torch.einsum("bsnd,btd->bnst", q_pe.to(torch.float32),
+                        cache_kpe.to(torch.float32))
+    scores = (s_c + s_pe) * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    mask = torch.arange(s, device=x.device)[None, :] <= pv[:, None]
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    if cfg.fast_attn:
+        w = w.to(cache_ckv.dtype).to(torch.float32)
+    ctx = torch.einsum("bnst,btr->bsnr", w, ckv)
+    out = torch.einsum("bsnr,rnd->bsnd", ctx, w_uv.to(torch.float32))
+    out = mm(out.reshape(b, 1, -1).to(x.dtype), p["wo"])
+    return out, (cache_ckv, cache_kpe)

@@ -42,7 +42,7 @@ def dense_init(gen, shape, dtype, scale: float | None = None):
     std = scale if scale is not None else fan_in ** -0.5
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return param((t * std).to(dtype))
+    return param(t.mul_(std).to(dtype))
 
 
 def norm_init(cfg: ModelConfig, d: int, device) -> nn.ParameterDict:
@@ -81,8 +81,9 @@ def activate(cfg: ModelConfig, x):
     return F.silu(x)                              # swiglu gate activation
 
 
-def mlp_init(gen, cfg: ModelConfig) -> nn.ParameterDict:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_init(gen, cfg: ModelConfig, d: int | None = None,
+             f: int | None = None) -> nn.ParameterDict:
+    d, f = d or cfg.d_model, f or cfg.d_ff
     dt = dtype_of(cfg.param_dtype)
     p = {"w_in": dense_init(gen, (d, f), dt),
          "w_out": dense_init(gen, (f, d), dt)}

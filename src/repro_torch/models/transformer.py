@@ -9,9 +9,12 @@ Layer ``i`` of segment ``(pattern, n_periods)`` starting at layer
 ``base`` is period ``(i - base) // len(pattern)``, position
 ``(i - base) % len(pattern)``.
 
-The cache is a list with one ``{"k", "v"}`` dict per layer: [B, max_seq,
-nkv, hd] on a global layer, a ring of ``min(local_window, max_seq)`` rows
-on a sliding-window layer (slot ``pos % w`` holds position ``pos``).
+The cache is a list with one dict per layer: ``{"k", "v"}`` [B, max_seq,
+nkv, hd] on a global GQA layer, a ring of ``min(local_window, max_seq)``
+rows on a sliding-window layer (slot ``pos % w`` holds position
+``pos``), and MLA's latent ``{"ckv" [B, max_seq, r], "kpe" [B, max_seq,
+rope]}``.  A layer's FFN is an MLP or, on an MoE layer, ``moe_apply``,
+whose balance term the stack sums.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from torch import nn
 
 from repro_torch.config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dtype_of, mlp_apply, mlp_init, mm,
                                        norm_apply, norm_init)
 from repro_torch.models.rope import apply_rope
@@ -45,23 +49,33 @@ def segments_from_kinds(kinds: List[LayerSpec]) -> List[Segment]:
     return [(tuple(kinds), 1)]
 
 
-def _served(kind: int, is_moe: bool) -> None:
-    if kind not in (ATTN_GLOBAL, ATTN_LOCAL) or is_moe:
+def _served(kind: int) -> None:
+    if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
         raise NotImplementedError(
-            f"layer kind {kind} (moe={is_moe}): the port serves dense GQA "
-            f"layers (global and sliding-window) only")
+            f"layer kind {kind}: the port serves attention layers (GQA, "
+            f"global and sliding-window, and MLA) only")
 
 
 def _is_local(cfg: ModelConfig, kind: int) -> bool:
     return kind == ATTN_LOCAL and bool(cfg.local_window)
 
 
+def _is_mla(cfg: ModelConfig) -> bool:
+    return cfg.attn_kind == "mla"
+
+
 def layer_init(gen, cfg: ModelConfig, kind: int,
                is_moe: bool) -> nn.ModuleDict:
-    _served(kind, is_moe)
-    p = {"ln1": norm_init(cfg, cfg.d_model, gen.device),
-         "attn": attn.gqa_init(gen, cfg)}
-    if cfg.d_ff > 0:
+    _served(kind)
+    p = {"ln1": norm_init(cfg, cfg.d_model, gen.device)}
+    if _is_mla(cfg):
+        p["mla"] = attn.mla_init(gen, cfg)
+    else:
+        p["attn"] = attn.gqa_init(gen, cfg)
+    if is_moe:
+        p["ln2"] = norm_init(cfg, cfg.d_model, gen.device)
+        p["moe"] = moe_mod.moe_init(gen, cfg)
+    elif cfg.d_ff > 0:
         p["ln2"] = norm_init(cfg, cfg.d_model, gen.device)
         p["mlp"] = mlp_init(gen, cfg)
     return nn.ModuleDict(p)
@@ -69,13 +83,21 @@ def layer_init(gen, cfg: ModelConfig, kind: int,
 
 def layer_cache_init(cfg: ModelConfig, kind: int, batch: int, max_seq: int,
                      device) -> dict:
-    """Zeroed decode cache of one GQA layer: ``max_seq`` rows on a global
-    layer, a ring of ``min(local_window, max_seq)`` on a local one."""
-    _served(kind, False)
+    """Zeroed decode cache of one layer: K/V of ``max_seq`` rows on a
+    global GQA layer, a ring of ``min(local_window, max_seq)`` on a local
+    one; MLA's latent ``ckv`` [B, max_seq, r] and ``kpe`` [B, max_seq,
+    rope] on a global MLA layer."""
+    _served(kind)
+    cdt = dtype_of(cfg.compute_dtype)
+    if _is_mla(cfg) and not _is_local(cfg, kind):
+        m = cfg.mla
+        return {name: torch.zeros((batch, max_seq, width), dtype=cdt,
+                                  device=device)
+                for name, width in (("ckv", m.kv_lora_rank),
+                                    ("kpe", m.qk_rope_head_dim))}
     rows = (min(cfg.local_window, max_seq) if _is_local(cfg, kind)
             else max_seq)
     shape = (batch, rows, cfg.n_kv_heads, cfg.resolved_head_dim)
-    cdt = dtype_of(cfg.compute_dtype)
     return {"k": torch.zeros(shape, dtype=cdt, device=device),
             "v": torch.zeros(shape, dtype=cdt, device=device)}
 
@@ -111,25 +133,38 @@ def _ring_fill(fresh, window: int):
 
 
 def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
-                mode: str = "decode", cache=None, pos=None, positions=None):
-    """Apply one layer: ln1 -> attention -> residual -> ln2 -> MLP ->
-    residual.  Returns (x, cache), the cache dict the one given.
+                mode: str = "decode", cache=None, pos=None, positions=None,
+                groups: int = 1):
+    """Apply one layer: ln1 -> attention -> residual -> ln2 -> MLP or MoE
+    -> residual.  Returns (x, cache, aux): the cache dict the one given,
+    ``aux`` the MoE balance term (0.0 on a dense layer).
 
     ``mode="decode"``: one token a row at ``pos`` against the cache.
     ``mode="prefill"``: the whole sequence at ``positions`` [B, S] with
-    causal attention (``gqa_full``, or ``gqa_local`` on a sliding-window
-    layer), its K/V written into the cache in place: on a global layer
-    into rows [0, S), the rows past S keep what they held (the
-    reference's ``_left_pad``, a ``dynamic_update_slice`` at offset 0);
-    on a local layer the whole ring is replaced (``_ring_fill``).
-    ``mode="train"``: the same attention as prefill, no cache read or
-    written (``cache`` is returned as given, ``None`` included)."""
-    _served(kind, is_moe)
+    causal attention (``gqa_full``, ``mla_full``, or ``gqa_local`` on a
+    sliding-window layer), its K/V (MLA: its latents) written into the
+    cache in place: on a global layer into rows [0, S), the rows past S
+    keep what they held (the reference's ``_left_pad``, a
+    ``dynamic_update_slice`` at offset 0); on a local layer the whole
+    ring is replaced (``_ring_fill``).  ``mode="train"``: the same
+    attention as prefill, no cache read or written (``cache`` is
+    returned as given, ``None`` included).  The MoE FFN dispatches as in
+    decode in ``mode="decode"`` only; ``groups`` goes to ``moe_apply``
+    (the folded tenant pools)."""
+    _served(kind)
     if mode not in ("decode", "prefill", "train"):
         raise ValueError(f"mode {mode!r}: decode, prefill or train")
     local = _is_local(cfg, kind)
     h = norm_apply(cfg, p["ln1"], x)
-    if mode == "decode" and local:
+    if _is_mla(cfg) and mode == "decode":
+        out, _ = attn.mla_decode(cfg, p["mla"], h, cache["ckv"],
+                                 cache["kpe"], pos)
+    elif _is_mla(cfg):
+        out, fresh = attn.mla_full(cfg, p["mla"], h, positions)
+        if mode == "prefill":
+            for name, t in zip(("ckv", "kpe"), fresh):
+                cache[name][:, :t.shape[1]] = t.to(cache[name].dtype)
+    elif mode == "decode" and local:
         out = _local_decode(cfg, p["attn"], h, cache["k"], cache["v"], pos)
     elif mode == "decode":
         out, _ = attn.gqa_decode(cfg, p["attn"], h, cache["k"], cache["v"],
@@ -147,9 +182,15 @@ def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
                 ck[:, :s] = k.to(ck.dtype)
                 cv[:, :s] = v.to(cv.dtype)
     x = x + out
-    if "mlp" in p:
+    aux = 0.0
+    if "moe" in p:
+        y, aux = moe_mod.moe_apply(cfg, p["moe"],
+                                   norm_apply(cfg, p["ln2"], x),
+                                   decode=mode == "decode", groups=groups)
+        x = x + y
+    elif "mlp" in p:
         x = x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
-    return x, cache
+    return x, cache, aux
 
 
 def stack_cache_init(cfg: ModelConfig, kinds: List[LayerSpec], batch: int,
@@ -159,12 +200,18 @@ def stack_cache_init(cfg: ModelConfig, kinds: List[LayerSpec], batch: int,
 
 
 def stack_apply(cfg: ModelConfig, layers, x, kinds: List[LayerSpec], *,
-                mode: str = "decode", cache=None, pos=None, positions=None):
-    """Run the whole stack, layer by layer.  Returns (x, cache): every
-    layer writes its cache in place, so the cache returned is the one
-    given (``None`` in ``mode="train"`` without one)."""
+                mode: str = "decode", cache=None, pos=None, positions=None,
+                groups: int = 1):
+    """Run the whole stack, layer by layer.  Returns (x, cache, aux):
+    every layer writes its cache in place, so the cache returned is the
+    one given (``None`` in ``mode="train"`` without one); ``aux`` is the
+    MoE layers' balance terms summed, float32 (a scalar, [groups] when
+    ``groups`` > 1 and the stack has an MoE layer)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (p, (kind, is_moe)) in enumerate(zip(layers, kinds)):
-        x, _ = layer_apply(cfg, p, x, kind=kind, is_moe=is_moe, mode=mode,
-                           cache=None if cache is None else cache[i],
-                           pos=pos, positions=positions)
-    return x, cache
+        x, _, aux = layer_apply(cfg, p, x, kind=kind, is_moe=is_moe,
+                                mode=mode,
+                                cache=None if cache is None else cache[i],
+                                pos=pos, positions=positions, groups=groups)
+        aux_total = aux_total + aux
+    return x, cache, aux_total

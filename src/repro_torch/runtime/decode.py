@@ -109,7 +109,8 @@ class DecodeStates:
     sst: object              # server FabricState
     gst: object              # LoadGenState (open-loop request source)
     slots: DecodeSlots
-    cache: list              # KV cache, one {"k", "v"} per layer
+    cache: list              # decode cache, one dict a layer ({"k", "v"}
+                             # or MLA's {"ckv", "kpe"})
     ttft: tlm.Telemetry      # time-to-first-token histogram
     itl: tlm.Telemetry       # inter-token-latency histogram
 
@@ -241,7 +242,8 @@ class DecodeEngine:
         out_valid [T, F*B])`` on stacked states (slot tables [T, N], the
         cache [T, N, S, ...] a layer).  The T pools decode as ONE pool of
         T*N slots (the weights are shared: the reference's ``vmap`` with
-        ``in_axes=(0, None)``), the receive side is ``tenant_receive``
+        ``in_axes=(0, None)``; an MoE layer routes each pool's tokens on
+        their own, ``groups=T``), the receive side is ``tenant_receive``
         and the enqueues ``host_tx_enqueue_batch``, so the kernel route
         launches what one tenant's step launches, whatever T.  The
         free-list sort, the admission rank and the slot scatters run
@@ -264,7 +266,7 @@ class DecodeEngine:
             active = slots.req_id >= 0
             logits, cache = self.model.decode_step(
                 _fold_cache(cache), slots.tok.reshape(-1, 1),
-                slots.pos.reshape(-1))
+                slots.pos.reshape(-1), groups=t)
             cache = _unfold_cache(cache, t)
             nxt = torch.argmax(logits, dim=-1).to(I32).reshape(t, n)
 
@@ -447,10 +449,10 @@ def _run_loop(step, n_steps: int):
 
 
 def _fold_cache(cache):
-    """A stacked cache ([T, N, rows, ...] a layer: ``max_seq`` rows on a
-    global layer, a ring of w on a sliding-window one) as one of T*N
-    slots (views of the contiguous stack, so in-place writes reach
-    it)."""
+    """A stacked cache ([T, N, rows, ...] a leaf: ``max_seq`` rows on a
+    global layer, K/V or MLA's latents, a ring of w on a sliding-window
+    one) as one of T*N slots (views of the contiguous stack, so in-place
+    writes reach it)."""
     return [{k: x.reshape((-1,) + tuple(x.shape[2:])) for k, x in c.items()}
             for c in cache]
 

@@ -21,7 +21,8 @@ The step is written over a leading tenant axis (``make_tenant_run_steps``:
 T virtual NIC slots, each with its fabric, KV cache and session table,
 sharing the weights); the single-engine entry points run it on their
 state viewed as one tenant.  The T caches decode as ONE pool of T*N slots
-and each receive side is one ``core.engine.tenant_receive``, so the
+(an MoE layer routing each tenant's tokens on their own) and each
+receive side is one ``core.engine.tenant_receive``, so the
 kernel route launches what one tenant's step launches, whatever T.  PyTorch
 runs eagerly: the run entry points are Python loops over the staged
 ingress tiles.  The port's steps take no ``params``: the weights live in
@@ -141,7 +142,7 @@ class ServingEngine:
             # 4. decode every slot of every tenant at its own position
             logits, cache2 = model.decode_step(
                 _fold_cache(cache), tok_stage.reshape(-1, 1),
-                pos2.reshape(-1))
+                pos2.reshape(-1), groups=t)
             cache2 = _unfold_cache(cache2, t)
             next_tok = torch.argmax(logits, dim=-1).to(I32).reshape(
                 t, n_slots)

@@ -817,7 +817,8 @@ def test_serving_tenant_run_steps_routes(cuda):
 # the decode pools of the dense zoo's global layers (32 slots x 1,024
 # rows): (query heads, kv heads, head dim)
 ZOO_DECODE = {"gemma3-1b": (4, 1, 256), "nemotron-4-15b": (48, 8, 128),
-              "phi3-medium-14b": (40, 10, 128)}
+              "phi3-medium-14b": (40, 10, 128),
+              "phi3.5-moe-42b-a6.6b": (32, 8, 128)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -901,3 +902,105 @@ def test_model_loss_on_the_card_matches_cpu(cuda, arch):
         for name in want:
             torch.testing.assert_close(got[name].cpu(), want[name],
                                        rtol=2e-5, atol=2e-5)
+
+
+# MoE dispatch cases at REDUCED scale: (batch, seq, decode, decode_mode,
+# groups, skew); a skew leans the tokens toward expert 0, so that the
+# capacity case (t k = 8,320 > 8,192) drops assignments
+MOE_CARD_CASES = {
+    "dropless": (2, 8, False, "dense", 1, 0.0),
+    "capacity_drops": (1, 4160, False, "dense", 1, 0.2),
+    "decode_dense": (4, 1, True, "dense", 1, 0.0),
+    "decode_gather": (4, 1, True, "gather", 1, 0.0),
+    "decode_capped": (8, 1, True, "capped:2", 1, 0.5),
+    "groups": (12, 1, True, "capped:2", 3, 0.5),
+}
+
+
+def _moe_case(arch, case, dev):
+    """A REDUCED float32 MoE layer's weights (seeded on the CPU) and its
+    input, on the CPU and on ``dev``."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    b, s, decode, mode, groups, skew = MOE_CARD_CASES[case]
+    cfg = get_config(arch, reduced=True)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, decode_mode=mode))
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    r = p["router"].numpy()
+    u = r[:, 0] / np.linalg.norm(r[:, 0])
+    x = np.random.default_rng(b + s).standard_normal((b * s, cfg.d_model))
+    x = (x + skew * np.sqrt(cfg.d_model) * u).astype(np.float32)
+    x = torch.from_numpy(x).reshape(b, s, -1)
+    kw = dict(decode=decode, groups=groups)
+    return cfg, (p, x), (copy.deepcopy(p).to(dev), x.to(dev)), kw
+
+
+@pytest.mark.parametrize("case", list(MOE_CARD_CASES))
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v3-671b"])
+def test_moe_apply_on_the_card_matches_cpu(cuda, arch, case):
+    """``moe_apply`` on the card equals the CPU result in float32 at
+    ``REDUCED`` scale in every dispatch branch, drops and folded groups
+    included, within 1e-5."""
+    from repro_torch.models import moe
+
+    cfg, on_cpu, on_card, kw = _moe_case(arch, case, cuda)
+    want, want_aux = moe.moe_apply(cfg, *on_cpu, **kw)
+    got, aux = moe.moe_apply(cfg, *on_card, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["capacity_drops", "decode_dense",
+                                  "decode_gather", "decode_capped",
+                                  "groups"])
+def test_moe_apply_makes_no_host_sync(cuda, case):
+    """deepseek's ``moe_apply`` (shared expert included) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: no step of the routing,
+    dispatch or combine waits for the card."""
+    from repro_torch.models import moe
+
+    cfg, _, on_card, kw = _moe_case("deepseek-v3-671b", case, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_apply(cfg, *on_card, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(aux).all())
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("fast", [False, True])
+def test_mla_decode_on_the_card_matches_cpu(cuda, fast, per_row):
+    """``mla_decode`` of deepseek ``REDUCED`` (float32) on the card equals
+    the CPU result within 1e-5: output and both latent caches, written
+    in place at a scalar position or per-row ones."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    cfg = get_config("deepseek-v3-671b", reduced=True).replace(
+        fast_attn=fast)
+    m = cfg.mla
+    p = attention.mla_init(torch.Generator().manual_seed(1), cfg)
+    rng = np.random.default_rng(14)
+    x, ckv, kpe = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for shape in ((3, 1, cfg.d_model),
+                                   (3, 24, m.kv_lora_rank),
+                                   (3, 24, m.qk_rope_head_dim)))
+    pos = (torch.tensor([5, 23, 0], dtype=torch.int32) if per_row
+           else torch.tensor(11, dtype=torch.int32))
+    want, (wc, wk) = attention.mla_decode(cfg, p, x, ckv.clone(),
+                                          kpe.clone(), pos)
+    got, (gc, gk) = attention.mla_decode(
+        cfg, copy.deepcopy(p).to(cuda), x.to(cuda), ckv.to(cuda),
+        kpe.to(cuda), pos.to(cuda))
+    for g, w in ((got, want), (gc, wc), (gk, wk)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)

@@ -84,8 +84,8 @@ def _record_margins(model):
     margins = []
     inner = model.decode_step
 
-    def step(cache, tokens, pos):
-        logits, cache = inner(cache, tokens, pos)
+    def step(cache, tokens, pos, **kw):
+        logits, cache = inner(cache, tokens, pos, **kw)
         top = torch.topk(logits, 2, dim=-1).values
         margins.append(float((top[:, 0] - top[:, 1]).min()))
         return logits, cache

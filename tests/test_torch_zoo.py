@@ -1,8 +1,11 @@
 """Port parity for the dense model zoo of ``repro_torch``: qwen2-1.5b,
 phi3-medium-14b, nemotron-4-15b (LayerNorm with bias, squared ReLU) and
 gemma3-1b (5:1 sliding-window and global layers, window 16 at
-``REDUCED``, GeGLU, tied embeddings), through ``Model.loss``,
-``Model.prefill``, ``Model.decode_step`` and the LM decode tenant; the
+``REDUCED``, GeGLU, tied embeddings), and the MoE family's
+deepseek-v3-671b and phi3.5-moe-42b through the ``ARCHS`` cases
+(``tests/test_torch_moe.py`` holds the rest of their parity), through
+``Model.loss``, ``Model.prefill``, ``Model.decode_step`` and the LM
+decode tenant; the
 attention functions they add (``_flash_sdpa``, ``gqa_local``, the logit
 soft-cap of ``_sdpa``); the configs and ``ModelConfig.param_count``.
 
@@ -108,9 +111,10 @@ def test_configs_match_reference(arch):
 def test_arch_names_follow_the_reference():
     assert ASSIGNED == J_ASSIGNED
     assert ARCHS == ["qwen2-1.5b", "phi3-medium-14b", "nemotron-4-15b",
-                     "gemma3-1b"]
+                     "gemma3-1b", "deepseek-v3-671b", "phi3.5-moe-42b-a6.6b"]
+    assert get_config("phi3.5-moe-42b") == get_config("phi3.5-moe-42b-a6.6b")
     with pytest.raises(ValueError, match="serves"):
-        get_config("deepseek-v3-671b")
+        get_config("xlstm-350m")
 
 
 @pytest.mark.parametrize("arch", J_ASSIGNED + ["repro-100m"])
@@ -127,7 +131,8 @@ def test_param_count_matches_reference(arch):
 @pytest.mark.parametrize("arch,lo,hi", [
     ("qwen2-1.5b", 1.2e9, 2.0e9), ("phi3-medium-14b", 12e9, 16e9),
     ("nemotron-4-15b", 12e9, 18e9), ("gemma3-1b", 0.8e9, 1.6e9),
-    ("repro-100m", 0.08e9, 0.12e9)])
+    ("deepseek-v3-671b", 580e9, 720e9),
+    ("phi3.5-moe-42b-a6.6b", 38e9, 46e9), ("repro-100m", 0.08e9, 0.12e9)])
 def test_param_counts_are_plausible(arch, lo, hi):
     """The published sizes (``tests/test_archs.py``'s ranges; the
     in-house repro-100m's name)."""
@@ -235,7 +240,8 @@ def test_loss_matches_reference(arch):
                                "labels": jnp.asarray(labels)})
     loss, got = model.loss({"tokens": _t(tok).long(),
                             "labels": _t(labels).long()})
-    assert set(got) == {"ce", "tokens", "aux", "loss"}
+    assert set(got) == {"ce", "tokens", "aux", "loss"} | (
+        {"mtp_ce"} if model.cfg.mtp_depth else set())
     assert all(v.dtype == torch.float32 and v.dim() == 0
                for v in got.values())
     _close(loss, want_loss)
@@ -372,9 +378,9 @@ def test_gemma_decode_tenant_matches_reference():
     positions = []
     inner = eng.model.decode_step
 
-    def step(cache, tokens, pos):
+    def step(cache, tokens, pos, **kw):
         positions.append(int(pos.max()))
-        return inner(cache, tokens, pos)
+        return inner(cache, tokens, pos, **kw)
     eng.model.decode_step = step
     jst, (jc, jv) = jeng.make_run_steps(40)(jst)
     st, (tc, tv) = eng.make_run_steps(40)(st)
