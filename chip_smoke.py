@@ -38,7 +38,8 @@ exit, no result line) on any mismatch:
    shapes and the global layers of gemma3-1b (4 query heads on 1 kv
    head, hd 256), nemotron-4-15b (48 on 8) and phi3-medium-14b (40 on
    10) over 32 slots of 1,024 rows, and phi3.5-moe-42b's (32 on 8, hd
-   128) over 8 and 32 slots, within the stated tolerance
+   128; jamba-v0.1-52b's too) over 8 and 32 slots, within the stated
+   tolerance
    (``DA_TOL``); and at the shapes
    of phases 7 and 8: the switch step's fetch route over the flight
    service's 8 tiers (2 flows, B 8, ring 64, request buffer 256: mixed
@@ -167,15 +168,33 @@ exit, no result line) on any mismatch:
    capacity branch), 4 tiles of 8 "sample for me" requests on both
    routes (every request answered, sessions, served counts, telemetry
    and non-token egress words equal);
+14. the SSM and hybrid stacks at full width: jamba-v0.1-52b (16 of its
+   32 layers, two 8-layer periods: 14 Mamba, 2 attention, 8 MoE layers,
+   52.1 GB) and xlstm-350m (24 layers, sLSTM and mLSTM) in bf16 with
+   seeded weights, one at a time: 8 prompts of 256 tokens prefilled into
+   1,024 rows (the recurrent layers' state into the cache), 8 greedy
+   decode steps on the kernel and the plain route from copies of one
+   cache, on one routing (logits within ``LOGIT_TOL``;
+   ``decode_attention`` twice a step on jamba, never on xlstm; a free
+   plain step's flips printed), the first step against each sequence's
+   prefill of 257 tokens measured in bf16 and checked in float32 at the
+   published widths (jamba at one 8-layer period, xlstm at full depth;
+   rtol and atol 2e-4, ``tests/test_archs.py``'s), a profiled window of
+   2 steps, the loss on 2 x 512 tokens, the recurrent state a slot and
+   the peak memory; jamba then served at phase 11's pool as phi3.5-moe
+   is in phase 13; xlstm's decode tenant at phase 6's pool and traffic
+   for 200 steps on the kernel and the plain route, equal in every part
+   (tokens and recurrent state included: both routes run the same model
+   code on the same batch shape);
 4. kernel summary (run last): one JSON line with each kernel's launches
-   on the main paths (phases 3, 5-13) and, at the shape with the most
+   on the main paths (phases 3, 5-14) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
    version's, its bound and, for decode attention, the time of
    ``F.scaled_dot_product_attention`` on the same inputs.  Every kernel
    is timed at every shape its main paths give it (``by_shape`` in the
    details: launches by path, ms, call ms, bound, device activities a
    call), on inputs captured at that shape in one more step of phases
-   3 and 5-13; the launches by shape are the ``ops`` wrappers' own
+   3 and 5-14; the launches by shape are the ``ops`` wrappers' own
    counts (``ops.launch_shapes``) from the main-path runs.  The switch
    step's graph restores its captured state before every call, and its
    time is that graph's less a graph of the restores.  Four kernels run
@@ -319,6 +338,22 @@ MOE_PROMPT = 256
 MOE_SERVE = "phi3.5-moe-42b-a6.6b"
 MOE_SERVE_TILES = 4
 MOE_PROFILE_STEPS = 2
+# phase 14: jamba at 16 of its 32 layers (two 8-layer periods, 52.0 GB
+# bf16: 24 leave no room for caches and the float32 draw of an expert
+# stack) and xlstm-350m at full depth; phase 12's slots, rows, steps and
+# losses with prompts of 256 tokens (the selective scan's chunk), the
+# longer prefill 257; jamba served at phase 11's pool for
+# ``MOE_SERVE_TILES`` tiles, xlstm's decode tenant at phase 6's pool
+SSM = (("jamba-v0.1-52b", 16), ("xlstm-350m", 24))
+SSM_PROMPT = 256
+SSM_SERVE = "jamba-v0.1-52b"
+SSM_TENANT = "xlstm-350m"
+SSM_TENANT_STEPS = 200
+# decode after prefill in float32 at the published widths: jamba at one
+# 8-layer period (52 GB), xlstm at full depth; tests/test_archs.py's
+# tolerance
+SSM_F32 = {"jamba-v0.1-52b": 8, "xlstm-350m": 24}
+F32_TOL = 2e-4
 
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
@@ -950,7 +985,8 @@ def phase_kernels(torch, dev):
         shapes.append((LM_POOL["n_slots"], zc.n_heads, zc.n_kv_heads,
                        zc.resolved_head_dim, LM_POOL["max_seq"]))
     # phase 13: phi3.5-moe's layers (32 on 8 kv heads, hd 128) over its
-    # decode's 8 slots and the serving pool's 32
+    # decode's 8 slots and the serving pool's 32; phase 14's jamba
+    # attention layers have the same shapes
     mc = get_config(MOE_SERVE)
     for b_ in (ZOO_SLOTS, LM_POOL["n_slots"]):
         shapes.append((b_, mc.n_heads, mc.n_kv_heads, mc.resolved_head_dim,
@@ -3190,13 +3226,15 @@ def moe_engine(cfg, dev):
                          max_seq=LM_POOL["max_seq"], seed=0, device=dev)
 
 
-def moe_serving(torch, eng, seen):
-    """phi3.5-moe served through ``eng`` (``moe_engine``):
-    ``prefill_sessions`` of 32 prompts of 256 tokens (16,384 assignments
-    a layer, the capacity branch), then ``MOE_SERVE_TILES`` staged tiles
-    of 8 "sample for me" requests on the kernel and the plain route from
-    one state.  The plain route is a shallow copy of the engine with the
-    plain fabric: one set of weights serves both."""
+def moe_serving(torch, eng, seen, what="moe serving"):
+    """An MoE model (phi3.5-moe in phase 13, jamba in phase 14) served
+    through ``eng`` (``moe_engine``): ``prefill_sessions`` of 32 prompts
+    of 256 tokens (16,384 assignments a layer, the capacity branch),
+    then ``MOE_SERVE_TILES`` staged tiles of 8 "sample for me" requests
+    on the kernel and the plain route from one state, one
+    ``decode_attention`` a global attention layer a step.  The plain
+    route is a shallow copy of the engine with the plain fabric: one set
+    of weights serves both.  ``what`` heads the printed lines."""
     import copy
 
     from repro_torch.core import serdes
@@ -3226,7 +3264,7 @@ def moe_serving(torch, eng, seen):
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         check(sess.pos.tolist() == [SERVE_PROMPT] * n_slots,
-              "moe serving: prefill left a session at another position")
+              f"{what}: prefill left a session at another position")
         slots, valid = serve_tiles(torch, dev, eng.fabric, None, 1)
         tiles = (slots[:MOE_SERVE_TILES], valid[:MOE_SERVE_TILES])
         n_req = int(tiles[1].sum())
@@ -3255,14 +3293,14 @@ def moe_serving(torch, eng, seen):
                                sess=s2)
             del states, full
             check(s2.pos.tolist() == [SERVE_PROMPT + 1] * n_slots,
-                  f"moe serving {route}: session positions "
+                  f"{what} {route}: session positions "
                   f"{s2.pos.tolist()}")
             recs = serdes.unpack(o[1])
             resp = o[2] & ((recs["flags"] & serdes.FLAG_RESPONSE) != 0)
             check(int(o[0]) == n_req and int(resp.sum()) == n_req,
-                  f"moe serving {route}: served {int(o[0])}, "
+                  f"{what} {route}: served {int(o[0])}, "
                   f"{int(resp.sum())} responses left, of {n_req} requests")
-            say(f"moe serving {route}: {MOE_SERVE_TILES} tiles in "
+            say(f"{what} {route}: {MOE_SERVE_TILES} tiles in "
                 f"{secs:.3f} s, {MOE_SERVE_TILES / secs:.2f} steps/s, served "
                 f"{int(o[0])} of {n_req}; launches {counts}")
     a, b = runs["kernels"], runs["plain"]
@@ -3272,20 +3310,21 @@ def moe_serving(torch, eng, seen):
     tree_equal(torch, (a["sess"].session_id, a["sess"].pos, a["out"][0],
                        a["out"][3], a["out"][2]),
                (b["sess"].session_id, b["sess"].pos, b["out"][0],
-                b["out"][3], b["out"][2]), "moe serving")
+                b["out"][3], b["out"][2]), what)
     words = [w for w in range(a["out"][1].shape[-1]) if w != tok_word]
     check(torch.equal(a["out"][1][..., words], b["out"][1][..., words]),
-          "moe serving: a non-token word of the egress differs")
+          f"{what}: a non-token word of the egress differs")
     ta = a["out"][1][a["out"][2]][:, tok_word]
     tb = b["out"][1][b["out"][2]][:, tok_word]
     share = float((ta == tb).float().mean())
     c = a["counts"]
-    check(c["decode_attention"] == model.cfg.n_layers * MOE_SERVE_TILES
+    n_global = sum(k == 0 for k, _ in model.dec_kinds)
+    check(c["decode_attention"] == n_global * MOE_SERVE_TILES
           and c["switch_step_fused"] == MOE_SERVE_TILES
           and c["ring_push_packed"] == MOE_SERVE_TILES
           and not any(b["counts"].values()),
-          f"moe serving: launches {c} (kernels), {b['counts']} (plain)")
-    say(f"moe serving: prefill of {n_slots} x {SERVE_PROMPT} tokens in "
+          f"{what}: launches {c} (kernels), {b['counts']} (plain)")
+    say(f"{what}: prefill of {n_slots} x {SERVE_PROMPT} tokens in "
         f"{prefill_s:.3f} s; routes equal (served, telemetry, egress "
         f"headers); equal tokens {share:.4f}")
     report = {route: {"secs": r["secs"], "served": int(r["out"][0]),
@@ -3330,6 +3369,372 @@ def phase_moe(torch, dev, seen):
         del model, eng
         gc.collect()
         torch.cuda.empty_cache()
+    return report, paths
+
+
+def ssm_decode(torch, model, arch, seen):
+    """One model of phase 14: prefill of ``ZOO_SLOTS`` prompts of
+    ``SSM_PROMPT`` tokens into ``ZOO_ROWS`` rows (the recurrent layers'
+    state, the attention layers' K/V), ``ZOO_DECODE_STEPS`` decode steps
+    on both routes (kernel route counted: one ``decode_attention`` a
+    global attention layer a step), the first step against each
+    sequence's prefill of ``SSM_PROMPT + 1`` tokens (measured; checked in
+    float32 by ``ssm_f32``), a profiled window of
+    ``MOE_PROFILE_STEPS`` steps, the loss on ``ZOO_LOSS`` and phase 4's
+    inputs at this model's decode shapes.  On jamba the comparisons run
+    on the kernel route's expert choices (``routing``) and one free plain
+    step is measured beside them, as in phase 13."""
+    from repro_torch.kernels import ops
+    dev = model.device
+    cfg = model.cfg
+    plain_cfg = cfg.replace(use_pallas=False)
+    n_global = sum(k == 0 for k, _ in model.dec_kinds)
+    n_moe = sum(m for _, m in model.dec_kinds)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    prompts = torch.randint(0, cfg.vocab, (ZOO_SLOTS, SSM_PROMPT),
+                            device=dev, generator=gen)
+    out = {"prompt": SSM_PROMPT}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prefill_log, logs = [], []
+        with routing(prefill_log):
+            logits, cache = model.prefill(
+                prompts, model.cache_init(ZOO_SLOTS, ZOO_ROWS))
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        check(bool(torch.isfinite(logits).all())
+              and logits.shape == (ZOO_SLOTS, cfg.vocab),
+              f"ssm {arch}: prefill logits not finite or misshapen")
+        state_bytes = sum(t.numel() * t.element_size() for c, (k, _) in
+                          zip(cache, model.dec_kinds) if k != 0
+                          for t in c.values())
+        out["state_mb_per_slot"] = state_bytes / ZOO_SLOTS / 1e6
+        start = clone_cache(cache)
+        plain_cache = clone_cache(cache)
+        fed, errs, agree = [], [], []
+        ops.reset_launch_counts()
+        k_secs = p_secs = 0.0
+        for i in range(ZOO_DECODE_STEPS):
+            tok = logits.argmax(-1)[:, None]
+            fed.append(tok)
+            pos = torch.full((ZOO_SLOTS,), SSM_PROMPT + i,
+                             dtype=torch.int32, device=dev)
+            logs.append([])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with routing(logs[-1]):
+                logits, cache = model.decode_step(cache, tok, pos)
+            torch.cuda.synchronize()
+            k_secs += time.perf_counter() - t0
+            counts, tally = ops.launch_counts(), ops.launch_shapes()
+            if i == 0:
+                first = logits.clone()
+            model.cfg = plain_cfg
+            t0 = time.perf_counter()
+            with routing(logs[-1], replay=True):
+                lp, plain_cache = model.decode_step(plain_cache, tok, pos)
+            torch.cuda.synchronize()
+            p_secs += time.perf_counter() - t0
+            if i == 0:
+                # the free plain step, on its own expert choices
+                own = []
+                with routing(own):
+                    free, _ = model.decode_step(clone_cache(start), tok, pos)
+                out["free_flips"] = flips(torch, logs[0], own)
+                out["free_err"] = float((logits - free).abs().max())
+                del free
+            model.cfg = cfg
+            check(bool(torch.isfinite(logits).all()),
+                  f"ssm {arch}: decode logits not finite")
+            errs.append((float((logits - lp).abs().max()),
+                         float(lp.abs().max())))
+            agree.append(float((logits.argmax(-1) == lp.argmax(-1))
+                               .float().mean()))
+        check(ops.launch_counts() == counts,
+              f"ssm {arch}: the plain route launched kernels")
+        check(counts["decode_attention"] == n_global * ZOO_DECODE_STEPS,
+              f"ssm {arch}: decode_attention launched "
+              f"{counts['decode_attention']} times, expected {n_global} x "
+              f"{ZOO_DECODE_STEPS}")
+        err, scale = max(errs, key=lambda e: e[0] / e[1])
+        check(all(e <= LOGIT_TOL * m for e, m in errs),
+              f"ssm {arch}: kernel and plain route logits differ by {err} "
+              f"(largest |logit| {scale})")
+        # cache after the steps: both routes' recurrent state
+        state_err = max(float((a.float() - b.float()).abs().max())
+                        for c, d, (kind, _) in zip(cache, plain_cache,
+                                                   model.dec_kinds)
+                        if kind != 0
+                        for a, b in zip(c.values(), d.values()))
+        del plain_cache
+        # the first decode step against the prefill of each sequence with
+        # its fed token, measured in bf16 (the check is ``ssm_f32``'s:
+        # bf16 rounding of the input products, which differs between 2,048,
+        # 2,056 and 8 rows, enters every Mamba layer's recurrence)
+        ext = longer_prefill(torch, model, prompts, fed[0], prefill_log,
+                             logs[0])
+        ext_err, ext_scale = (float((first - ext).abs().max()),
+                              float(ext.abs().max()))
+        ext_agree = float((first.argmax(-1) == ext.argmax(-1)).float()
+                          .mean())
+        check(bool(torch.isfinite(ext).all()),
+              f"ssm {arch}: longer prefill's logits not finite")
+        del ext
+        # device time a step by kernel: a profiled window
+        pc = clone_cache(start)
+
+        def window(pc=pc):
+            lg = first
+            for i in range(MOE_PROFILE_STEPS):
+                lg, _ = model.decode_step(
+                    pc, lg.argmax(-1)[:, None],
+                    torch.full((ZOO_SLOTS,), SSM_PROMPT + i,
+                               dtype=torch.int32, device=dev))
+        out["profile"] = profile_steps(torch, window, MOE_PROFILE_STEPS,
+                                       k_secs / ZOO_DECODE_STEPS * 1e6)
+        say_profile(f"ssm {arch} decode", out["profile"])
+        del pc
+        # phase 4's inputs at this model's decode shapes: one more step
+        with recording(seen):
+            model.decode_step(start, fed[0], pos)
+        del start, cache
+        # the loss
+        b, s = ZOO_LOSS
+        tok = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, metrics = model.loss({"tokens": tok, "labels": tok})
+        torch.cuda.synchronize()
+        out["loss_s"] = time.perf_counter() - t0
+        out["metrics"] = {k: float(v) for k, v in metrics.items()}
+        check(all(map(math.isfinite, out["metrics"].values()))
+              and (out["metrics"]["aux"] > 0) == bool(n_moe)
+              and out["metrics"]["tokens"] == b * (s - 1),
+              f"ssm {arch}: loss metrics {out['metrics']}")
+    out.update(counts=counts, tally=tally, logit_err=err, logit_scale=scale,
+               argmax_share=min(agree), ext_err=ext_err,
+               ext_scale=ext_scale, ext_argmax_share=ext_agree,
+               state_err=state_err,
+               kernel_ms_per_step=k_secs / ZOO_DECODE_STEPS * 1e3,
+               plain_ms_per_step=p_secs / ZOO_DECODE_STEPS * 1e3)
+    say(f"ssm {arch}: prefill {ZOO_SLOTS} x {SSM_PROMPT} in "
+        f"{out['prefill_s']:.3f} s (peak {out['prefill_peak_gb']:.2f} GB), "
+        f"recurrent state {out['state_mb_per_slot']:.3f} MB a slot; "
+        f"{ZOO_DECODE_STEPS} decode steps a route, "
+        f"{out['kernel_ms_per_step']:.2f} ms/step kernels, "
+        f"{out['plain_ms_per_step']:.2f} plain; routes' logits max |diff| "
+        f"{err:.4g} of max |logit| {scale:.4g}, argmax equal on "
+        f"{min(agree):.3f} of slots (worst step), state max |diff| "
+        f"{state_err:.4g}; a free plain step: {out['free_flips']} tokens' "
+        f"experts differ over {n_moe} MoE layers x {ZOO_SLOTS} tokens, "
+        f"max |diff| {out['free_err']:.4g}; the first step against each "
+        f"sequence's prefill of {SSM_PROMPT + 1} tokens: max |diff| "
+        f"{ext_err:.4g} of {ext_scale:.4g}, argmax equal on "
+        f"{ext_agree:.3f}; loss {ZOO_LOSS[0]} x {ZOO_LOSS[1]} "
+        f"{out['metrics']} in {out['loss_s']:.3f} s; launches {counts}")
+    return out
+
+
+def longer_prefill(torch, model, prompts, tok, prefill_log, step_log):
+    """The logits of the prefill of ``prompts`` [B, P] with each row's
+    decoded token ``tok`` [B, 1] after it (P + 1 tokens, one chunk of the
+    scan), the whole batch at once (8 x 257 x top-2 stays dropless), on
+    the kernel route's expert choices: the prefill's, then the step's."""
+    b, p = prompts.shape
+    own = [torch.cat([t for j in range(b) for t in (
+        pre[:, j * p:(j + 1) * p], step[:, j:j + 1])], dim=1)
+        for pre, step in zip(prefill_log, step_log)]
+    with routing(own, replay=True):
+        logits, _ = model.prefill(torch.cat([prompts, tok], dim=1),
+                                  model.cache_init(b, ZOO_ROWS))
+    return logits
+
+
+def ssm_f32(torch, dev, arch, layers):
+    """Decode after prefill against the longer prefill in float32 at the
+    published widths (jamba at one 8-layer period: Mamba, attention, MLP
+    and MoE layers; xlstm at full depth), kernel route: the first decode
+    step after a prefill of ``ZOO_SLOTS`` x ``SSM_PROMPT`` tokens equals
+    the prefill of the ``SSM_PROMPT + 1`` tokens within
+    ``tests/test_archs.py``'s tolerance (rtol and atol 2e-4), on one
+    routing."""
+    from repro_torch.models import Model
+    cfg = get_config(arch).replace(n_layers=layers, use_pallas=True,
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+    model = Model(cfg, device=dev, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    prompts = torch.randint(0, cfg.vocab, (ZOO_SLOTS, SSM_PROMPT),
+                            device=dev, generator=gen)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        plog, slog = [], []
+        with routing(plog):
+            logits, cache = model.prefill(
+                prompts, model.cache_init(ZOO_SLOTS, ZOO_ROWS))
+        tok = logits.argmax(-1)[:, None]
+        with routing(slog):
+            got, _ = model.decode_step(
+                cache, tok, torch.full((ZOO_SLOTS,), SSM_PROMPT,
+                                       dtype=torch.int32, device=dev))
+        want = longer_prefill(torch, model, prompts, tok, plog, slog)
+        torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    excess = float(((got - want).abs() - F32_TOL * want.abs()).max())
+    scale = float(want.abs().max())
+    check(bool(torch.isfinite(got).all()) and excess <= F32_TOL,
+          f"ssm {arch} float32: decode after prefill differs from the "
+          f"prefill of the longer sequence by {err} (largest |logit| "
+          f"{scale}; rtol and atol {F32_TOL})")
+    r = dict(n_layers=layers, err=err, scale=scale,
+             secs=time.perf_counter() - t0)
+    say(f"ssm {arch} float32, {layers} layers: the first decode step "
+        f"against each sequence's prefill of {SSM_PROMPT + 1} tokens: max "
+        f"|diff| {err:.4g} of {scale:.4g} (rtol and atol {F32_TOL}), "
+        f"{r['secs']:.1f} s")
+    return r
+
+
+def ssm_tenant(torch, dev, seen):
+    """xlstm-350m's LM decode tenant at phase 6's pool and traffic for
+    ``SSM_TENANT_STEPS`` steps on the kernel route and the plain route
+    from one start state (one set of weights).  xlstm has no model
+    kernel, so both routes run the same model code on the same batch
+    shape: every part, tokens and recurrent state included, is equal.
+    Then a profiled window and phase 4's inputs at this path's shapes."""
+    from repro_torch.apps.lm_decode import build_engine
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core import serdes
+    from repro_torch.core.fabric import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.decode import default_fabric_config
+
+    engines = {}
+    for route in ("kernels", "plain"):
+        use = route == "kernels"
+        engines[route] = build_engine(
+            cfg=get_config(SSM_TENANT),
+            fabric_cfg=default_fabric_config(n_flows=LM_FLOWS,
+                                             use_pallas=use),
+            mode=lg.MODE_POISSON, seed=0, use_pallas=use, n_bins=LM_BINS,
+            device=dev, **LM_POOL)
+    engines["plain"].model.load_state_dict(
+        engines["kernels"].model.state_dict())
+    start = engines["kernels"].init_states(LM_RATE, seed=7)
+    runs = {}
+    for route, eng in engines.items():
+        st = tree_map(torch.clone, start)
+        run = eng.make_run_steps(SSM_TENANT_STEPS)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            st, (comp, valid) = run(st)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        recs = serdes.unpack(comp)
+        tokens = int((valid & ((recs["flags"] & serdes.FLAG_FRAGMENT) != 0))
+                     .sum())
+        sl = st.slots
+        runs[route] = dict(
+            st=st, comp=comp, valid=valid, secs=secs, tokens=tokens,
+            counts=ops.launch_counts(), tally=ops.launch_shapes(),
+            admitted=int(sl.admitted), completed=int(sl.completed),
+            rejected=int(sl.rejected), active=int((sl.req_id >= 0).sum()))
+        r = runs[route]
+        say(f"ssm tenant {SSM_TENANT} {route}: {SSM_TENANT_STEPS} steps in "
+            f"{secs:.3f} s, {SSM_TENANT_STEPS / secs:.2f} steps/s, "
+            f"{tokens} tokens, {tokens / secs:.1f} tokens/s; admitted "
+            f"{r['admitted']} completed {r['completed']} rejected "
+            f"{r['rejected']} active {r['active']}; launches {r['counts']}")
+    k, p = runs["kernels"], runs["plain"]
+    tree_equal(torch, (k["st"], k["comp"], k["valid"]),
+               (p["st"], p["comp"], p["valid"]), "ssm tenant")
+    check(k["admitted"] == k["completed"] + k["active"] + k["rejected"]
+          and k["completed"] > 0 and k["tokens"] > 0,
+          f"ssm tenant: ledger or traffic: {k['admitted']} admitted, "
+          f"{k['completed']} completed, {k['active']} active, "
+          f"{k['rejected']} rejected, {k['tokens']} tokens")
+    g = k["st"].gst
+    check(int(g.offered) == int(g.injected) + int(g.dropped),
+          "ssm tenant: generator ledger unbalanced")
+    kc = k["counts"]
+    check(kc["decode_attention"] == 0 and kc["ring_push_packed"] > 0
+          and kc["rpc_pack"] == 0 and kc["switch_step_fused"] > 0
+          and not any(p["counts"].values()),
+          f"ssm tenant: launches {kc} (kernels), {p['counts']} (plain)")
+    eng = engines["kernels"]
+    prof = eng.make_run_steps(LM_PROFILE_STEPS)
+    pst = fresh(torch, k["st"])
+    with torch.no_grad():
+        share = profile_steps(torch, lambda: prof(pst), LM_PROFILE_STEPS,
+                              k["secs"] / SSM_TENANT_STEPS * 1e6)
+        say_profile(f"ssm tenant {SSM_TENANT}", share)
+        # phase 4's inputs at this path's shapes: one more step
+        with recording(seen):
+            eng.make_run_steps(1)(fresh(torch, k["st"]))
+    torch.cuda.synchronize()
+    say(f"ssm tenant {SSM_TENANT}: routes equal in every part, tokens and "
+        f"recurrent state included")
+    report = {route: {key: r[key] for key in (
+        "secs", "tokens", "admitted", "completed", "rejected", "active",
+        "counts")} for route, r in runs.items()}
+    report["device_share"] = share
+    return report, kc, k["tally"]
+
+
+def phase_ssm(torch, dev, seen):
+    """The SSM and hybrid stacks at published widths, one model at a time,
+    each freed before the next: ``ssm_decode`` for each of ``SSM``; jamba
+    served (``moe_serving``) on the same weights; xlstm's decode tenant
+    (``ssm_tenant``).  Returns (report, {path: (counts, tally, steps)})."""
+    import gc
+    from repro_torch.models import Model
+    report, paths = {}, {}
+    for arch, layers in SSM:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch).replace(n_layers=layers, use_pallas=True)
+        # the served model is the engine's own: it is decoded first
+        eng = moe_engine(cfg, dev) if arch == SSM_SERVE else None
+        model = eng.model if eng else Model(cfg, device=dev, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        say(f"ssm {arch}: {layers} layers, {n_params} parameters "
+            f"({n_params * 2 / 1e9:.3f} GB bf16, param_count "
+            f"{model.cfg.param_count()}), built in {build_s:.1f} s")
+        r = ssm_decode(torch, model, arch, seen)
+        r.update(n_layers=layers, n_params=n_params, build_s=build_s)
+        paths[f"ssm_{arch}"] = (r.pop("counts"), r.pop("tally"),
+                                ZOO_DECODE_STEPS)
+        if eng:
+            r["serving"], counts, tally = moe_serving(
+                torch, eng, seen, what=f"ssm serving {arch}")
+            paths["ssm_serving"] = (counts, tally, MOE_SERVE_TILES)
+        r["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["float32"] = ssm_f32(torch, dev, arch, SSM_F32[arch])
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == SSM_TENANT:
+            t1 = time.perf_counter()
+            r["tenant"], counts, tally = ssm_tenant(torch, dev, seen)
+            r["tenant"]["secs_total"] = time.perf_counter() - t1
+            paths["ssm_tenant"] = (counts, tally, SSM_TENANT_STEPS)
+            gc.collect()
+            torch.cuda.empty_cache()
+        r["secs"] = time.perf_counter() - t0
+        say(f"ssm {arch}: peak memory {r['max_memory_gb']:.2f} GB, "
+            f"{r['secs']:.1f} s")
+        report[arch] = r
     return report, paths
 
 
@@ -3676,6 +4081,11 @@ def main():
         f" s)")
 
     t0 = time.perf_counter()
+    report["ssm"], ssm_paths = phase_ssm(torch, dev, seen)
+    say(f"phase 14: SSM and hybrid stacks at full width "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
     paths = {"fused": (runs["fused"]["counts"], runs["fused"]["tally"],
                        FULL_STEPS),
              "staged": (runs["staged"]["counts"], runs["staged"]["tally"],
@@ -3688,7 +4098,7 @@ def main():
              "kvs_tenants": (kt_counts, kt_tally, kt_steps),
              "lm_tenants": (lt_counts, lt_tally, LM_TENANT_STEPS),
              "serving": (sv_counts, sv_tally, sv_steps), **zoo_paths,
-             **moe_paths}
+             **moe_paths, **ssm_paths}
     rows = phase_summary(torch, paths, seen)
     report["kernels"] = rows
     say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")

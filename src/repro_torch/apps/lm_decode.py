@@ -70,7 +70,7 @@ def sweep_rates(engine: DecodeEngine, rates: Sequence[float],
     if mesh is not None:
         raise NotImplementedError(
             "sweep_rates on a device mesh waits for the multi-GPU port "
-            "(ROADMAP queue 1, item 4)")
+            "(ROADMAP queue 1, item 9)")
     run = engine.make_tenant_run_steps(n_steps)
     out = {}
     for i, rate in enumerate(rates):

@@ -2,8 +2,8 @@
 field for field.
 
 ``ModelConfig`` describes any architecture of the reference (plus reduced
-smoke-test variants); the port's ``models.Model`` serves the dense GQA
-decoder of it and refuses the rest.  For ``FabricConfig``, hard
+smoke-test variants); the port's ``models.Model`` serves its decoder-only
+stacks and refuses the rest.  For ``FabricConfig``, hard
 configuration (paper: SystemVerilog macros, needs re-synthesis) is every
 field; soft configuration (paper: CSR writes) lives in the ``SoftConfig``
 device scalars of ``core.fabric.FabricState``.

@@ -4,7 +4,8 @@ One module per architecture, each exporting ``CONFIG`` (the published
 widths) and ``REDUCED`` (smoke-test scale, runnable on the CPU) — the
 reference's values, copied.  ``ASSIGNED`` is the reference's list of
 assigned architectures, in its order; ``all_arch_names()`` keeps those
-the port serves (the dense decoders and the MoE family), in that order.
+the port serves (the dense decoders, the MoE family, and the SSM and
+hybrid stacks), in that order.
 """
 from __future__ import annotations
 
@@ -17,9 +18,11 @@ _ALIASES = {
     "phi3-medium-14b": "phi3_medium_14b",
     "nemotron-4-15b": "nemotron_4_15b",
     "gemma3-1b": "gemma3_1b",
+    "xlstm-350m": "xlstm_350m",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
     "phi3.5-moe-42b": "phi3_5_moe_42b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "repro-100m": "repro_100m",
 }
 

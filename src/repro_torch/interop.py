@@ -33,7 +33,9 @@ the reference's stacked cache to the port's one-dict-per-layer list and
 back, whatever rows a layer keeps (gemma3's sliding-window rings of
 ``local_window`` rows beside its global caches of ``max_seq``, segments
 ``[((L,L,L,L,L,G), n), ((L,L), 1)]``) and whatever leaves (MLA's latent
-``ckv``/``kpe``);
+``ckv``/``kpe``; the recurrent state of Mamba, sLSTM and mLSTM layers,
+float32 beside the compute dtype, in xlstm's ``[((S, M), 12)]`` and
+jamba's 8-layer periods);
 LayerNorm biases, tied embeddings (no ``lm_head``), the MoE layers'
 float32 router and stacked experts (with a nested ``shared`` MLP) and
 the MTP head load by name like every other weight.  Their dtypes
@@ -226,11 +228,12 @@ def model_params_from_numpy(model, params):
     return model
 
 
-def _cache_ranks(cfg) -> list:
-    """Each decoder layer's cache leaves and their rank in one pool of
-    the port ({"k": 4, "v": 4} on a GQA layer, {"ckv": 3, "kpe": 3} on
-    an MLA one)."""
-    return [{name: t.dim() for name, t in
+def _cache_leaves(cfg) -> list:
+    """Each decoder layer's cache leaves with their rank in one pool of
+    the port and their dtype ({"k": (4, bf16), "v": (4, bf16)} on a bf16
+    GQA layer, {"conv": (3, bf16), "h": (3, float32)} on a bf16 Mamba
+    layer)."""
+    return [{name: (t.dim(), t.dtype) for name, t in
              layer_cache_init(cfg, kind, 1, 1, "cpu").items()}
             for kind, _ in cfg._layer_kinds()]
 
@@ -238,16 +241,22 @@ def _cache_ranks(cfg) -> list:
 def decode_cache_from_numpy(cfg, src, device="cuda") -> list:
     """The reference's decode cache pytree -> the port's list of
     per-layer dicts, each with that layer's own leaves (``{"k", "v"}``,
-    or MLA's ``{"ckv", "kpe"}``).  A tenant-stacked cache (every leaf
+    MLA's ``{"ckv", "kpe"}``, or a recurrent layer's state: Mamba's
+    ``{"conv", "h"}``, sLSTM's ``{"sc", "sn", "sm", "sh"}``, mLSTM's
+    ``{"mC", "mn", "mm"}``), each leaf in the dtype the port's cache has
+    (a ValueError otherwise).  A tenant-stacked cache (every leaf
     [T, ...], the layers of a segment stacked behind the tenant axis)
     gives [T, N, ...] tensors."""
     dev = resolve(device)
-    ranks = _cache_ranks(cfg)
+    leaves = _cache_leaves(cfg)
     out = []
     for i, sub, period in _layer_sources(cfg, src):
         layer = {}
-        for name, rank in ranks[i].items():
+        for name, (rank, dtype) in leaves[i].items():
             t = _float_tensor(_get(sub, name), f"cache.layer{i}.{name}")
+            if t.dtype != dtype:
+                raise ValueError(f"cache.layer{i}.{name}: reference "
+                                 f"{t.dtype}, port {dtype}")
             if period is not None:
                 # the period dim comes after any tenant axis
                 t = t.select(t.dim() - rank - 1, period)
@@ -260,7 +269,7 @@ def decode_cache_to_numpy(cfg, cache) -> dict:
     """The port's per-layer cache list -> the reference's pytree layout
     (layers of a segment stacked along a leading dim, behind the tenant
     axis of a stacked cache)."""
-    ranks = _cache_ranks(cfg)
+    leaves = _cache_leaves(cfg)
     out, i = {}, 0
     for si, (pat, reps) in enumerate(
             segments_from_kinds(cfg._layer_kinds())):
@@ -272,7 +281,7 @@ def decode_cache_to_numpy(cfg, cache) -> dict:
                 name: (np.stack([_float_numpy(cache[x][name]) for x in idx],
                                 axis=cache[idx[0]][name].dim() - rank)
                        if reps > 1 else _float_numpy(cache[idx[0]][name]))
-                for name, rank in ranks[i + j].items()}
+                for name, (rank, _) in leaves[i + j].items()}
         out[f"seg{si}"] = seg
         i += reps * len(pat)
     return out

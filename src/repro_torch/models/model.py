@@ -10,16 +10,18 @@ prefill and decode modes.
 * ``prefill(tokens, cache)``              -> (last-token logits [B, V] f32, cache)
 * ``decode_step(cache, tokens, pos)``     -> (logits [B, V] f32, cache)
 
-It serves the decoder-only architectures with attention layers — the
-dense GQA ones (Qwen2, Phi-3, Nemotron-4, Gemma 3 with its 5:1
-sliding-window and global layers and tied embeddings, the in-house
-repro-100m) and the MoE family (Phi-3.5-MoE; DeepSeek-V3 with MLA, its
-latent cache, dense-then-MoE layers, a shared expert and the MTP term
-of the loss) — with the logit soft-cap and flash (``flash_block``)
-attention, and raises ``NotImplementedError`` for every feature of the
-reference's ``ModelConfig`` that it does not serve (SSM and hybrid
-stacks, the encoder and frontends, tensor parallelism), rather than
-taking another path.
+It serves the decoder-only architectures — the dense GQA ones (Qwen2,
+Phi-3, Nemotron-4, Gemma 3 with its 5:1 sliding-window and global
+layers and tied embeddings, the in-house repro-100m), the MoE family
+(Phi-3.5-MoE; DeepSeek-V3 with MLA, its latent cache, dense-then-MoE
+layers, a shared expert and the MTP term of the loss), and the SSM and
+hybrid stacks (xLSTM's alternating sLSTM and mLSTM blocks; Jamba's
+Mamba and attention layers at 7:1 with MoE on every other layer), whose
+recurrent layers keep their state in the decode cache — with the logit
+soft-cap and flash (``flash_block``) attention.  It raises
+``NotImplementedError`` for every feature of the reference's
+``ModelConfig`` that it does not serve (the encoder and frontends,
+tensor parallelism), rather than taking another path.
 """
 from __future__ import annotations
 
@@ -37,9 +39,6 @@ from repro_torch.models.layers import (dense_init, dtype_of, embed_apply,
 def _refuse_unserved(cfg: ModelConfig) -> None:
     unserved = {
         "attn_kind": cfg.attn_kind not in ("gqa", "mla"),
-        "ssm": cfg.ssm is not None,
-        "family": cfg.family == "ssm",            # sLSTM / mLSTM layers
-        "hybrid_pattern": bool(cfg.hybrid_pattern),
         # local layers without a window: the reference gives them no cache
         "local_pattern": bool(cfg.local_pattern and not cfg.local_window),
         "enc_layers": bool(cfg.enc_layers),
@@ -138,8 +137,9 @@ class Model(nn.Module):
 
     def prefill(self, tokens, cache):
         """Run the prompts ``tokens`` [B, S] through the stack and write
-        their K/V into cache rows [0, S) in place.  Returns (last-token
-        logits [B, V] float32, cache)."""
+        their K/V into cache rows [0, S) in place (a recurrent layer: the
+        state after the S tokens, started from zeros).  Returns
+        (last-token logits [B, V] float32, cache)."""
         x, new_cache = self.forward(tokens, mode="prefill", cache=cache)
         logits = unembed_apply(self.cfg, self.embed, x[:, -1:])
         return logits[:, 0], new_cache
@@ -147,7 +147,9 @@ class Model(nn.Module):
     def decode_step(self, cache, tokens, pos, groups: int = 1):
         """One decode step. tokens: [B, 1] int; pos: scalar or [B] int32.
 
-        Writes the new K/V (MLA: latent) rows into ``cache`` in place.
+        Writes the new K/V (MLA: latent) rows into ``cache`` in place,
+        and a recurrent layer's next state; the state has no position,
+        but ``pos`` may be per row all the same (continuous batching).
         ``groups`` G: the B rows are G pools folded into one batch (the
         tenant runners), whose MoE layers route and dispatch each pool's
         tokens as a step of that pool alone would.  Returns (logits

@@ -12,9 +12,12 @@ Layer ``i`` of segment ``(pattern, n_periods)`` starting at layer
 The cache is a list with one dict per layer: ``{"k", "v"}`` [B, max_seq,
 nkv, hd] on a global GQA layer, a ring of ``min(local_window, max_seq)``
 rows on a sliding-window layer (slot ``pos % w`` holds position
-``pos``), and MLA's latent ``{"ckv" [B, max_seq, r], "kpe" [B, max_seq,
-rope]}``.  A layer's FFN is an MLP or, on an MoE layer, ``moe_apply``,
-whose balance term the stack sums.
+``pos``), MLA's latent ``{"ckv" [B, max_seq, r], "kpe" [B, max_seq,
+rope]}``, and on a recurrent layer its state (``models/ssm.py``):
+Mamba's ``{"conv", "h"}``, sLSTM's ``{"sc", "sn", "sm", "sh"}``,
+mLSTM's ``{"mC", "mn", "mm"}``.  A layer's FFN is an MLP or, on an MoE
+layer, ``moe_apply``, whose balance term the stack sums; an xLSTM layer
+(``d_ff`` 0) has none.
 """
 from __future__ import annotations
 
@@ -24,9 +27,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
+from repro_torch.config import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA, MLSTM,
+                                SLSTM, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.layers import (dtype_of, mlp_apply, mlp_init, mm,
                                        norm_apply, norm_init)
 from repro_torch.models.rope import apply_rope
@@ -49,11 +54,16 @@ def segments_from_kinds(kinds: List[LayerSpec]) -> List[Segment]:
     return [(tuple(kinds), 1)]
 
 
-def _served(kind: int) -> None:
-    if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
-        raise NotImplementedError(
-            f"layer kind {kind}: the port serves attention layers (GQA, "
-            f"global and sliding-window, and MLA) only")
+# recurrent layer kinds: (parameter name, init, apply, state init, the
+# state's cache leaves in the order of the state tuple)
+RECURRENT = {
+    MAMBA: ("mamba", ssm.mamba_init, ssm.mamba_apply, ssm.mamba_state_init,
+            ("conv", "h")),
+    SLSTM: ("slstm", ssm.slstm_init, ssm.slstm_apply, ssm.slstm_state_init,
+            ("sc", "sn", "sm", "sh")),
+    MLSTM: ("mlstm", ssm.mlstm_init, ssm.mlstm_apply, ssm.mlstm_state_init,
+            ("mC", "mn", "mm")),
+}
 
 
 def _is_local(cfg: ModelConfig, kind: int) -> bool:
@@ -66,9 +76,14 @@ def _is_mla(cfg: ModelConfig) -> bool:
 
 def layer_init(gen, cfg: ModelConfig, kind: int,
                is_moe: bool) -> nn.ModuleDict:
-    _served(kind)
+    if kind not in (ATTN_GLOBAL, ATTN_LOCAL) and kind not in RECURRENT:
+        raise ValueError(f"layer kind {kind}: not one of ATTN_GLOBAL, "
+                         f"ATTN_LOCAL, MAMBA, SLSTM, MLSTM")
     p = {"ln1": norm_init(cfg, cfg.d_model, gen.device)}
-    if _is_mla(cfg):
+    if kind in RECURRENT:
+        name, init = RECURRENT[kind][:2]
+        p[name] = init(gen, cfg)
+    elif _is_mla(cfg):
         p["mla"] = attn.mla_init(gen, cfg)
     else:
         p["attn"] = attn.gqa_init(gen, cfg)
@@ -86,8 +101,11 @@ def layer_cache_init(cfg: ModelConfig, kind: int, batch: int, max_seq: int,
     """Zeroed decode cache of one layer: K/V of ``max_seq`` rows on a
     global GQA layer, a ring of ``min(local_window, max_seq)`` on a local
     one; MLA's latent ``ckv`` [B, max_seq, r] and ``kpe`` [B, max_seq,
-    rope] on a global MLA layer."""
-    _served(kind)
+    rope] on a global MLA layer; a recurrent layer's zeroed state
+    (``RECURRENT``: the stabilizers ``m`` at -1e30)."""
+    if kind in RECURRENT:
+        _, _, _, state_init, names = RECURRENT[kind]
+        return dict(zip(names, state_init(cfg, batch, device)))
     cdt = dtype_of(cfg.compute_dtype)
     if _is_mla(cfg) and not _is_local(cfg, kind):
         m = cfg.mla
@@ -135,9 +153,10 @@ def _ring_fill(fresh, window: int):
 def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
                 mode: str = "decode", cache=None, pos=None, positions=None,
                 groups: int = 1):
-    """Apply one layer: ln1 -> attention -> residual -> ln2 -> MLP or MoE
-    -> residual.  Returns (x, cache, aux): the cache dict the one given,
-    ``aux`` the MoE balance term (0.0 on a dense layer).
+    """Apply one layer: ln1 -> attention or a recurrent cell -> residual
+    -> ln2 -> MLP or MoE -> residual (no FFN where ``d_ff`` is 0 and the
+    layer is not MoE).  Returns (x, cache, aux): the cache dict the one
+    given, ``aux`` the MoE balance term (0.0 on a dense layer).
 
     ``mode="decode"``: one token a row at ``pos`` against the cache.
     ``mode="prefill"``: the whole sequence at ``positions`` [B, S] with
@@ -148,15 +167,25 @@ def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
     ``dynamic_update_slice`` at offset 0); on a local layer the whole
     ring is replaced (``_ring_fill``).  ``mode="train"``: the same
     attention as prefill, no cache read or written (``cache`` is
-    returned as given, ``None`` included).  The MoE FFN dispatches as in
-    decode in ``mode="decode"`` only; ``groups`` goes to ``moe_apply``
-    (the folded tenant pools)."""
-    _served(kind)
+    returned as given, ``None`` included).  A recurrent layer (Mamba,
+    sLSTM, mLSTM) ignores positions: decode continues the state in its
+    cache, prefill starts from zeros, and both write the state they end
+    with into the cache in place; train reads and writes none.  The MoE
+    FFN dispatches as in decode in ``mode="decode"`` only; ``groups``
+    goes to ``moe_apply`` (the folded tenant pools)."""
     if mode not in ("decode", "prefill", "train"):
         raise ValueError(f"mode {mode!r}: decode, prefill or train")
     local = _is_local(cfg, kind)
     h = norm_apply(cfg, p["ln1"], x)
-    if _is_mla(cfg) and mode == "decode":
+    if kind in RECURRENT:
+        name, _, apply, _, names = RECURRENT[kind]
+        state = (tuple(cache[n] for n in names) if mode == "decode"
+                 else None)
+        out, state = apply(cfg, p[name], h, state=state)
+        if mode != "train":
+            for n, t in zip(names, state):
+                cache[n].copy_(t)
+    elif _is_mla(cfg) and mode == "decode":
         out, _ = attn.mla_decode(cfg, p["mla"], h, cache["ckv"],
                                  cache["kpe"], pos)
     elif _is_mla(cfg):

@@ -109,8 +109,9 @@ class DecodeStates:
     sst: object              # server FabricState
     gst: object              # LoadGenState (open-loop request source)
     slots: DecodeSlots
-    cache: list              # decode cache, one dict a layer ({"k", "v"}
-                             # or MLA's {"ckv", "kpe"})
+    cache: list              # decode cache, one dict a layer ({"k", "v"},
+                             # MLA's {"ckv", "kpe"}, or a recurrent
+                             # layer's state)
     ttft: tlm.Telemetry      # time-to-first-token histogram
     itl: tlm.Telemetry       # inter-token-latency histogram
 
@@ -449,10 +450,10 @@ def _run_loop(step, n_steps: int):
 
 
 def _fold_cache(cache):
-    """A stacked cache ([T, N, rows, ...] a leaf: ``max_seq`` rows on a
-    global layer, K/V or MLA's latents, a ring of w on a sliding-window
-    one) as one of T*N slots (views of the contiguous stack, so in-place
-    writes reach it)."""
+    """A stacked cache ([T, N, ...] a leaf: ``max_seq`` rows on a global
+    layer, K/V or MLA's latents, a ring of w on a sliding-window one, a
+    recurrent layer's state) as one of T*N slots (views of the
+    contiguous stack, so in-place writes reach it)."""
     return [{k: x.reshape((-1,) + tuple(x.shape[2:])) for k, x in c.items()}
             for c in cache]
 

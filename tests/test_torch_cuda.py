@@ -1004,3 +1004,78 @@ def test_mla_decode_on_the_card_matches_cpu(cuda, fast, per_row):
         kpe.to(cuda), pos.to(cuda))
     for g, w in ((got, want), (gc, wc), (gk, wk)):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+
+
+# recurrent blocks at published widths: (arch, block, batch, prefill)
+SSM_CARD_CASES = [("jamba-v0.1-52b", "mamba", 4, 16),
+                  ("xlstm-350m", "slstm", 4, 12),
+                  ("xlstm-350m", "mlstm", 4, 12)]
+
+
+@pytest.mark.parametrize("arch,block,b,s", SSM_CARD_CASES)
+def test_recurrent_decode_on_the_card_matches_cpu(cuda, arch, block, b, s):
+    """jamba's Mamba block (d 4,096, d_inner 8,192, d_state 16; chunk 4,
+    so the prefill of 16 tokens runs 4 chunks) and xlstm's sLSTM and
+    mLSTM blocks (d 1,024, 4 heads of 256) in float32, weights seeded on
+    the CPU: a prefill of ``s`` tokens from zeros, then 2 one-token
+    decode steps from its state (mLSTM: the recurrent branch), on the
+    card against the CPU: outputs and every state leaf within 1e-4
+    (sums over up to 8,192 terms in another order)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config(arch).replace(param_dtype="float32",
+                                   compute_dtype="float32")
+    if block == "mamba":
+        cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=4))
+    p = getattr(ssm, f"{block}_init")(torch.Generator().manual_seed(3), cfg)
+    apply = getattr(ssm, f"{block}_apply")
+    x = torch.from_numpy(np.random.default_rng(b + s).standard_normal(
+        (b, s + 2, cfg.d_model)).astype(np.float32))
+    pc = copy.deepcopy(p).to(cuda)
+    want_state = got_state = None
+    for lo, hi in ((0, s), (s, s + 1), (s + 1, s + 2)):
+        want, want_state = apply(cfg, p, x[:, lo:hi], want_state)
+        got, got_state = apply(cfg, pc, x[:, lo:hi].to(cuda), got_state)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        for g, w in zip(got_state, want_state):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-v0.1-52b"])
+def test_ssm_model_kernel_route_matches_cpu(cuda, arch):
+    """xlstm and jamba at ``REDUCED`` (float32) on the card's kernel route
+    (jamba's attention layer through ``decode_attention``, once a step)
+    against the same weights on the CPU: a prefill of 2 x 8 into 16 rows
+    and 3 decode steps at per-row positions, logits and every cache
+    leaf within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(arch, reduced=True)
+    cpu = Model(cfg, device="cpu", seed=2)
+    card = Model(cfg.replace(use_pallas=True), device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    n_global = sum(k == 0 for k, _ in cpu.dec_kinds)
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 11)))
+    want, wc = cpu.prefill(tok[:, :8], cpu.cache_init(2, 16))
+    got, gc = card.prefill(tok[:, :8].to(cuda), card.cache_init(2, 16))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    before = ops.launch_counts()["decode_attention"]
+    pos = torch.tensor([8, 6], dtype=torch.int32)
+    for i in range(3):
+        want, wc = cpu.decode_step(wc, tok[:, 8 + i:9 + i], pos + i)
+        got, gc = card.decode_step(gc, tok[:, 8 + i:9 + i].to(cuda),
+                                   (pos + i).to(cuda))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + 3 * n_global
+    for g, w in zip(gc, wc):
+        for name in w:
+            torch.testing.assert_close(g[name].cpu(), w[name], rtol=1e-4,
+                                       atol=1e-4)

@@ -103,7 +103,7 @@ def test_sweep_rates_matches_reference():
     got = sweep_rates(eng, [0.4, 1.6], n_tenants=2, n_steps=16)
     assert got == want
     assert got[1.6]["completed"] > 0
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         sweep_rates(eng, [0.4], mesh=object())
 
 

@@ -32,7 +32,7 @@ from repro.models import rope as jrope
 from repro.models.model import Model as JModel
 from repro_torch import interop
 from repro_torch.apps.lm_decode import TINY
-from repro_torch.config import ModelConfig, SSMConfig
+from repro_torch.config import ModelConfig
 from repro_torch.configs import get_config
 from repro_torch.models import Model
 from repro_torch.models import attention as attn
@@ -232,9 +232,8 @@ def test_params_and_cache_interop_round_trip():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("attn_kind", "linear"), ("ssm", SSMConfig()),
-    ("hybrid_pattern", (0, 2)), ("enc_layers", 2), ("frontend", "audio"),
-    ("family", "ssm"), ("tp_axis", "model")])
+    ("attn_kind", "linear"), ("enc_layers", 2), ("frontend", "audio"),
+    ("tp_axis", "model")])
 def test_model_refuses_what_it_does_not_serve(field, value):
     with pytest.raises(NotImplementedError, match=field):
         Model(TINY.replace(**{field: value}), device="cpu")

@@ -2,8 +2,10 @@
 phi3-medium-14b, nemotron-4-15b (LayerNorm with bias, squared ReLU) and
 gemma3-1b (5:1 sliding-window and global layers, window 16 at
 ``REDUCED``, GeGLU, tied embeddings), and the MoE family's
-deepseek-v3-671b and phi3.5-moe-42b through the ``ARCHS`` cases
-(``tests/test_torch_moe.py`` holds the rest of their parity), through
+deepseek-v3-671b and phi3.5-moe-42b and the SSM and hybrid stacks'
+xlstm-350m and jamba-v0.1-52b through the ``ARCHS`` cases
+(``tests/test_torch_moe.py`` and ``tests/test_torch_ssm.py`` hold the
+rest of their parity), through
 ``Model.loss``, ``Model.prefill``, ``Model.decode_step`` and the LM
 decode tenant; the
 attention functions they add (``_flash_sdpa``, ``gqa_local``, the logit
@@ -111,10 +113,11 @@ def test_configs_match_reference(arch):
 def test_arch_names_follow_the_reference():
     assert ASSIGNED == J_ASSIGNED
     assert ARCHS == ["qwen2-1.5b", "phi3-medium-14b", "nemotron-4-15b",
-                     "gemma3-1b", "deepseek-v3-671b", "phi3.5-moe-42b-a6.6b"]
+                     "gemma3-1b", "xlstm-350m", "deepseek-v3-671b",
+                     "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"]
     assert get_config("phi3.5-moe-42b") == get_config("phi3.5-moe-42b-a6.6b")
     with pytest.raises(ValueError, match="serves"):
-        get_config("xlstm-350m")
+        get_config("internvl2-2b")
 
 
 @pytest.mark.parametrize("arch", J_ASSIGNED + ["repro-100m"])
@@ -132,7 +135,8 @@ def test_param_count_matches_reference(arch):
     ("qwen2-1.5b", 1.2e9, 2.0e9), ("phi3-medium-14b", 12e9, 16e9),
     ("nemotron-4-15b", 12e9, 18e9), ("gemma3-1b", 0.8e9, 1.6e9),
     ("deepseek-v3-671b", 580e9, 720e9),
-    ("phi3.5-moe-42b-a6.6b", 38e9, 46e9), ("repro-100m", 0.08e9, 0.12e9)])
+    ("phi3.5-moe-42b-a6.6b", 38e9, 46e9), ("xlstm-350m", 0.2e9, 0.5e9),
+    ("jamba-v0.1-52b", 46e9, 58e9), ("repro-100m", 0.08e9, 0.12e9)])
 def test_param_counts_are_plausible(arch, lo, hi):
     """The published sizes (``tests/test_archs.py``'s ranges; the
     in-house repro-100m's name)."""
