@@ -37,9 +37,10 @@ exit, no result line) on any mismatch:
    lengths that are not a multiple of the tile, Qwen2-1.5B's decode
    shapes and the global layers of gemma3-1b (4 query heads on 1 kv
    head, hd 256), nemotron-4-15b (48 on 8) and phi3-medium-14b (40 on
-   10) over 32 slots of 1,024 rows, and phi3.5-moe-42b's (32 on 8, hd
-   128; jamba-v0.1-52b's too) over 8 and 32 slots, within the stated
-   tolerance
+   10) over 32 slots of 1,024 rows, phi3.5-moe-42b's (32 on 8, hd 128;
+   jamba-v0.1-52b's too), internvl2-2b's (16 on 8, hd 128) and
+   seamless-m4t-medium's (16 on 16, hd 64) over 8 and 32 slots, within
+   the stated tolerance
    (``DA_TOL``); and at the shapes
    of phases 7 and 8: the switch step's fetch route over the flight
    service's 8 tiers (2 flows, B 8, ring 64, request buffer 256: mixed
@@ -186,15 +187,33 @@ exit, no result line) on any mismatch:
    for 200 steps on the kernel and the plain route, equal in every part
    (tokens and recurrent state included: both routes run the same model
    code on the same batch shape);
+15. the frontend models at full width and depth: internvl2-2b (24
+   layers, 256 patch embeddings [8, 256, 1024] projected and put before
+   256-token prompts) and seamless-m4t-medium (1,024 speech-frame
+   embeddings through its 12 causal encoder layers, 12 decoder layers
+   with cross attention over the encoder's K/V of 1,024 rows) in bf16
+   with seeded weights, one at a time: the prefill into 1,024 rows (the
+   encoder also timed alone), 8 greedy decode steps on the kernel and
+   the plain route from copies of one cache (logits within
+   ``LOGIT_TOL``; ``decode_attention`` 24 and 12 times a step), the
+   first step against each sequence's prefill of 257 tokens with the
+   same features measured in bf16 and checked in float32 at the same
+   widths (rtol and atol 2e-4), a profiled window of 2 steps (on
+   seamless beside the cross ``_sdpa``'s device time a step and
+   ``decode_attention``'s on the same inputs), the loss on 2 x 512
+   tokens with the features, the parameters and the peak memory; each
+   then served text-only through ``ServingEngine`` at phase 11's pool
+   as phase 13 serves phi3.5-moe (seamless's cross attention over its
+   zeroed cross cache, as the reference serves it);
 4. kernel summary (run last): one JSON line with each kernel's launches
-   on the main paths (phases 3, 5-14) and, at the shape with the most
+   on the main paths (phases 3, 5-15) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
    version's, its bound and, for decode attention, the time of
    ``F.scaled_dot_product_attention`` on the same inputs.  Every kernel
    is timed at every shape its main paths give it (``by_shape`` in the
    details: launches by path, ms, call ms, bound, device activities a
    call), on inputs captured at that shape in one more step of phases
-   3 and 5-14; the launches by shape are the ``ops`` wrappers' own
+   3 and 5-15; the launches by shape are the ``ops`` wrappers' own
    counts (``ops.launch_shapes``) from the main-path runs.  The switch
    step's graph restores its captured state before every call, and its
    time is that graph's less a graph of the restores.  Four kernels run
@@ -354,6 +373,16 @@ SSM_TENANT_STEPS = 200
 # tolerance
 SSM_F32 = {"jamba-v0.1-52b": 8, "xlstm-350m": 24}
 F32_TOL = 2e-4
+# phase 15: the frontend models at full width and depth (bf16, seeded):
+# internvl2-2b with its 256 patch embeddings [8, 256, 1024] before
+# 256-token prompts (512 cache rows of 1,024 filled), seamless-m4t-medium
+# with 1,024 speech-frame embeddings [8, 1024, 1024] through its
+# 12-layer encoder (cross K/V of 1,024 rows) and 256-token prompts;
+# phase 12's slots, rows, steps and losses (with the features), the
+# float32 check of decode after prefill at the same widths, then each
+# served text-only at phase 11's pool for ``MOE_SERVE_TILES`` tiles
+FRONT = ("internvl2-2b", "seamless-m4t-medium")
+FRONT_PROMPT = 256
 
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
@@ -991,6 +1020,14 @@ def phase_kernels(torch, dev):
     for b_ in (ZOO_SLOTS, LM_POOL["n_slots"]):
         shapes.append((b_, mc.n_heads, mc.n_kv_heads, mc.resolved_head_dim,
                        ZOO_ROWS))
+    # phase 15: internvl2's layers (16 on 8 kv heads, hd 128) and
+    # seamless's decoder layers (16 on 16, hd 64: one query head a kv
+    # head) over its decode's 8 slots and the serving pool's 32
+    for arch in FRONT:
+        fc = get_config(arch)
+        for b_ in (ZOO_SLOTS, LM_POOL["n_slots"]):
+            shapes.append((b_, fc.n_heads, fc.n_kv_heads,
+                           fc.resolved_head_dim, ZOO_ROWS))
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         for b_, nq, nkv, hd, s_, *zero in shapes:
@@ -3738,6 +3775,303 @@ def phase_ssm(torch, dev, seen):
     return report, paths
 
 
+def front_inputs(torch, cfg, dev, gen, b, s):
+    """``b`` seeded prompts of ``s`` tokens and the model's features of
+    ``frontend_tokens`` rows: (tokens, {"frontend_feats" or "enc_feats":
+    [b, F, frontend_dim] float32})."""
+    key = "enc_feats" if cfg.enc_layers else "frontend_feats"
+    tok = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+    feats = torch.randn((b, cfg.frontend_tokens, cfg.frontend_dim),
+                        device=dev, generator=gen)
+    return tok, {key: feats}
+
+
+def front_decode(torch, model, arch, seen):
+    """One model of phase 15: prefill of ``ZOO_SLOTS`` prompts of
+    ``FRONT_PROMPT`` tokens with the model's features into ``ZOO_ROWS``
+    rows (internvl2: patches and prompt, rows [0, 512); seamless: the
+    encoder, timed alone too, and cross K/V of 1,024 rows),
+    ``ZOO_DECODE_STEPS`` decode steps on both routes from copies of one
+    cache (kernel route counted: one ``decode_attention`` a decoder
+    layer a step), the first step against each sequence's prefill of one
+    more token with the same features (measured in bf16), a profiled
+    window of ``MOE_PROFILE_STEPS`` steps (on seamless beside the cross
+    ``_sdpa``'s device time a step, and ``decode_attention``'s on the
+    same inputs with every length F), the loss on ``ZOO_LOSS`` with the
+    features and phase 4's inputs at this model's decode shapes."""
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    dev = model.device
+    cfg = model.cfg
+    plain_cfg = cfg.replace(use_pallas=False)
+    n_front = 0 if cfg.enc_layers else cfg.frontend_tokens
+    start_pos = n_front + FRONT_PROMPT
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    prompts, feats = front_inputs(torch, cfg, dev, gen, ZOO_SLOTS,
+                                  FRONT_PROMPT)
+    out = {"prompt": FRONT_PROMPT, "features": cfg.frontend_tokens}
+    with torch.no_grad():
+        if cfg.enc_layers:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = model._encode(feats["enc_feats"])
+            torch.cuda.synchronize()
+            out["encoder_s"] = time.perf_counter() - t0
+            check(bool(torch.isfinite(enc).all()) and enc.shape == (
+                ZOO_SLOTS, cfg.frontend_tokens, cfg.d_model),
+                f"front {arch}: encoder output not finite or misshapen")
+            del enc
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(
+            prompts, model.cache_init(ZOO_SLOTS, ZOO_ROWS), **feats)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        check(bool(torch.isfinite(logits).all())
+              and logits.shape == (ZOO_SLOTS, cfg.vocab),
+              f"front {arch}: prefill logits not finite or misshapen")
+        if cfg.enc_layers:
+            check(all(c["xk"].shape[1] == cfg.frontend_tokens
+                      and bool(c["xk"].any()) for c in cache),
+                  f"front {arch}: cross K/V not written")
+        else:
+            check(bool(cache[0]["k"][:, start_pos - 1].any())
+                  and not bool(cache[0]["k"][:, start_pos:].any()),
+                  f"front {arch}: prefill filled other rows than "
+                  f"[0, {start_pos})")
+        start = clone_cache(cache)
+        plain_cache = clone_cache(cache)
+        fed, errs, agree = [], [], []
+        ops.reset_launch_counts()
+        k_secs = p_secs = 0.0
+        for i in range(ZOO_DECODE_STEPS):
+            tok = logits.argmax(-1)[:, None]
+            fed.append(tok)
+            pos = torch.full((ZOO_SLOTS,), start_pos + i, dtype=torch.int32,
+                             device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(cache, tok, pos)
+            torch.cuda.synchronize()
+            k_secs += time.perf_counter() - t0
+            counts, tally = ops.launch_counts(), ops.launch_shapes()
+            if i == 0:
+                first = logits.clone()
+            model.cfg = plain_cfg
+            t0 = time.perf_counter()
+            lp, plain_cache = model.decode_step(plain_cache, tok, pos)
+            torch.cuda.synchronize()
+            p_secs += time.perf_counter() - t0
+            model.cfg = cfg
+            check(bool(torch.isfinite(logits).all()),
+                  f"front {arch}: decode logits not finite")
+            errs.append((float((logits - lp).abs().max()),
+                         float(lp.abs().max())))
+            agree.append(float((logits.argmax(-1) == lp.argmax(-1))
+                               .float().mean()))
+        check(ops.launch_counts() == counts,
+              f"front {arch}: the plain route launched kernels")
+        check(counts["decode_attention"] == cfg.n_layers * ZOO_DECODE_STEPS,
+              f"front {arch}: decode_attention launched "
+              f"{counts['decode_attention']} times, expected "
+              f"{cfg.n_layers} x {ZOO_DECODE_STEPS}")
+        err, scale = max(errs, key=lambda e: e[0] / e[1])
+        check(all(e <= LOGIT_TOL * m for e, m in errs),
+              f"front {arch}: kernel and plain route logits differ by "
+              f"{err} (largest |logit| {scale})")
+        del plain_cache
+        # the first decode step against each sequence's prefill of one
+        # more token with the same features, measured in bf16 (the
+        # property is checked in float32 by ``front_f32``)
+        ext, _ = model.prefill(torch.cat([prompts, fed[0]], dim=1),
+                               model.cache_init(ZOO_SLOTS, ZOO_ROWS),
+                               **feats)
+        ext_err, ext_scale = (float((first - ext).abs().max()),
+                              float(ext.abs().max()))
+        ext_agree = float((first.argmax(-1) == ext.argmax(-1)).float()
+                          .mean())
+        check(bool(torch.isfinite(ext).all()),
+              f"front {arch}: longer prefill's logits not finite")
+        del ext
+        # device time a step by kernel: a profiled window
+        pc = clone_cache(start)
+
+        def window(pc=pc):
+            lg = first
+            for i in range(MOE_PROFILE_STEPS):
+                lg, _ = model.decode_step(
+                    pc, lg.argmax(-1)[:, None],
+                    torch.full((ZOO_SLOTS,), start_pos + i,
+                               dtype=torch.int32, device=dev))
+        out["profile"] = profile_steps(torch, window, MOE_PROFILE_STEPS,
+                                       k_secs / ZOO_DECODE_STEPS * 1e6)
+        say_profile(f"front {arch} decode", out["profile"])
+        del pc
+        if cfg.enc_layers:
+            # the cross attention's _sdpa alone (a CUDA graph of its
+            # calls at one layer's decode shapes), a layer a step, and
+            # decode_attention on the same inputs with every length F:
+            # the same function through a kernel route the reference
+            # does not take (timed only, held to the _sdpa)
+            xk, xv = start[0]["xk"], start[0]["xv"]
+            q = torch.randn((ZOO_SLOTS, 1, cfg.n_heads,
+                             cfg.resolved_head_dim), device=dev,
+                            generator=gen).to(xk.dtype)
+            lengths = torch.full((ZOO_SLOTS,), xk.shape[1],
+                                 dtype=torch.int32, device=dev)
+            want = attn._sdpa(cfg, q, xk, xv, None)[:, 0]
+            got = da.decode_attention_cuda(q[:, 0].contiguous(), xk, xv,
+                                           lengths)
+            cross = {"sdpa_ms": graph_ms(torch, lambda: attn._sdpa(
+                cfg, q, xk, xv, None)),
+                "decode_attention_ms": graph_ms(
+                    torch, lambda: da.decode_attention_cuda(
+                        q[:, 0].contiguous(), xk, xv, lengths)),
+                "max_abs_err": close(torch, got.to(torch.float32),
+                                     want.to(torch.float32),
+                                     DA_TOL["bfloat16"],
+                                     "cross decode_attention")}
+            cross["sdpa_ms_per_step"] = cross["sdpa_ms"] * cfg.n_layers
+            cross["share_of_device"] = (cross["sdpa_ms_per_step"] * 1e3
+                                        / out["profile"]
+                                        ["device_us_per_step"])
+            out["cross"] = cross
+            say(f"front {arch} cross attention: _sdpa {cross['sdpa_ms']:.5f}"
+                f" ms a layer ({ZOO_SLOTS} slots x {xk.shape[1]} rows), "
+                f"{cross['sdpa_ms_per_step']:.4f} ms a step = "
+                f"{cross['share_of_device']:.3f} of the step's device time;"
+                f" decode_attention on the same inputs "
+                f"{cross['decode_attention_ms']:.5f} ms (max |diff| "
+                f"{cross['max_abs_err']:.4g})")
+        # phase 4's inputs at this model's decode shapes: one more step
+        with recording(seen):
+            model.decode_step(start, fed[0], torch.full(
+                (ZOO_SLOTS,), start_pos, dtype=torch.int32, device=dev))
+        del start, cache
+        # the loss, with the features
+        b, s = ZOO_LOSS
+        tok, lfeats = front_inputs(torch, cfg, dev, gen, b, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, metrics = model.loss({"tokens": tok, "labels": tok, **lfeats})
+        torch.cuda.synchronize()
+        out["loss_s"] = time.perf_counter() - t0
+        out["metrics"] = {k: float(v) for k, v in metrics.items()}
+        check(all(map(math.isfinite, out["metrics"].values()))
+              and out["metrics"]["tokens"] == b * (s - 1),
+              f"front {arch}: loss metrics {out['metrics']}")
+    out.update(counts=counts, tally=tally, logit_err=err, logit_scale=scale,
+               argmax_share=min(agree), ext_err=ext_err,
+               ext_scale=ext_scale, ext_argmax_share=ext_agree,
+               ext_within_logit_tol=ext_err <= LOGIT_TOL * ext_scale,
+               kernel_ms_per_step=k_secs / ZOO_DECODE_STEPS * 1e3,
+               plain_ms_per_step=p_secs / ZOO_DECODE_STEPS * 1e3)
+    say(f"front {arch}: prefill {ZOO_SLOTS} x {FRONT_PROMPT} tokens with "
+        f"{cfg.frontend_tokens} {'frames' if cfg.enc_layers else 'patches'}"
+        f" in {out['prefill_s']:.3f} s (peak {out['prefill_peak_gb']:.2f} "
+        f"GB" + (f"; the encoder alone {out['encoder_s']:.3f} s"
+                  if cfg.enc_layers else "") + f"); {ZOO_DECODE_STEPS} "
+        f"decode steps a route from position {start_pos}, "
+        f"{out['kernel_ms_per_step']:.2f} ms/step kernels, "
+        f"{out['plain_ms_per_step']:.2f} plain; routes' logits max |diff| "
+        f"{err:.4g} of max |logit| {scale:.4g}, argmax equal on "
+        f"{min(agree):.3f} of slots (worst step); the first step against "
+        f"each sequence's prefill of {FRONT_PROMPT + 1} tokens (bf16): max "
+        f"|diff| {ext_err:.4g} of {ext_scale:.4g} ("
+        + ("within" if out["ext_within_logit_tol"] else "outside")
+        + f" LOGIT_TOL), argmax equal on {ext_agree:.3f}; loss "
+        f"{ZOO_LOSS[0]} x {ZOO_LOSS[1]} {out['metrics']} in "
+        f"{out['loss_s']:.3f} s; launches {counts}")
+    return out
+
+
+def front_f32(torch, dev, arch):
+    """Decode after prefill against the longer prefill in float32 at the
+    published widths and depth, kernel route: the first decode step
+    after a prefill of ``ZOO_SLOTS`` x ``FRONT_PROMPT`` tokens with the
+    features equals the prefill of the ``FRONT_PROMPT + 1`` tokens with
+    the same features within ``tests/test_archs.py``'s tolerance (rtol
+    and atol 2e-4)."""
+    from repro_torch.models import Model
+    cfg = get_config(arch).replace(use_pallas=True, param_dtype="float32",
+                                   compute_dtype="float32")
+    model = Model(cfg, device=dev, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    prompts, feats = front_inputs(torch, cfg, dev, gen, ZOO_SLOTS,
+                                  FRONT_PROMPT)
+    n_front = 0 if cfg.enc_layers else cfg.frontend_tokens
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(
+            prompts, model.cache_init(ZOO_SLOTS, ZOO_ROWS), **feats)
+        tok = logits.argmax(-1)[:, None]
+        got, _ = model.decode_step(
+            cache, tok, torch.full((ZOO_SLOTS,), n_front + FRONT_PROMPT,
+                                   dtype=torch.int32, device=dev))
+        want, _ = model.prefill(torch.cat([prompts, tok], dim=1),
+                                model.cache_init(ZOO_SLOTS, ZOO_ROWS),
+                                **feats)
+        torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    excess = float(((got - want).abs() - F32_TOL * want.abs()).max())
+    scale = float(want.abs().max())
+    check(bool(torch.isfinite(got).all()) and excess <= F32_TOL,
+          f"front {arch} float32: decode after prefill differs from the "
+          f"prefill of the longer sequence by {err} (largest |logit| "
+          f"{scale}; rtol and atol {F32_TOL})")
+    r = dict(err=err, scale=scale, secs=time.perf_counter() - t0)
+    say(f"front {arch} float32: the first decode step against each "
+        f"sequence's prefill of {FRONT_PROMPT + 1} tokens: max |diff| "
+        f"{err:.4g} of {scale:.4g} (rtol and atol {F32_TOL}), "
+        f"{r['secs']:.1f} s")
+    return r
+
+
+def phase_front(torch, dev, seen):
+    """The frontend models at published widths and depth, one at a time,
+    each freed before the next: ``front_decode``, then the model served
+    text-only (``moe_serving``, phase 11's pool) on the same weights,
+    then ``front_f32``.  Returns (report, {path: (counts, tally,
+    steps)})."""
+    import gc
+    report, paths = {}, {}
+    for arch in FRONT:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        eng = moe_engine(get_config(arch).replace(use_pallas=True), dev)
+        model = eng.model
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        say(f"front {arch}: {n_params} parameters ({n_params * 2 / 1e9:.3f}"
+            f" GB bf16, param_count {model.cfg.param_count()}), built in "
+            f"{build_s:.1f} s")
+        r = front_decode(torch, model, arch, seen)
+        r.update(n_params=n_params, build_s=build_s)
+        paths[f"front_{arch}"] = (r.pop("counts"), r.pop("tally"),
+                                  ZOO_DECODE_STEPS)
+        r["serving"], counts, tally = moe_serving(
+            torch, eng, seen, what=f"front serving {arch}")
+        paths[f"front_serving_{arch}"] = (counts, tally, MOE_SERVE_TILES)
+        r["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["float32"] = front_f32(torch, dev, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["secs"] = time.perf_counter() - t0
+        say(f"front {arch}: peak memory {r['max_memory_gb']:.2f} GB, "
+            f"{r['secs']:.1f} s")
+        report[arch] = r
+    return report, paths
+
+
 def card_label():
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
@@ -4086,6 +4420,11 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
+    report["front"], front_paths = phase_front(torch, dev, seen)
+    say(f"phase 15: frontend and encoder-decoder models at full width "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
     paths = {"fused": (runs["fused"]["counts"], runs["fused"]["tally"],
                        FULL_STEPS),
              "staged": (runs["staged"]["counts"], runs["staged"]["tally"],
@@ -4098,7 +4437,7 @@ def main():
              "kvs_tenants": (kt_counts, kt_tally, kt_steps),
              "lm_tenants": (lt_counts, lt_tally, LM_TENANT_STEPS),
              "serving": (sv_counts, sv_tally, sv_steps), **zoo_paths,
-             **moe_paths, **ssm_paths}
+             **moe_paths, **ssm_paths, **front_paths}
     rows = phase_summary(torch, paths, seen)
     report["kernels"] = rows
     say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")

@@ -4,8 +4,9 @@ One module per architecture, each exporting ``CONFIG`` (the published
 widths) and ``REDUCED`` (smoke-test scale, runnable on the CPU) — the
 reference's values, copied.  ``ASSIGNED`` is the reference's list of
 assigned architectures, in its order; ``all_arch_names()`` keeps those
-the port serves (the dense decoders, the MoE family, and the SSM and
-hybrid stacks), in that order.
+the port serves, in that order: all ten (the dense decoders, the MoE
+family, the SSM and hybrid stacks, the vision-prefix decoder and the
+encoder-decoder).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import importlib
 from repro_torch.config import ModelConfig
 
 _ALIASES = {
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "qwen2-1.5b": "qwen2_1_5b",
     "phi3-medium-14b": "phi3_medium_14b",
     "nemotron-4-15b": "nemotron_4_15b",
@@ -22,6 +24,7 @@ _ALIASES = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
     "phi3.5-moe-42b": "phi3_5_moe_42b",
+    "internvl2-2b": "internvl2_2b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "repro-100m": "repro_100m",
 }

@@ -26,16 +26,17 @@ uint32, the port as int32 with the same bits, so ``kvs_state_from_numpy``
 takes either and ``kvs_state_to_numpy`` gives int32.
 
 Model weights and KV caches are float: ``model_params_from_numpy`` loads
-the reference's parameter pytree (``{"embed", "decoder", "final_norm"}``
-and DeepSeek's ``"mtp"``, the decoder's layers stacked per segment along
-a leading dim) into a ``models.Model``, and ``decode_cache_*`` convert
+the reference's parameter pytree (``{"embed", "decoder", "final_norm"}``,
+DeepSeek's ``"mtp"``, an encoder-decoder's ``"encoder"`` and
+``"enc_norm"``, the layers of each stack stacked per segment along a
+leading dim) into a ``models.Model``, and ``decode_cache_*`` convert
 the reference's stacked cache to the port's one-dict-per-layer list and
 back, whatever rows a layer keeps (gemma3's sliding-window rings of
 ``local_window`` rows beside its global caches of ``max_seq``, segments
 ``[((L,L,L,L,L,G), n), ((L,L), 1)]``) and whatever leaves (MLA's latent
 ``ckv``/``kpe``; the recurrent state of Mamba, sLSTM and mLSTM layers,
 float32 beside the compute dtype, in xlstm's ``[((S, M), 12)]`` and
-jamba's 8-layer periods);
+jamba's 8-layer periods; an encoder-decoder's cross K/V ``xk``/``xv``);
 LayerNorm biases, tied embeddings (no ``lm_head``), the MoE layers'
 float32 router and stacked experts (with a nested ``shared`` MLP) and
 the MTP head load by name like every other weight.  Their dtypes
@@ -172,12 +173,32 @@ def _float_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def _layer_sources(cfg, tree):
+class MissingLeafError(KeyError, ValueError):
+    """A subtree or leaf the port has and the reference tree lacks: a
+    KeyError, as the dict lookup raises, and a ValueError, as every
+    other mismatch of the trees."""
+
+    def __str__(self):
+        return str(self.args[0])
+
+
+def _need(tree, name, path):
+    """``tree``'s entry ``name``; a ``MissingLeafError`` naming
+    ``path.name`` when it has none."""
+    if (name not in tree) if isinstance(tree, dict) \
+            else not hasattr(tree, name):
+        raise MissingLeafError(f"{path}{name}: missing from the reference "
+                               f"tree")
+    return _get(tree, name)
+
+
+def _layer_sources(kinds, tree):
     """(layer index, the reference subtree of its pattern position, its
-    period in the stacked leading dim or None) for every decoder layer."""
+    period in the stacked leading dim or None) for every layer of the
+    stack of ``kinds`` (the decoder's ``cfg._layer_kinds()``, or the
+    encoder's)."""
     i = 0
-    for si, (pat, reps) in enumerate(
-            segments_from_kinds(cfg._layer_kinds())):
+    for si, (pat, reps) in enumerate(segments_from_kinds(kinds)):
         for r in range(reps):
             for j in range(len(pat)):
                 yield i, _get(_get(tree, f"seg{si}"), f"pos{j}"), \
@@ -190,8 +211,10 @@ def _assign(mod, tree, period, path):
     ``mod`` (``nn.ModuleDict`` / ``nn.ParameterDict``), same names."""
     keys = set(tree.keys()) if isinstance(tree, dict) else None
     if keys is not None and keys != set(mod.keys()):
-        raise ValueError(f"{path}: reference keys {sorted(keys)}, port "
-                         f"keys {sorted(mod.keys())}")
+        raise ValueError(
+            f"{path}: the reference lacks {sorted(set(mod.keys()) - keys)}"
+            f" and has {sorted(keys - set(mod.keys()))} more (reference "
+            f"keys {sorted(keys)}, port keys {sorted(mod.keys())})")
     for name, child in mod.items():
         src = _get(tree, name)
         if isinstance(child, torch.nn.Parameter):
@@ -210,31 +233,40 @@ def _assign(mod, tree, period, path):
 def model_params_from_numpy(model, params):
     """Load the reference's parameter pytree (numpy arrays, or anything
     ``np.asarray`` takes) into ``model`` in place; dtypes and shapes must
-    match exactly.  Layer ``i`` takes its slice of the stacked
-    ``decoder.seg<k>.pos<j>`` arrays.  Returns ``model``."""
-    _assign(model.embed, _get(params, "embed"), None, "embed")
-    _assign(model.final_norm, _get(params, "final_norm"), None,
-            "final_norm")
+    match exactly, and a subtree or leaf the port has and the reference
+    lacks (an encoder-decoder's ``enc_norm``, a decoder layer's
+    ``cross``) raises a ValueError naming it.  Layer ``i`` takes its
+    slice of the stacked ``decoder.seg<k>.pos<j>`` arrays, encoder layer
+    ``i`` its slice of ``encoder.seg<k>.pos<j>``.  Returns ``model``."""
+    stacks = [("decoder", model.layers, model.dec_kinds)]
+    tops = ["embed", "final_norm"]
     if model.cfg.mtp_depth:
-        _assign(model.mtp, _get(params, "mtp"), None, "mtp")
-    seen = 0
-    for i, sub, period in _layer_sources(model.cfg,
-                                         _get(params, "decoder")):
-        _assign(model.layers[i], sub, period, f"decoder.layer{i}")
-        seen += 1
-    if seen != len(model.layers):
-        raise ValueError(f"{seen} reference layers for "
-                         f"{len(model.layers)} port layers")
+        tops.append("mtp")
+    if model.cfg.enc_layers:
+        tops.append("enc_norm")
+        stacks.append(("encoder", model.encoder, model.enc_kinds))
+    for name in tops:
+        _assign(getattr(model, name), _need(params, name, ""), None, name)
+    for name, layers, kinds in stacks:
+        seen = 0
+        for i, sub, period in _layer_sources(kinds,
+                                             _need(params, name, "")):
+            _assign(layers[i], sub, period, f"{name}.layer{i}")
+            seen += 1
+        if seen != len(layers):
+            raise ValueError(f"{name}: {seen} reference layers for "
+                             f"{len(layers)} port layers")
     return model
 
 
 def _cache_leaves(cfg) -> list:
     """Each decoder layer's cache leaves with their rank in one pool of
     the port and their dtype ({"k": (4, bf16), "v": (4, bf16)} on a bf16
-    GQA layer, {"conv": (3, bf16), "h": (3, float32)} on a bf16 Mamba
-    layer)."""
+    GQA layer, and ``xk``/``xv`` beside them on an encoder-decoder's;
+    {"conv": (3, bf16), "h": (3, float32)} on a bf16 Mamba layer)."""
+    cross_len = 1 if cfg.enc_layers else 0
     return [{name: (t.dim(), t.dtype) for name, t in
-             layer_cache_init(cfg, kind, 1, 1, "cpu").items()}
+             layer_cache_init(cfg, kind, 1, 1, "cpu", cross_len).items()}
             for kind, _ in cfg._layer_kinds()]
 
 
@@ -250,10 +282,11 @@ def decode_cache_from_numpy(cfg, src, device="cuda") -> list:
     dev = resolve(device)
     leaves = _cache_leaves(cfg)
     out = []
-    for i, sub, period in _layer_sources(cfg, src):
+    for i, sub, period in _layer_sources(cfg._layer_kinds(), src):
         layer = {}
         for name, (rank, dtype) in leaves[i].items():
-            t = _float_tensor(_get(sub, name), f"cache.layer{i}.{name}")
+            t = _float_tensor(_need(sub, name, f"cache.layer{i}."),
+                              f"cache.layer{i}.{name}")
             if t.dtype != dtype:
                 raise ValueError(f"cache.layer{i}.{name}: reference "
                                  f"{t.dtype}, port {dtype}")

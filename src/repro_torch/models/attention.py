@@ -13,9 +13,13 @@ O(S * 2W) work, not a masked O(S^2)), ``pos_vec`` and ``gqa_decode``.
 MLA (``mla_init``, ``_mla_q``, ``_mla_ckv``, ``mla_full``,
 ``mla_decode``) keeps a latent cache of ``kv_lora_rank`` + rope
 columns a position instead of per-head K/V, and decodes in the absorbed
-form.  All but ``gqa_decode``'s kernel route are plain PyTorch, as the
-reference computes them outside any Pallas kernel (MLA decode has no
-kernel there).  Cross attention waits for the encoder slice.
+form.  Cross attention (an encoder-decoder's decoder layers) is
+``gqa_full`` with ``xkv``, the encoder's output: K/V from it, no RoPE
+and no mask; and ``gqa_cross_decode``, the query against K/V already in
+the cache, through the plain ``_sdpa`` with no mask, as the reference's
+stack computes it.  All but ``gqa_decode``'s kernel route are plain
+PyTorch, as the reference computes them outside any Pallas kernel (MLA
+decode and cross attention have no kernel there).
 """
 from __future__ import annotations
 
@@ -50,20 +54,28 @@ def gqa_init(gen, cfg: ModelConfig) -> nn.ParameterDict:
     return nn.ParameterDict(p)
 
 
-def _qkv(cfg: ModelConfig, p, x):
+def _q(cfg: ModelConfig, p, x):
     hd = cfg.resolved_head_dim
-    nq, nkv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     q = mm(x, p["wq"])
-    k = mm(x, p["wk"])
-    v = mm(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
+    return q.reshape(*x.shape[:-1], p["wq"].shape[-1] // hd, hd)
+
+
+def _qkv(cfg: ModelConfig, p, x, xkv=None):
+    """Q from ``x`` [.., S, d]; K and V from ``xkv`` [.., T, d] when it
+    is given (cross attention), else from ``x``."""
+    hd = cfg.resolved_head_dim
+    nkv = p["wk"].shape[-1] // hd
+    xkv = x if xkv is None else xkv
+    k = mm(xkv, p["wk"])
+    v = mm(xkv, p["wv"])
+    if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(*x.shape[:-1], nq, hd)
-    k = k.reshape(*x.shape[:-1], nkv, hd)
-    v = v.reshape(*x.shape[:-1], nkv, hd)
-    return q, k, v
+    k = k.reshape(*xkv.shape[:-1], nkv, hd)
+    v = v.reshape(*xkv.shape[:-1], nkv, hd)
+    return _q(cfg, p, x), k, v
 
 
 def _sdpa(cfg: ModelConfig, q, k, v, mask):
@@ -142,21 +154,41 @@ def _flash_sdpa(q, k, v, block: int, softcap: float = 0.0):
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, nq, vd).to(q.dtype)
 
 
-def gqa_full(cfg: ModelConfig, p, x, positions):
-    """Causal self-attention over the whole sequence. x: [B, S, d];
-    positions: [B, S].  Returns (out [B, S, d], (k, v) [B, S, nkv, hd])
-    — the K/V a prefill writes into the cache.  With ``cfg.flash_block``
-    and S longer than a block, ``_flash_sdpa`` computes it."""
-    q, k, v = _qkv(cfg, p, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    if cfg.flash_block and q.shape[1] > cfg.flash_block:
+def gqa_full(cfg: ModelConfig, p, x, positions, causal: bool = True,
+             xkv=None):
+    """Attention over the whole sequence. x: [B, S, d]; positions:
+    [B, S].  Returns (out [B, S, d], (k, v) [B, T, nkv, hd]) — the K/V a
+    prefill writes into the cache.
+
+    Self-attention (``xkv`` None): RoPE on Q and K at ``positions``,
+    causal unless ``causal`` is False; with ``cfg.flash_block`` and a
+    causal S longer than a block, ``_flash_sdpa`` computes it.  Cross
+    attention (``xkv`` [B, T, d], the encoder's output): K/V from
+    ``xkv``, no RoPE and no mask whatever ``causal`` says, as in the
+    reference."""
+    q, k, v = _qkv(cfg, p, x, xkv)
+    if xkv is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if (cfg.flash_block and causal and xkv is None
+            and q.shape[1] > cfg.flash_block):
         out = _flash_sdpa(q, k, v, cfg.flash_block,
                           softcap=cfg.logit_softcap)
     else:
-        out = _sdpa(cfg, q, k, v, _causal_mask(q.shape[1], k.shape[1],
-                                               x.device))
+        mask = (_causal_mask(q.shape[1], k.shape[1], x.device)
+                if causal and xkv is None else None)
+        out = _sdpa(cfg, q, k, v, mask)
     return mm(out.reshape(*x.shape[:-1], -1), p["wo"]), (k, v)
+
+
+def gqa_cross_decode(cfg: ModelConfig, p, x, cross_k, cross_v):
+    """Cross attention against the encoder's K/V in the cache: x [B, S,
+    d] (one token a row in decode, the prompt in a text-only prefill);
+    cross_[kv] [B, T, nkv, hd].  No RoPE, no mask, the plain ``_sdpa``
+    (the reference's stack computes it so; it also projects K and V of
+    ``x`` and drops them, which the port skips).  Returns [B, S, d]."""
+    out = _sdpa(cfg, _q(cfg, p, x), cross_k, cross_v, None)
+    return mm(out.reshape(*x.shape[:-1], -1), p["wo"])
 
 
 def gqa_local(cfg: ModelConfig, p, x, positions):

@@ -107,6 +107,9 @@ def embed_init(gen, cfg: ModelConfig) -> nn.ParameterDict:
                            scale=cfg.d_model ** -0.5)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dt)
+    if cfg.frontend:
+        fd = cfg.frontend_dim or cfg.d_model
+        p["frontend_proj"] = dense_init(gen, (fd, cfg.d_model), dt)
     return nn.ParameterDict(p)
 
 
@@ -117,3 +120,12 @@ def embed_apply(cfg: ModelConfig, p, tokens):
 def unembed_apply(cfg: ModelConfig, p, x):
     w = p["tok"].T if cfg.tie_embeddings else p["lm_head"]
     return (x @ w.to(x.dtype)).to(torch.float32)
+
+
+def frontend_apply(cfg: ModelConfig, p, feats):
+    """The modality frontend stub: precomputed frame or patch embeddings
+    ``feats`` [B, F, frontend_dim] projected to [B, F, d_model] by
+    ``frontend_proj``, in the compute dtype (the audio or vision encoder
+    proper is out of scope, as in the reference)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    return feats.to(cdt) @ p["frontend_proj"].to(cdt)

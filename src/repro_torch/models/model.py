@@ -7,33 +7,44 @@ prefill and decode modes.
 
 * ``loss(batch)``                         -> (scalar loss, metrics)
 * ``cache_init(batch, max_seq)``          -> zeroed cache (one dict per layer)
-* ``prefill(tokens, cache)``              -> (last-token logits [B, V] f32, cache)
+* ``prefill(tokens, cache, frontend_feats=None, enc_feats=None)``
+      -> (last-token logits [B, V] f32, cache)
 * ``decode_step(cache, tokens, pos)``     -> (logits [B, V] f32, cache)
 
-It serves the decoder-only architectures — the dense GQA ones (Qwen2,
-Phi-3, Nemotron-4, Gemma 3 with its 5:1 sliding-window and global
-layers and tied embeddings, the in-house repro-100m), the MoE family
-(Phi-3.5-MoE; DeepSeek-V3 with MLA, its latent cache, dense-then-MoE
-layers, a shared expert and the MTP term of the loss), and the SSM and
-hybrid stacks (xLSTM's alternating sLSTM and mLSTM blocks; Jamba's
-Mamba and attention layers at 7:1 with MoE on every other layer), whose
-recurrent layers keep their state in the decode cache — with the logit
-soft-cap and flash (``flash_block``) attention.  It raises
-``NotImplementedError`` for every feature of the reference's
-``ModelConfig`` that it does not serve (the encoder and frontends,
-tensor parallelism), rather than taking another path.
+It serves every architecture of the reference's configs — the dense
+GQA decoders (Qwen2, Phi-3, Nemotron-4, Gemma 3 with its 5:1
+sliding-window and global layers and tied embeddings, the in-house
+repro-100m), the MoE family (Phi-3.5-MoE; DeepSeek-V3 with MLA, its
+latent cache, dense-then-MoE layers, a shared expert and the MTP term
+of the loss), the SSM and hybrid stacks (xLSTM's alternating sLSTM and
+mLSTM blocks; Jamba's Mamba and attention layers at 7:1 with MoE on
+every other layer), whose recurrent layers keep their state in the
+decode cache, and the two with a frontend stub: InternVL2's vision
+prefix (``frontend_feats`` [B, F, frontend_dim], patch embeddings
+projected by ``embed.frontend_proj`` and put before the tokens) and
+SeamlessM4T's encoder-decoder (``enc_feats`` [B, F, frontend_dim],
+projected the same way and run through ``enc_layers`` causal
+self-attention layers, as the reference runs them; the decoder layers
+attend to it through cross attention, whose K/V the cache keeps in
+``xk``/``xv``) — with the logit soft-cap and flash (``flash_block``)
+attention.  It raises ``NotImplementedError`` for every feature of the
+reference's ``ModelConfig`` that it does not serve (tensor
+parallelism, attention kinds other than GQA and MLA), rather than
+taking another path, and ``ValueError`` for features a model cannot
+take (``frontend_feats`` without a vision prefix, ``enc_feats``
+without an encoder, a feature width other than ``frontend_dim``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ATTN_GLOBAL, ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (dense_init, dtype_of, embed_apply,
-                                       embed_init, norm_apply, norm_init,
-                                       unembed_apply)
+                                       embed_init, frontend_apply,
+                                       norm_apply, norm_init, unembed_apply)
 
 
 def _refuse_unserved(cfg: ModelConfig) -> None:
@@ -41,8 +52,6 @@ def _refuse_unserved(cfg: ModelConfig) -> None:
         "attn_kind": cfg.attn_kind not in ("gqa", "mla"),
         # local layers without a window: the reference gives them no cache
         "local_pattern": bool(cfg.local_pattern and not cfg.local_window),
-        "enc_layers": bool(cfg.enc_layers),
-        "frontend": bool(cfg.frontend),
         "tp_axis": bool(cfg.tp_axis),
     }
     bad = [k for k, v in unserved.items() if v]
@@ -65,11 +74,18 @@ class Model(nn.Module):
                              f"{dev}")
         self.cfg = cfg
         self.dec_kinds = cfg._layer_kinds()
+        self.enc_kinds = [(ATTN_GLOBAL, False)] * cfg.enc_layers
         self.embed = embed_init(generator, cfg)
         self.layers = nn.ModuleList(
-            tf.layer_init(generator, cfg, kind, is_moe)
+            tf.layer_init(generator, cfg, kind, is_moe,
+                          cross=bool(cfg.enc_layers))
             for kind, is_moe in self.dec_kinds)
         self.final_norm = norm_init(cfg, cfg.d_model, dev)
+        if cfg.enc_layers:
+            self.encoder = nn.ModuleList(
+                tf.layer_init(generator, cfg, kind, is_moe)
+                for kind, is_moe in self.enc_kinds)
+            self.enc_norm = norm_init(cfg, cfg.d_model, dev)
         if cfg.mtp_depth:
             # DeepSeek's MTP head: [h_t ; emb(tok_{t+1})] -> d
             self.mtp = nn.ParameterDict({
@@ -82,34 +98,88 @@ class Model(nn.Module):
         return self.embed["tok"].device
 
     def cache_init(self, batch: int, max_seq: int) -> list:
+        """The zeroed cache: an encoder-decoder's layers add cross K/V of
+        ``frontend_tokens`` rows (the reference's ``cross_len``)."""
+        cross_len = self.cfg.frontend_tokens if self.cfg.enc_layers else 0
         return tf.stack_cache_init(self.cfg, self.dec_kinds, batch, max_seq,
-                                   self.device)
+                                   self.device, cross_len)
+
+    def _check_features(self, tokens, feats, name: str, takes: bool):
+        """``feats`` must be None, or [B, F, frontend_dim] with the
+        tokens' batch on a model that ``takes`` them."""
+        if feats is None:
+            return
+        cfg = self.cfg
+        if not takes:
+            raise ValueError(f"{cfg.name} takes no {name} (frontend "
+                             f"{cfg.frontend!r}, enc_layers "
+                             f"{cfg.enc_layers})")
+        b, fd = tokens.shape[0], cfg.frontend_dim or cfg.d_model
+        if feats.dim() != 3 or feats.shape[0] != b or feats.shape[2] != fd:
+            raise ValueError(f"{cfg.name}: {name} of shape "
+                             f"{tuple(feats.shape)}, expected [{b}, F, "
+                             f"{fd}] (batch, F, frontend_dim)")
+
+    def _embed_inputs(self, tokens, frontend_feats=None):
+        """Token embeddings, the projected patch embeddings put before
+        them when ``frontend_feats`` is given (a vision prefix)."""
+        cfg = self.cfg
+        x = embed_apply(cfg, self.embed, tokens)
+        if frontend_feats is not None:
+            x = torch.cat([frontend_apply(cfg, self.embed, frontend_feats),
+                           x], dim=1)
+        if cfg.name.startswith("gemma"):
+            x = x * cfg.d_model ** 0.5
+        return x
+
+    def _encode(self, enc_feats):
+        """The encoder: ``enc_feats`` [B, F, frontend_dim] projected by
+        ``frontend_proj``, then the ``enc_layers`` stack at positions
+        0..F-1 in ``mode="train"`` — causal self-attention with RoPE, as
+        the reference's encoder runs — then ``enc_norm``."""
+        cfg = self.cfg
+        h = frontend_apply(cfg, self.embed, enc_feats)
+        positions = torch.arange(h.shape[1], device=h.device) \
+            .expand(h.shape[:2])
+        h, _, _ = tf.stack_apply(cfg, self.encoder, h, self.enc_kinds,
+                                 mode="train", positions=positions)
+        return norm_apply(cfg, self.enc_norm, h)
 
     def _run(self, tokens, mode: str, cache=None, pos=None,
-             groups: int = 1):
+             groups: int = 1, frontend_feats=None, enc_feats=None):
         """``forward`` with the stack's MoE balance term: (final-norm
         hidden states, cache, aux)."""
         cfg = self.cfg
-        x = embed_apply(cfg, self.embed, tokens)
-        if cfg.name.startswith("gemma"):
-            x = x * cfg.d_model ** 0.5
+        self._check_features(tokens, frontend_feats, "frontend_feats",
+                             bool(cfg.frontend and not cfg.enc_layers))
+        self._check_features(tokens, enc_feats, "enc_feats",
+                             bool(cfg.enc_layers))
+        enc_out = None if enc_feats is None else self._encode(enc_feats)
+        x = self._embed_inputs(tokens, frontend_feats)
         positions = torch.arange(x.shape[1], device=x.device) \
             .expand(x.shape[:2])
         x, new_cache, aux = tf.stack_apply(
             cfg, self.layers, x, self.dec_kinds, mode=mode, cache=cache,
-            pos=pos, positions=positions, groups=groups)
+            pos=pos, positions=positions, groups=groups, enc_out=enc_out)
         return norm_apply(cfg, self.final_norm, x), new_cache, aux
 
-    def forward(self, tokens, mode: str = "decode", cache=None, pos=None):
+    def forward(self, tokens, mode: str = "decode", cache=None, pos=None,
+                frontend_feats=None, enc_feats=None):
         """tokens [B, S] -> (final-norm hidden states, new cache); the
-        sequence sits at positions 0..S-1 (train, prefill) or at ``pos``
-        (decode).  ``mode="train"`` reads and writes no cache."""
-        return self._run(tokens, mode, cache, pos)[:2]
+        sequence sits at positions 0..S-1 (train, prefill; after a vision
+        prefix of F patches at F..F+S-1, the patches' rows first) or at
+        ``pos`` (decode).  ``mode="train"`` reads and writes no cache.
+        ``frontend_feats`` / ``enc_feats``: see ``prefill``."""
+        return self._run(tokens, mode, cache, pos,
+                         frontend_feats=frontend_feats,
+                         enc_feats=enc_feats)[:2]
 
     def loss(self, batch):
         """Next-token cross-entropy of ``batch`` = {"tokens" [B, S],
-        "labels" [B, S]} (labels < 0 are ignored): position t's logits
-        against label t + 1.  Returns (loss, metrics) with metrics
+        "labels" [B, S]} (labels < 0 are ignored), and optionally
+        "frontend_feats" (the vision prefix, whose F rows are dropped
+        before the head) or "enc_feats" (the encoder's input): position
+        t's logits against label t + 1.  Returns (loss, metrics) with metrics
         ``ce``, ``tokens`` (labels counted), ``aux`` and ``loss``, all
         float32 scalars; ``loss = ce + 0.01 * aux``, ``aux`` the MoE
         layers' balance terms summed (0 for a dense model).  With
@@ -118,7 +188,11 @@ class Model(nn.Module):
         the metrics ``mtp_ce``."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
-        x, _, aux = self._run(tokens, "train")
+        front = batch.get("frontend_feats")
+        x, _, aux = self._run(tokens, "train", frontend_feats=front,
+                              enc_feats=batch.get("enc_feats"))
+        if front is not None:
+            x = x[:, front.shape[1]:]
         logits = unembed_apply(cfg, self.embed, x)          # [B,S,V] f32
         ce, denom = _masked_ce(logits[:, :-1], labels[:, 1:])
         loss = ce + 0.01 * aux
@@ -135,12 +209,27 @@ class Model(nn.Module):
         metrics["loss"] = loss
         return loss, metrics
 
-    def prefill(self, tokens, cache):
+    def prefill(self, tokens, cache, frontend_feats=None, enc_feats=None):
         """Run the prompts ``tokens`` [B, S] through the stack and write
         their K/V into cache rows [0, S) in place (a recurrent layer: the
         state after the S tokens, started from zeros).  Returns
-        (last-token logits [B, V] float32, cache)."""
-        x, new_cache = self.forward(tokens, mode="prefill", cache=cache)
+        (last-token logits [B, V] float32, cache).
+
+        ``frontend_feats`` [B, F, frontend_dim] (a vision prefix): the
+        F projected patches come first, so the K/V fill rows [0, F + S)
+        and decode continues at ``pos = F + S``.  ``enc_feats`` [B, F,
+        frontend_dim] (an encoder-decoder): the encoder runs over them
+        and each decoder layer's cross K/V are the encoder's, of F rows:
+        written into ``xk``/``xv`` in place when F is the cache's
+        ``frontend_tokens``, and otherwise put in the layer's cache dict
+        in their place (the returned list holds tensors of F rows, as
+        the reference returns them; decode then attends over those F).
+        Without ``enc_feats`` an encoder-decoder's cross attention reads
+        the cache's ``xk``/``xv`` as they are (zeros after
+        ``cache_init``), as the reference's text-only prefill does."""
+        x, new_cache = self.forward(tokens, mode="prefill", cache=cache,
+                                    frontend_feats=frontend_feats,
+                                    enc_feats=enc_feats)
         logits = unembed_apply(self.cfg, self.embed, x[:, -1:])
         return logits[:, 0], new_cache
 

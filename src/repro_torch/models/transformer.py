@@ -15,9 +15,12 @@ rows on a sliding-window layer (slot ``pos % w`` holds position
 ``pos``), MLA's latent ``{"ckv" [B, max_seq, r], "kpe" [B, max_seq,
 rope]}``, and on a recurrent layer its state (``models/ssm.py``):
 Mamba's ``{"conv", "h"}``, sLSTM's ``{"sc", "sn", "sm", "sh"}``,
-mLSTM's ``{"mC", "mn", "mm"}``.  A layer's FFN is an MLP or, on an MoE
-layer, ``moe_apply``, whose balance term the stack sums; an xLSTM layer
-(``d_ff`` 0) has none.
+mLSTM's ``{"mC", "mn", "mm"}``; an encoder-decoder's decoder layer
+adds the encoder's K/V, ``{"xk", "xv"}`` [B, cross_len, nkv, hd].  A
+layer's FFN is an MLP or, on an MoE layer, ``moe_apply``, whose balance
+term the stack sums; an xLSTM layer (``d_ff`` 0) has none.  The encoder
+of an encoder-decoder is a stack of the same layers, run in
+``mode="train"`` (causal self-attention, as the reference runs it).
 """
 from __future__ import annotations
 
@@ -74,8 +77,11 @@ def _is_mla(cfg: ModelConfig) -> bool:
     return cfg.attn_kind == "mla"
 
 
-def layer_init(gen, cfg: ModelConfig, kind: int,
-               is_moe: bool) -> nn.ModuleDict:
+def layer_init(gen, cfg: ModelConfig, kind: int, is_moe: bool,
+               cross: bool = False) -> nn.ModuleDict:
+    """One layer's parameters; ``cross`` adds an attention layer's cross
+    attention (``ln_x`` and ``cross``, a GQA block) after its
+    self-attention."""
     if kind not in (ATTN_GLOBAL, ATTN_LOCAL) and kind not in RECURRENT:
         raise ValueError(f"layer kind {kind}: not one of ATTN_GLOBAL, "
                          f"ATTN_LOCAL, MAMBA, SLSTM, MLSTM")
@@ -87,6 +93,9 @@ def layer_init(gen, cfg: ModelConfig, kind: int,
         p["mla"] = attn.mla_init(gen, cfg)
     else:
         p["attn"] = attn.gqa_init(gen, cfg)
+    if cross and kind not in RECURRENT:
+        p["ln_x"] = norm_init(cfg, cfg.d_model, gen.device)
+        p["cross"] = attn.gqa_init(gen, cfg)
     if is_moe:
         p["ln2"] = norm_init(cfg, cfg.d_model, gen.device)
         p["moe"] = moe_mod.moe_init(gen, cfg)
@@ -97,27 +106,34 @@ def layer_init(gen, cfg: ModelConfig, kind: int,
 
 
 def layer_cache_init(cfg: ModelConfig, kind: int, batch: int, max_seq: int,
-                     device) -> dict:
+                     device, cross_len: int = 0) -> dict:
     """Zeroed decode cache of one layer: K/V of ``max_seq`` rows on a
     global GQA layer, a ring of ``min(local_window, max_seq)`` on a local
     one; MLA's latent ``ckv`` [B, max_seq, r] and ``kpe`` [B, max_seq,
     rope] on a global MLA layer; a recurrent layer's zeroed state
-    (``RECURRENT``: the stabilizers ``m`` at -1e30)."""
+    (``RECURRENT``: the stabilizers ``m`` at -1e30).  ``cross_len`` > 0
+    (an encoder-decoder's decoder) adds the zeroed cross K/V ``xk``,
+    ``xv`` [B, cross_len, nkv, hd] in the compute dtype."""
     if kind in RECURRENT:
         _, _, _, state_init, names = RECURRENT[kind]
         return dict(zip(names, state_init(cfg, batch, device)))
     cdt = dtype_of(cfg.compute_dtype)
+    nkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     if _is_mla(cfg) and not _is_local(cfg, kind):
         m = cfg.mla
-        return {name: torch.zeros((batch, max_seq, width), dtype=cdt,
-                                  device=device)
-                for name, width in (("ckv", m.kv_lora_rank),
-                                    ("kpe", m.qk_rope_head_dim))}
-    rows = (min(cfg.local_window, max_seq) if _is_local(cfg, kind)
-            else max_seq)
-    shape = (batch, rows, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=cdt, device=device),
-            "v": torch.zeros(shape, dtype=cdt, device=device)}
+        c = {name: torch.zeros((batch, max_seq, width), dtype=cdt,
+                               device=device)
+             for name, width in (("ckv", m.kv_lora_rank),
+                                 ("kpe", m.qk_rope_head_dim))}
+    else:
+        rows = (min(cfg.local_window, max_seq) if _is_local(cfg, kind)
+                else max_seq)
+        c = {name: torch.zeros((batch, rows, nkv, hd), dtype=cdt,
+                               device=device) for name in ("k", "v")}
+    for name in ("xk", "xv") if cross_len else ():
+        c[name] = torch.zeros((batch, cross_len, nkv, hd), dtype=cdt,
+                              device=device)
+    return c
 
 
 def _local_decode(cfg: ModelConfig, p, h, ck, cv, pos):
@@ -150,9 +166,38 @@ def _ring_fill(fresh, window: int):
     return torch.roll(fresh[:, s - window:], (s - window) % window, dims=1)
 
 
+def _cross_apply(cfg: ModelConfig, p, x, mode: str, cache, positions,
+                 enc_out):
+    """The cross-attention branch of a decoder layer (after its
+    self-attention): ln_x, then attention over the encoder's output
+    ``enc_out`` when it is given (a prefill writes the encoder's K/V
+    into the cache: in place where the cache has their length, else the
+    cache dict's ``xk``/``xv`` are replaced by tensors of the encoder's
+    length, as the reference returns them), or else over the cache's
+    ``xk``/``xv`` (decode, and a prefill without encoder input, which
+    reads what the cache holds: zeros after ``cache_init``).  Train mode
+    without ``enc_out`` reads no cache and has no cross term.  Returns
+    the residual sum."""
+    if enc_out is None and (mode == "train" or cache is None):
+        return x
+    hx = norm_apply(cfg, p["ln_x"], x)
+    if enc_out is None:
+        return x + attn.gqa_cross_decode(cfg, p["cross"], hx, cache["xk"],
+                                         cache["xv"])
+    out, fresh = attn.gqa_full(cfg, p["cross"], hx, positions,
+                               causal=False, xkv=enc_out)
+    if mode == "prefill":
+        for name, t in zip(("xk", "xv"), fresh):
+            if cache[name].shape == t.shape:
+                cache[name].copy_(t)
+            else:
+                cache[name] = t.to(cache[name].dtype)
+    return x + out
+
+
 def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
                 mode: str = "decode", cache=None, pos=None, positions=None,
-                groups: int = 1):
+                groups: int = 1, enc_out=None):
     """Apply one layer: ln1 -> attention or a recurrent cell -> residual
     -> ln2 -> MLP or MoE -> residual (no FFN where ``d_ff`` is 0 and the
     layer is not MoE).  Returns (x, cache, aux): the cache dict the one
@@ -172,7 +217,10 @@ def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
     cache, prefill starts from zeros, and both write the state they end
     with into the cache in place; train reads and writes none.  The MoE
     FFN dispatches as in decode in ``mode="decode"`` only; ``groups``
-    goes to ``moe_apply`` (the folded tenant pools)."""
+    goes to ``moe_apply`` (the folded tenant pools).  A decoder layer
+    with cross attention (``"cross"`` in ``p``) runs ``_cross_apply``
+    between its attention and its FFN, over ``enc_out`` [B, T, d] when
+    it is given (train, prefill) or the cache's ``xk``/``xv``."""
     if mode not in ("decode", "prefill", "train"):
         raise ValueError(f"mode {mode!r}: decode, prefill or train")
     local = _is_local(cfg, kind)
@@ -211,6 +259,8 @@ def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
                 ck[:, :s] = k.to(ck.dtype)
                 cv[:, :s] = v.to(cv.dtype)
     x = x + out
+    if "cross" in p:
+        x = _cross_apply(cfg, p, x, mode, cache, positions, enc_out)
     aux = 0.0
     if "moe" in p:
         y, aux = moe_mod.moe_apply(cfg, p["moe"],
@@ -223,24 +273,27 @@ def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
 
 
 def stack_cache_init(cfg: ModelConfig, kinds: List[LayerSpec], batch: int,
-                     max_seq: int, device) -> list:
-    return [layer_cache_init(cfg, kind, batch, max_seq, device)
+                     max_seq: int, device, cross_len: int = 0) -> list:
+    return [layer_cache_init(cfg, kind, batch, max_seq, device, cross_len)
             for kind, _ in kinds]
 
 
 def stack_apply(cfg: ModelConfig, layers, x, kinds: List[LayerSpec], *,
                 mode: str = "decode", cache=None, pos=None, positions=None,
-                groups: int = 1):
+                groups: int = 1, enc_out=None):
     """Run the whole stack, layer by layer.  Returns (x, cache, aux):
-    every layer writes its cache in place, so the cache returned is the
-    one given (``None`` in ``mode="train"`` without one); ``aux`` is the
-    MoE layers' balance terms summed, float32 (a scalar, [groups] when
-    ``groups`` > 1 and the stack has an MoE layer)."""
+    every layer writes its cache in place (a prefill's cross K/V of
+    another length replace the layer dict's ``xk``/``xv``), so the
+    cache returned is the list given (``None`` in ``mode="train"``
+    without one); ``aux`` is the MoE layers' balance terms summed,
+    float32 (a scalar, [groups] when ``groups`` > 1 and the stack has an
+    MoE layer).  ``enc_out`` goes to every layer's cross attention."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (p, (kind, is_moe)) in enumerate(zip(layers, kinds)):
         x, _, aux = layer_apply(cfg, p, x, kind=kind, is_moe=is_moe,
                                 mode=mode,
                                 cache=None if cache is None else cache[i],
-                                pos=pos, positions=positions, groups=groups)
+                                pos=pos, positions=positions, groups=groups,
+                                enc_out=enc_out)
         aux_total = aux_total + aux
     return x, cache, aux_total

@@ -237,7 +237,10 @@ class ServingEngine:
                          session_ids):
         """Batch-prefill ``prompts`` [Nslots, S] into fresh sessions:
         their K/V fill cache rows [0, S) in place (``Model.prefill``).
-        Returns (cache, sessions, next tokens [Nslots])."""
+        Text only, as the reference's: an encoder-decoder's cross
+        attention reads the cache's zeroed ``xk``/``xv``, here and in
+        the serve step.  Returns (cache, sessions, next tokens
+        [Nslots])."""
         dev = self.device
         tokens = torch.as_tensor(prompts, dtype=I32, device=dev)
         logits, cache = self.model.prefill(tokens, cache)

@@ -1079,3 +1079,52 @@ def test_ssm_model_kernel_route_matches_cpu(cuda, arch):
         for name in w:
             torch.testing.assert_close(g[name].cpu(), w[name], rtol=1e-4,
                                        atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-medium"])
+def test_frontend_model_kernel_route_matches_cpu(cuda, arch):
+    """internvl2 and seamless at ``REDUCED`` (float32) on the card's
+    kernel route (every self-attention layer through
+    ``decode_attention``) against the same weights on the CPU: a prefill
+    of 2 x 6 tokens with 8 patches (rows [0, 14)) or 8 frames (the
+    encoder's cross K/V) into 24 rows, then 3 decode steps at per-row
+    positions; logits and every cache leaf within 1e-4; then a
+    text-only seamless prefill over the zeroed cross cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(arch, reduced=True)
+    cpu = Model(cfg, device="cpu", seed=3)
+    card = Model(cfg.replace(use_pallas=True), device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(6)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9)))
+    feats = torch.from_numpy(rng.standard_normal(
+        (2, 8, cfg.frontend_dim)).astype(np.float32))
+    key = "enc_feats" if cfg.enc_layers else "frontend_feats"
+    want, wc = cpu.prefill(tok[:, :6], cpu.cache_init(2, 24),
+                           **{key: feats})
+    got, gc = card.prefill(tok[:, :6].to(cuda), card.cache_init(2, 24),
+                           **{key: feats.to(cuda)})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    before = ops.launch_counts()["decode_attention"]
+    start = 6 if cfg.enc_layers else 14
+    pos = torch.tensor([start, start - 2], dtype=torch.int32)
+    for i in range(3):
+        want, wc = cpu.decode_step(wc, tok[:, 6 + i:7 + i], pos + i)
+        got, gc = card.decode_step(gc, tok[:, 6 + i:7 + i].to(cuda),
+                                   (pos + i).to(cuda))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == \
+        before + 3 * cfg.n_layers
+    for g, w in zip(gc, wc):
+        assert set(g) == set(w)
+        for name in w:
+            torch.testing.assert_close(g[name].cpu(), w[name], rtol=1e-4,
+                                       atol=1e-4)
+    if cfg.enc_layers:
+        want, _ = cpu.prefill(tok[:, :6], cpu.cache_init(2, 24))
+        got, gc = card.prefill(tok[:, :6].to(cuda), card.cache_init(2, 24))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        assert not any(c[n].any() for c in gc for n in ("xk", "xv"))

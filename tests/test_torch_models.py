@@ -231,9 +231,32 @@ def test_params_and_cache_interop_round_trip():
         interop.model_params_from_numpy(Model(cfg, device="cpu"), bad)
 
 
+def _refusal(field, value):
+    """Build a model and call what it must refuse: (the exception, its
+    message pattern, the call)."""
+    if field in ("attn_kind", "tp_axis"):
+        return NotImplementedError, field, lambda: Model(
+            TINY.replace(**{field: value}), device="cpu")
+    tok = torch.zeros((2, 3), dtype=torch.long)
+    if field == "frontend_feats":      # on a model without a frontend
+        model = Model(TINY, device="cpu")
+        return ValueError, "takes no frontend_feats", lambda: model.prefill(
+            tok, model.cache_init(2, 8),
+            frontend_feats=torch.zeros((2, 4, TINY.d_model)))
+    cfg = TINY.replace(enc_layers=1, frontend="audio", frontend_tokens=4,
+                       frontend_dim=24)
+    model = Model(cfg, device="cpu")    # enc_feats d_model wide, not 24
+    return ValueError, "enc_feats of shape", lambda: model.loss(
+        {"tokens": tok, "labels": tok,
+         "enc_feats": torch.zeros((2, 4, cfg.d_model))})
+
+
 @pytest.mark.parametrize("field,value", [
-    ("attn_kind", "linear"), ("enc_layers", 2), ("frontend", "audio"),
-    ("tp_axis", "model")])
+    ("attn_kind", "linear"), ("frontend_feats", "no-frontend"),
+    ("enc_feats", "wrong-width"), ("tp_axis", "model")])
 def test_model_refuses_what_it_does_not_serve(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        Model(TINY.replace(**{field: value}), device="cpu")
+    """What the port does not serve raises ``NotImplementedError``;
+    features a model cannot take raise ``ValueError``."""
+    exc, pattern, call = _refusal(field, value)
+    with pytest.raises(exc, match=pattern):
+        call()

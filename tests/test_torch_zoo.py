@@ -3,9 +3,10 @@ phi3-medium-14b, nemotron-4-15b (LayerNorm with bias, squared ReLU) and
 gemma3-1b (5:1 sliding-window and global layers, window 16 at
 ``REDUCED``, GeGLU, tied embeddings), and the MoE family's
 deepseek-v3-671b and phi3.5-moe-42b and the SSM and hybrid stacks'
-xlstm-350m and jamba-v0.1-52b through the ``ARCHS`` cases
-(``tests/test_torch_moe.py`` and ``tests/test_torch_ssm.py`` hold the
-rest of their parity), through
+xlstm-350m and jamba-v0.1-52b and the frontend models' internvl2-2b and
+seamless-m4t-medium (text only here) through the ``ARCHS`` cases
+(``tests/test_torch_moe.py``, ``tests/test_torch_ssm.py`` and
+``tests/test_torch_encdec.py`` hold the rest of their parity), through
 ``Model.loss``, ``Model.prefill``, ``Model.decode_step`` and the LM
 decode tenant; the
 attention functions they add (``_flash_sdpa``, ``gqa_local``, the logit
@@ -111,13 +112,16 @@ def test_configs_match_reference(arch):
 
 
 def test_arch_names_follow_the_reference():
+    """All ten of the reference's architectures, in its order; an unknown
+    name raises."""
     assert ASSIGNED == J_ASSIGNED
-    assert ARCHS == ["qwen2-1.5b", "phi3-medium-14b", "nemotron-4-15b",
-                     "gemma3-1b", "xlstm-350m", "deepseek-v3-671b",
-                     "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"]
+    assert ARCHS == J_ASSIGNED == [
+        "seamless-m4t-medium", "qwen2-1.5b", "phi3-medium-14b",
+        "nemotron-4-15b", "gemma3-1b", "xlstm-350m", "deepseek-v3-671b",
+        "phi3.5-moe-42b-a6.6b", "internvl2-2b", "jamba-v0.1-52b"]
     assert get_config("phi3.5-moe-42b") == get_config("phi3.5-moe-42b-a6.6b")
     with pytest.raises(ValueError, match="serves"):
-        get_config("internvl2-2b")
+        get_config("internvl2-8b")
 
 
 @pytest.mark.parametrize("arch", J_ASSIGNED + ["repro-100m"])
