@@ -66,7 +66,7 @@ exit, no result line) on any mismatch:
    conservation ledger balanced, every kernel of each route launched;
 5. the MICA KVS tenant at full size: a 2^22-bucket x 4-way store
    (704 MiB) loaded with 2^23 keys in 8 bulk SETs, one bulk GET of
-   2^20 Zipf keys, then ``KVSRig``'s loop (fig12_kvs.py) — 250
+   2^20 Zipf keys, then ``KVSRig``'s loop (fig12_kvs.py) — 125
    batches of 16 Zipf 0.99 GET/SETs per mix (50/50 and 5/95) over a
    2-flow loopback pair with object-level steering — through the kernel
    route and the plain route from one start state: stores, values,
@@ -184,7 +184,8 @@ exit, no result line) on any mismatch:
    2 steps, the loss on 2 x 512 tokens, the recurrent state a slot and
    the peak memory; jamba then served at phase 11's pool as phi3.5-moe
    is in phase 13; xlstm's decode tenant at phase 6's pool and traffic
-   for 200 steps on the kernel and the plain route, equal in every part
+   for ``SSM_TENANT_STEPS`` steps on the kernel and the plain route,
+   equal in every part
    (tokens and recurrent state included: both routes run the same model
    code on the same batch shape);
 15. the frontend models at full width and depth: internvl2-2b (24
@@ -205,15 +206,44 @@ exit, no result line) on any mismatch:
    then served text-only through ``ServingEngine`` at phase 11's pool
    as phase 13 serves phi3.5-moe (seamless's cross attention over its
    zeroed cross cache, as the reference serves it);
+16. the tenant axis on a mesh of ranks: single-process runs (on a
+   1-lane mesh, no process group) of phase 7's 8 loopback tenants
+   (``ShardedTenantEngine``: ``SHARD_STEPS`` of ``run_steps``, phase 7's
+   ``run_until``, then ``run_until_global`` with telemetry), of 8 switch
+   tiers at phase 7's widths (tiers 0-3 clients of tiers 4-7 at 1,638.4
+   requests a step, ``switch_step_stacked``), of phase 9's KVS tenants
+   (``make_sharded_tenant_engine``: ``SHARD_KVS_ROUNDS`` rounds drained
+   by ``run_until_global``, then ``run_steps``) and of phase 11's serving
+   tenants (``make_sharded_tenant_run_steps`` and
+   ``make_sharded_tenant_run_until_global``); then the same on a gloo
+   world of 4 ranks sharing cuda:0 (when the machine has fewer than 4
+   cards; gloo's collectives take the CUDA tensors as they are) and an
+   nccl world of
+   the largest of 1, 2, 4 or 8 cards, one a rank (a world of one rank in
+   this process), started by ``repro_torch.launch.ranks`` after the
+   kernels are built: every int32
+   leaf, gathered, equal to the single-process runs (the switch's full
+   exchange to ``switch_step_stacked`` record for record, the compacted
+   one in canonical order; serving but the token words, which each rank
+   holds against a single-process run of its own block), ``dev_steps``
+   and the fleet histogram the same on every rank, a cap of a quarter
+   tile dropping with fetched = dropped on the wire + arrived for every
+   tier, and every rank launching ``switch_step_fused``,
+   ``ring_push_packed``, ``hash_bucket_tag``, ``kv_probe`` and
+   ``decode_attention``; per world, workload and rank it prints steps/s,
+   the collectives' share of the wall, and the device and wall time and
+   activities a step of two profiled steps (the single-process runs
+   print steps/s and the collectives' share only); the ranks' launches
+   and their inputs at new shapes go to phase 4;
 4. kernel summary (run last): one JSON line with each kernel's launches
-   on the main paths (phases 3, 5-15) and, at the shape with the most
+   on the main paths (phases 3, 5-16) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
    version's, its bound and, for decode attention, the time of
    ``F.scaled_dot_product_attention`` on the same inputs.  Every kernel
    is timed at every shape its main paths give it (``by_shape`` in the
    details: launches by path, ms, call ms, bound, device activities a
    call), on inputs captured at that shape in one more step of phases
-   3 and 5-15; the launches by shape are the ``ops`` wrappers' own
+   3 and 5-16; the launches by shape are the ``ops`` wrappers' own
    counts (``ops.launch_shapes``) from the main-path runs.  The switch
    step's graph restores its captured state before every call, and its
    time is that graph's less a graph of the restores.  Four kernels run
@@ -295,7 +325,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 
 # tenant batching: 8 of phase 3's 512-flow pairs stacked (16 NICs, about
 # 128 MB of fabric state), deterministic open-loop arrivals at 1,638.4 x
-# (8 - i) / 8 requests/step on lane i, 100 steps, then per-lane targets
+# (8 - i) / 8 requests/step on lane i, ``TENANT_STEPS`` steps, then targets
 TENANTS = 8
 TENANT_STEPS = 100                  # cut from 200 to fit under 600 s
 TENANT_BASE = 1638.4
@@ -321,7 +351,7 @@ KVS_TENANT_ROUNDS = (("write_z99", 0.5, 24), ("read_z99", 0.05, 24))
 LM_TENANTS = 4
 LM_TENANT_STEPS = 200              # cut from 250 to keep under 600 s
 LM_SWEEP_RATES = (0.065, 0.13, 0.26)
-LM_SWEEP_STEPS = 32                # cut from 128
+LM_SWEEP_STEPS = 16                # cut from 128, then 32 (phase 16)
 NEW_PROFILE_STEPS = 2              # profiled steps (rounds) a run, 9-11
 # serving: 32 sessions prefilled with 256-token prompts, then 16 staged
 # tiles of "sample for me" requests; 4 tenants over 16 tiles of new
@@ -383,6 +413,24 @@ F32_TOL = 2e-4
 # served text-only at phase 11's pool for ``MOE_SERVE_TILES`` tiles
 FRONT = ("internvl2-2b", "seamless-m4t-medium")
 FRONT_PROMPT = 256
+# phase 16: the tenant axis on a mesh of ranks, in two worlds: gloo with
+# 4 ranks sharing cuda:0 (when the machine has fewer than 4 cards) and
+# nccl at the largest of 1, 2, 4 or 8 cards; phase 7's loopback tenants
+# for ``SHARD_STEPS`` steps, its ``run_until`` and a fleet-wide sweep to
+# ``SHARD_GLOBAL_TARGET`` completions (about 19 steps of its arrivals),
+# 8 switch tiers at its widths, phase 9's KVS tenants for
+# ``SHARD_KVS_ROUNDS`` rounds, phase 11's serving tenants over its first
+# ``SHARD_SERVE_TILES`` tiles (a sweep to ``SHARD_SERVE_TARGET`` served,
+# 6 tiles)
+SHARD_GLOO = 4
+SHARD_STEPS = TENANT_STEPS          # phase 7's run_steps
+SHARD_GLOBAL_TARGET = 140_000
+SHARD_SWITCH_STEPS = 10
+SHARD_KVS_ROUNDS = 6
+SHARD_SERVE_TILES = 8               # phase 11's first 8 tiles
+SHARD_SERVE_TARGET = 6 * 8 * 4
+SHARD_PROFILE_STEPS = 2
+SHARD_TIMEOUT_S = 300
 
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
@@ -1304,12 +1352,13 @@ def fresh(torch, state):
 
 def device_events(torch, fn, reps):
     """CUDA activity (kernels, copies, memsets) of ``reps`` calls of
-    ``fn`` under ``torch.profiler``: [(name, microseconds)]."""
+    ``fn`` under ``torch.profiler``: [(name, microseconds)].  Only the
+    CUDA activity is traced: the host's operator records, which nothing
+    here reads, took seconds a trace to record and parse."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -2172,15 +2221,15 @@ def phase_flight(torch, dev, seen, card):
     return report, counts, tally, switch_steps
 
 
-def kvs_tenant_requests(torch, dev, pw):
-    """Per mix of ``KVS_TENANT_ROUNDS``: payloads [R, T, 16, pw] (key
-    words, then value words from word 2) and SET flags [R, T, 16]; tenant
-    t draws its own ``ZipfKVWorkload`` stream (seed t) over its 2^20
-    keys.  Made in bulk and moved to the card once."""
+def kvs_tenant_requests(torch, dev, pw, mixes=KVS_TENANT_ROUNDS):
+    """Per mix of ``mixes`` (``KVS_TENANT_ROUNDS``): payloads [R, T, 16,
+    pw] (key words, then value words from word 2) and SET flags [R, T,
+    16]; tenant t draws its own ``ZipfKVWorkload`` stream (seed t) over
+    its 2^20 keys.  Made in bulk and moved to the card once."""
     import numpy as np
     from repro_torch.data import ZipfKVWorkload
     out = {}
-    for name, set_fraction, rounds in KVS_TENANT_ROUNDS:
+    for name, set_fraction, rounds in mixes:
         pay = np.zeros((rounds, KVS_TENANTS, KVS_BATCH, pw), np.int32)
         is_set = np.zeros((rounds, KVS_TENANTS, KVS_BATCH), np.int32)
         for t in range(KVS_TENANTS):
@@ -2233,6 +2282,49 @@ def kvs_tenant_serve(torch, dev, fab, eng, state, requests, tel, lane=None):
     return (cst, sst, db), counts, tel, loop, time.perf_counter() - t0
 
 
+def kvs_tenant_stores(torch, dev, lo, hi):
+    """Tenants ``lo``..``hi - 1`` of phase 9's stores, stacked: each a
+    ``KVS_TENANT_STORE`` loaded with its 2^20 keys in bulk SETs of 2^17
+    (kernel route) and every key read back.  The values come from one
+    generator (seed 2025) drawn tenant by tenant, so a block of tenants
+    equals the same tenants of the whole stack.  The store is lossy: a
+    key is lost to a later key of its full bucket (an eviction) or of its
+    own SET batch (new keys of one bucket take its first empty way, the
+    last row wins).  Every key the store holds must hit with its value,
+    so hits = occupied ways.  Returns (stacked store, keys held a
+    tenant)."""
+    from repro_torch.core.engine import stack_states
+    from repro_torch.runtime.kvs import DeviceKVS
+    kvs = DeviceKVS(**KVS_TENANT_STORE, use_pallas=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+    keys = torch.arange(KVS_TENANT_KEYS, dtype=torch.int64, device=dev)
+    kw = kvs_key_words(torch, keys)
+    stores, held = [], []
+    for t in range(hi):
+        vals = torch.randint(0, 2**31 - 1, (KVS_TENANT_KEYS,
+                                            KVS_STORE["value_words"]),
+                             generator=gen, dtype=torch.int32, device=dev)
+        if t < lo:
+            continue
+        db = kvs.init_state(dev)
+        for i in range(0, KVS_TENANT_KEYS, KVS_TENANT_CHUNK):
+            db = kvs.set(db, kw[i:i + KVS_TENANT_CHUNK],
+                         vals[i:i + KVS_TENANT_CHUNK])
+        db, got, hit = kvs.get(db, kw)
+        n_hit, occupied = int(hit.sum()), int((db.tags != 0).sum())
+        check(n_hit == occupied and torch.equal(got[hit], vals[hit]),
+              f"kvs tenant {t}: {n_hit} of {KVS_TENANT_KEYS} loaded keys "
+              f"hit, {occupied} ways occupied, or a hit's value differs")
+        held.append(n_hit)
+        stores.append(db)
+        del vals, got, hit
+    store = stack_states(stores)
+    del stores
+    torch.cuda.synchronize()
+    return store, held
+
+
 def phase_kvs_tenants(torch, dev, seen, kvs_serve_counts, kvs_serve_steps):
     """KVS tenants: ``make_tenant_engine`` over 8 of KVSRig's fabric pairs,
     each tenant a 2^19-bucket store loaded with 2^20 keys; rounds of 16
@@ -2252,38 +2344,10 @@ def phase_kvs_tenants(torch, dev, seen, kvs_serve_counts, kvs_serve_steps):
     pw = fab0.slot_words - serdes.HEADER_WORDS
     c0 = fab0.open_connection(fab0.init_state(dev), 1, 0, 1, LB_OBJECT)
     s0 = fab0.open_connection(fab0.init_state(dev), 1, 0, 0, LB_OBJECT)
-    # load every tenant's store with its 2^20 keys in bulk SETs of 2^17
-    # (kernel route), then read every key back.  The store is lossy: a
-    # key is lost to a later key of its full bucket (an eviction) or of
-    # its own SET batch (new keys of one bucket take its first empty way,
-    # the last row wins).  Every key the store holds must hit with its
-    # value, so hits = occupied ways
-    kvs = DeviceKVS(**KVS_TENANT_STORE, use_pallas=True)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2025)
-    keys = torch.arange(KVS_TENANT_KEYS, dtype=torch.int64, device=dev)
-    kw = kvs_key_words(torch, keys)
+    # load every tenant's store with its 2^20 keys, then read every key
+    # back (``kvs_tenant_stores``)
     t0 = time.perf_counter()
-    stores, held = [], []
-    for t in range(KVS_TENANTS):
-        vals = torch.randint(0, 2**31 - 1, (KVS_TENANT_KEYS,
-                                            KVS_STORE["value_words"]),
-                             generator=gen, dtype=torch.int32, device=dev)
-        db = kvs.init_state(dev)
-        for i in range(0, KVS_TENANT_KEYS, KVS_TENANT_CHUNK):
-            db = kvs.set(db, kw[i:i + KVS_TENANT_CHUNK],
-                         vals[i:i + KVS_TENANT_CHUNK])
-        db, got, hit = kvs.get(db, kw)
-        n_hit, occupied = int(hit.sum()), int((db.tags != 0).sum())
-        check(n_hit == occupied and torch.equal(got[hit], vals[hit]),
-              f"kvs tenant {t}: {n_hit} of {KVS_TENANT_KEYS} loaded keys "
-              f"hit, {occupied} ways occupied, or a hit's value differs")
-        held.append(n_hit)
-        stores.append(db)
-        del vals, got, hit
-    store = stack_states(stores)
-    del stores
-    torch.cuda.synchronize()
+    store, held = kvs_tenant_stores(torch, dev, 0, KVS_TENANTS)
     load_s = time.perf_counter() - t0
     store_mib = sum(x.numel() * 4 for x in (store.tags, store.keys,
                                             store.vals)) / 2**20
@@ -2362,7 +2426,8 @@ def phase_kvs_tenants(torch, dev, seen, kvs_serve_counts, kvs_serve_steps):
           f"kvs tenants plain route launched kernels: {p['launches']}")
     # lane 0 against a single-tenant make_engine run on its requests
     fab = k["fab"]
-    eng1 = kvs.make_engine(fab, fab)
+    eng1 = DeviceKVS(**KVS_TENANT_STORE, use_pallas=True).make_engine(fab,
+                                                                      fab)
     state1 = tree_map(lambda x: x.clone(), lane_view(start, 0))
     tel1 = tlm.create(device=dev)
     counts1 = []
@@ -4072,6 +4137,634 @@ def phase_front(torch, dev, seen):
     return report, paths
 
 
+# --------------------------------------------------------------------------
+# phase 16: the tenant axis on a mesh of ranks
+# --------------------------------------------------------------------------
+
+def shard_pairs(torch, dev):
+    """Phase 7's start: 8 of phase 3's 512-flow pairs, stacked, and the
+    per-lane rates 1,638.4 x (8 - i) / 8."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core.engine import stack_states
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.load_balancer import LB_ROUND_ROBIN
+    cfg = FabricConfig(**FULL, use_pallas=True)
+    fab, c0, s0 = make_pair(DaggerFabric, cfg, dev, LB_ROUND_ROBIN,
+                            client_entry=False)
+    rates = [TENANT_BASE * (TENANTS - i) / TENANTS for i in range(TENANTS)]
+    return fab, (stack_states([c0] * TENANTS),
+                 stack_states([s0] * TENANTS)), rates
+
+
+def to_cpu(torch, tree):
+    from repro_torch.core.fabric import tree_map
+    return tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x,
+                    tree)
+
+
+def snapshot(torch, mesh, tree, dim=0):
+    """The whole stack of a tree blocked over the mesh's ranks
+    (``gather_states``, a collective) on the CPU at rank 0; ``None`` at
+    the others."""
+    from repro_torch.core.engine import gather_states
+    tree = gather_states(tree, mesh, dim)
+    return to_cpu(torch, tree) if mesh.rank == 0 else None
+
+
+class timed_run:
+    """Wall seconds of the block (the card synchronized at both ends) and
+    the host seconds the mesh's collectives took within it."""
+
+    def __init__(self, torch, mesh):
+        self.torch = torch
+        self.mesh = mesh
+
+    def __enter__(self):
+        self.torch.cuda.synchronize()
+        self.mesh.wire.update(seconds=0.0, calls=0)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self.secs = time.perf_counter() - self.t0
+        self.wire = dict(self.mesh.wire)
+        return False
+
+
+def shard_loop(torch, dev, mesh, seen):
+    """Loopback tenants on the mesh: ``ShardedTenantEngine`` (kernel
+    route, echo, deterministic arrivals, telemetry) — ``run_steps``
+    (``TENANT_STEPS``), ``run_until`` with phase 7's per-lane targets,
+    then ``run_until_global`` to ``SHARD_GLOBAL_TARGET`` completions.  On
+    a 1-lane mesh (no group) this is the single-process ``TenantEngine``
+    (whose run methods the sharded engine inherits) and a sweep with no
+    collective.  Returns the stack's states after each call (rank 0) and
+    the rank's own counts, timings and profile."""
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.engine import ShardedTenantEngine, shard_states
+    from repro_torch.kernels import ops
+    fab, start, rates = shard_pairs(torch, dev)
+    targets = [int(rates[i] * (10 + 6 * i)) for i in range(TENANTS)]
+    gen = lg.LoadGen(fab, mode=lg.MODE_DETERMINISTIC)
+    eng = ShardedTenantEngine(fab, fab, echo, mesh=mesh, loadgen=gen)
+    cst, sst = shard_states(start, mesh)
+    tel = shard_states(tlm.create_batch(TENANTS, device=dev), mesh)
+    gst = shard_states(gen.init_state_batch(rates, device=dev), mesh)
+    del start
+    out = {}
+    ops.reset_launch_counts()
+    with timed_run(torch, mesh) as run1:
+        cst, sst, done, tel, gst = eng.run_steps(cst, sst, SHARD_STEPS,
+                                                 tel=tel, gen=gst)
+    out["steps"] = snapshot(torch, mesh, (cst, sst, done, tel, gst))
+    cst, sst, done, steps, tel, gst = eng.run_until(
+        cst, sst, targets, TENANT_STEPS, tel=tel, gen=gst)
+    out["until"] = snapshot(torch, mesh, (cst, sst, done, steps, tel, gst))
+    with timed_run(torch, mesh) as run3:
+        cst, sst, done, dev_steps, tel, ghist, gst = eng.run_until_global(
+            cst, sst, SHARD_GLOBAL_TARGET, TENANT_STEPS, tel=tel, gen=gst)
+    out["global"] = snapshot(torch, mesh, (cst, sst, done, tel, gst))
+    out["dev_steps"] = dev_steps.tolist()
+    out["ghist"] = ghist.cpu()
+    out["counts"], out["tally"] = ops.launch_counts(), ops.launch_shapes()
+    n = int(dev_steps[0])
+    out["timing"] = {"run_steps": {"steps": SHARD_STEPS,
+                                   "secs": run1.secs, "wire": run1.wire},
+                     "run_until_global": {"steps": n, "secs": run3.secs,
+                                          "wire": run3.wire}}
+    if mesh.group is not None:
+        state = fresh(torch, (cst, sst, tel, gst))
+        out["profile"] = profile_steps(
+            torch, lambda: eng.run_until_global(
+                state[0], state[1], 10**9, SHARD_PROFILE_STEPS,
+                tel=state[2], gen=state[3]), SHARD_PROFILE_STEPS,
+            run3.secs / max(n, 1) * 1e6)
+    with recording(seen):
+        eng.run_steps(cst, sst, 1, tel=tel, gen=gst)
+    torch.cuda.synchronize()
+    return out
+
+
+def shard_switch_setup(torch, dev):
+    """8 tiers of phase 3's 512-flow NIC: tiers 0-3 clients with
+    connection 10 + i to tier 4 + i (every request crosses a rank at D =
+    4), tiers 4-7 echo; deterministic arrivals at 1,638.4 a step on tiers
+    0-3 (``SwitchEchoRig``'s pattern at phase 7's widths)."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.load_balancer import LB_ROUND_ROBIN
+    from repro_torch.core.virtualization import Switch
+    fab = DaggerFabric(FabricConfig(**FULL, use_pallas=True))
+    sw = Switch([fab] * TENANTS)
+    st = sw.init_states(dev)
+    half = TENANTS // 2
+    for i in range(half):
+        st[i] = fab.open_connection(st[i], 10 + i, 0, half + i,
+                                    LB_ROUND_ROBIN)
+        st[half + i] = fab.open_connection(st[half + i], 10 + i, 0, i,
+                                           LB_ROUND_ROBIN)
+    gen = lg.LoadGen(fab, mode=lg.MODE_DETERMINISTIC)
+    rates = [TENANT_BASE] * half + [0.0] * half
+    conns = [10 + i for i in range(half)] + [1] * half
+    handlers = [None] * half + [echo] * half
+    return sw, sw.stack_states(st), gen, rates, conns, handlers
+
+
+def shard_switch(torch, dev, mesh, seen):
+    """The sharded switch on the mesh: ``SHARD_SWITCH_STEPS`` steps of
+    ``switch_step_sharded`` with telemetry and the generators, full
+    exchange, compacted at the default cap (completions canonical), and
+    compacted at a quarter of the local tile (it drops).  Returns the
+    stack's completions a step and end states (rank 0) and the rank's
+    own counts, timings and profile."""
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core import transport as tp
+    from repro_torch.core.engine import shard_states
+    from repro_torch.core.fabric import tree_map
+    from repro_torch.core.virtualization import canonicalize_completions
+    from repro_torch.kernels import ops
+    sw, start, gen, rates, conns, handlers = shard_switch_setup(torch, dev)
+    nb = TENANTS // mesh.size * FULL["n_flows"] * FULL["batch_size"]
+    w = sw.fabrics[0].slot_words
+    out = {"words": {"full": tp.full_exchange_words(mesh.size, nb, w),
+                     "compact": tp.compact_exchange_words(mesh.size, nb, w)}}
+    ops.reset_launch_counts()
+    timing = {}
+    for name, exchange, cap in (("full", "full", None),
+                                ("compact", "compact", None),
+                                ("drop", "compact", nb // 4)):
+        st = shard_states(start, mesh)
+        tel = shard_states(tlm.create_batch(TENANTS, device=dev), mesh)
+        g = shard_states(gen.init_state_batch(rates, conns=conns,
+                                              device=dev), mesh)
+        steps = []
+        with timed_run(torch, mesh) as run:
+            for _ in range(SHARD_SWITCH_STEPS):
+                st, (recs, valid), tel, g = sw.switch_step_sharded(
+                    st, handlers, mesh=mesh, exchange=exchange,
+                    bucket_cap=cap, tel=tel, loadgen=gen, gen=g)
+                if exchange == "compact":
+                    recs, valid = canonicalize_completions(recs, valid)
+                steps.append(tree_map(torch.clone, (recs, valid)))
+        out[name] = {"steps": snapshot(torch, mesh, steps, dim=0),
+                     "end": snapshot(torch, mesh, (st, tel, g)), "cap": cap}
+        timing[name] = {"steps": SHARD_SWITCH_STEPS, "secs": run.secs,
+                        "wire": run.wire}
+    out["counts"], out["tally"] = ops.launch_counts(), ops.launch_shapes()
+    out["timing"] = timing
+    state = fresh(torch, (st, tel, g))
+
+    def more():
+        s, t, gg = state
+        for _ in range(SHARD_PROFILE_STEPS):
+            s, _, t, gg = sw.switch_step_sharded(
+                s, handlers, mesh=mesh, tel=t, loadgen=gen, gen=gg)
+    out["profile"] = profile_steps(
+        torch, more, SHARD_PROFILE_STEPS,
+        timing["full"]["secs"] / SHARD_SWITCH_STEPS * 1e6)
+    with recording(seen):
+        for exchange, cap in (("full", None), ("compact", nb // 4)):
+            sw.switch_step_sharded(fresh(torch, st), handlers, mesh=mesh,
+                                   exchange=exchange, bucket_cap=cap,
+                                   tel=fresh(torch, tel), loadgen=gen,
+                                   gen=g)
+    torch.cuda.synchronize()
+    return out
+
+
+def shard_switch_reference(torch, dev):
+    """``switch_step_stacked`` (one process, kernel route) over the same
+    steps: per step the completions as they are and canonical, and the
+    end states."""
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.virtualization import canonicalize_completions
+    sw, st, gen, rates, conns, handlers = shard_switch_setup(torch, dev)
+    tel = tlm.create_batch(TENANTS, device=dev)
+    g = gen.init_state_batch(rates, conns=conns, device=dev)
+    steps, canon = [], []
+    for _ in range(SHARD_SWITCH_STEPS):
+        st, (recs, valid), tel, g = sw.switch_step_stacked(
+            st, handlers, tel=tel, loadgen=gen, gen=g)
+        steps.append(to_cpu(torch, (recs, valid)))
+        canon.append(to_cpu(torch, canonicalize_completions(recs, valid)))
+    return {"steps": steps, "canon": canon,
+            "end": to_cpu(torch, (st, tel, g))}
+
+
+def shard_kvs(torch, dev, mesh, seen):
+    """Sharded KVS: ``make_sharded_tenant_engine`` over phase 9's stores
+    (this rank's block loaded by itself), ``SHARD_KVS_ROUNDS`` rounds of
+    16 Zipf 0.99 GET/SETs a tenant at 50/50, each enqueued for the
+    block's tenants and drained with ``run_until_global`` (the fleet's
+    16 x 8, at most 8 steps) with telemetry, then a ``run_steps`` window
+    of ``SHARD_PROFILE_STEPS``.  Returns the stack's stores and states
+    after the rounds and after the window (rank 0), and the rank's own
+    rounds, counts, timings and profile."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import serdes
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.engine import shard_states, stack_states
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.load_balancer import LB_OBJECT
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.kvs import DeviceKVS
+    tl = KVS_TENANTS // mesh.size
+    fab = DaggerFabric(FabricConfig(**KVS_FABRIC, use_pallas=True))
+    pw = fab.slot_words - serdes.HEADER_WORDS
+    c0 = fab.open_connection(fab.init_state(dev), 1, 0, 1, LB_OBJECT)
+    s0 = fab.open_connection(fab.init_state(dev), 1, 0, 0, LB_OBJECT)
+    t0 = time.perf_counter()
+    db, _ = kvs_tenant_stores(torch, dev, mesh.rank * tl,
+                              (mesh.rank + 1) * tl)
+    load_s = time.perf_counter() - t0
+    cst, sst = shard_states((stack_states([c0] * KVS_TENANTS),
+                             stack_states([s0] * KVS_TENANTS)), mesh)
+    eng = DeviceKVS(**KVS_TENANT_STORE, use_pallas=True) \
+        .make_sharded_tenant_engine(fab, fab, mesh=mesh)
+    name, mix, _ = KVS_TENANT_ROUNDS[0]
+    pay, is_set = shard_states(kvs_tenant_requests(
+        torch, dev, pw, ((name, mix, SHARD_KVS_ROUNDS),))[name], mesh, dim=1)
+    tel = shard_states(tlm.create_batch(KVS_TENANTS, device=dev), mesh)
+    rows = torch.arange(KVS_BATCH, dtype=torch.int32, device=dev) \
+        .expand(tl, KVS_BATCH)
+    ones = torch.ones((tl, KVS_BATCH), dtype=torch.int32, device=dev)
+    rounds = []
+    ops.reset_launch_counts()
+    with timed_run(torch, mesh) as run:
+        for r in range(SHARD_KVS_ROUNDS):
+            recs = serdes.make_records(
+                ones, rows + r * KVS_BATCH, is_set[r], 0 * ones, pay[r],
+                timestamp=tel.step[:, None].expand(tl, KVS_BATCH))
+            cst, _ = fab.host_tx_enqueue_batch(
+                cst, recs, rows % KVS_FABRIC["n_flows"])
+            cst, sst, db, done, dev_steps, tel, ghist = \
+                eng.run_until_global(cst, sst, KVS_BATCH * KVS_TENANTS, 8,
+                                     hstate=db, tel=tel)
+            rounds.append((done.tolist(), dev_steps.tolist()))
+    n = sum(s[0] for _, s in rounds)
+    out = {"rounds": rounds, "ghist": ghist.cpu(), "load_s": load_s,
+           "global": snapshot(torch, mesh, (cst, sst, db, tel))}
+    cst, sst, db, done = eng.run_steps(cst, sst, SHARD_PROFILE_STEPS,
+                                       hstate=db)
+    out["counts"], out["tally"] = ops.launch_counts(), ops.launch_shapes()
+    out["steps"] = snapshot(torch, mesh, (cst, sst, db, done))
+    out["timing"] = {"run_until_global": {"steps": n, "secs": run.secs,
+                                          "wire": run.wire}}
+    if mesh.group is not None:
+        state = fresh(torch, (cst, sst, db))
+        out["profile"] = profile_steps(
+            torch, lambda: eng.run_steps(*state[:2], SHARD_PROFILE_STEPS,
+                                         hstate=state[2]),
+            SHARD_PROFILE_STEPS, run.secs / max(n, 1) * 1e6)
+        del state
+    with recording(seen):
+        recs = serdes.make_records(ones, rows, is_set[0], 0 * ones, pay[0])
+        c1, _ = fab.host_tx_enqueue_batch(fresh(torch, cst), recs,
+                                          rows % KVS_FABRIC["n_flows"])
+        eng.run_steps(c1, fresh(torch, sst), 1, hstate=fresh(torch, db))
+    torch.cuda.synchronize()
+    return out
+
+
+def shard_serve_engine(torch, dev):
+    """Phase 11's serving engine (kernel route, seeded weights), its
+    prompts and its tenants' staged tiles."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.runtime.serving import ServingEngine
+    fcfg = FabricConfig(n_flows=2, ring_entries=64, batch_size=4,
+                        dynamic_batching=False, use_pallas=True)
+    eng = ServingEngine(get_lm_config().replace(use_pallas=True), fcfg,
+                        n_slots=LM_POOL["n_slots"],
+                        max_seq=LM_POOL["max_seq"], seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    prompts = torch.randint(0, eng.cfg.vocab,
+                            (LM_POOL["n_slots"], SERVE_PROMPT),
+                            generator=gen, dtype=torch.int32, device=dev)
+    tiles = serve_tiles(torch, dev, eng.fabric, LM_TENANTS, 5001, prompts)
+    return eng, tuple(x[:SHARD_SERVE_TILES] for x in tiles)
+
+
+def shard_serve(torch, dev, mesh, seen):
+    """Sharded serving: phase 11's 4 tenants over the ranks,
+    ``make_sharded_tenant_run_steps`` over ``SERVE_TILES`` tiles of new
+    sessions, then ``make_sharded_tenant_run_until_global`` to
+    ``SHARD_SERVE_TARGET`` served; tokens against a single-process
+    ``make_tenant_run_steps`` of this rank's block (its batch shape).
+    Returns the stack's int32 results (no cache) at rank 0, and the
+    rank's own counts, timings and profile."""
+    from repro_torch.kernels import ops
+    eng, tiles = shard_serve_engine(torch, dev)
+    tl = LM_TENANTS // mesh.size
+    run = eng.make_sharded_tenant_run_steps(mesh=mesh)
+    run_g = eng.make_sharded_tenant_run_until_global(mesh=mesh)
+    ops.reset_launch_counts()
+    with timed_run(torch, mesh) as run1:
+        fst, cache, sess, served, out_s, out_v = run(
+            *eng.init_states_batch(tl), *tiles)
+    first = (fst, sess, served, out_s, out_v)
+    del cache
+    with timed_run(torch, mesh) as run2:
+        fst, cache, sess, served, dev_steps, out_s, out_v = run_g(
+            *eng.init_states_batch(tl), *tiles, SHARD_SERVE_TARGET,
+            SHARD_SERVE_TILES)
+    out = {"dev_steps": dev_steps.tolist(), "counts": ops.launch_counts(),
+           "tally": ops.launch_shapes()}
+    del cache
+    if mesh.group is not None:
+        # tokens: the single-process runner at this rank's batch shape
+        lo = mesh.rank * tl
+        one = eng.make_tenant_run_steps()(
+            *eng.init_states_batch(tl), *(x[:, lo:lo + tl] for x in tiles))
+        tree_equal(torch, first, (one[0], one[2], one[3], one[4], one[5]),
+                   f"sharded serving rank {mesh.rank} against its block")
+        del one
+    for key, res in (("steps", first),
+                     ("global", (fst, sess, served, out_s, out_v))):
+        out[key] = (snapshot(torch, mesh, res[:3]),
+                    snapshot(torch, mesh, res[3:], dim=1))
+    del first
+    out["timing"] = {"run_steps": {"steps": SHARD_SERVE_TILES,
+                                   "secs": run1.secs, "wire": run1.wire},
+                     "run_until_global": {"steps": int(dev_steps[0]),
+                                          "secs": run2.secs,
+                                          "wire": run2.wire}}
+    if mesh.group is not None:
+        short = tuple(x[:SHARD_PROFILE_STEPS] for x in tiles)
+        out["profile"] = profile_steps(
+            torch, lambda: run(*eng.init_states_batch(tl), *short),
+            SHARD_PROFILE_STEPS, run1.secs / SHARD_SERVE_TILES * 1e6)
+    with recording(seen):
+        run(*eng.init_states_batch(tl), *(x[:1] for x in tiles))
+    torch.cuda.synchronize()
+    return out
+
+
+SHARD_WORKLOADS = (("loop", shard_loop), ("switch", shard_switch),
+                   ("kvs", shard_kvs), ("serve", shard_serve))
+
+
+def rank_device(torch):
+    """A rank's card: ``cuda:r`` in an nccl world (the launcher sets it),
+    ``cuda:0`` for every rank of a gloo world."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def shard_rank(rank, world, backend, out_dir, known):
+    """One spawned rank of phase 16: ``rank_results`` written to
+    ``out_dir/rank<r>.pt``."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.save(rank_results(rank, world, backend, known),
+               Path(out_dir) / f"rank{rank}.pt")
+
+
+def rank_results(rank, world, backend, known):
+    """One rank of phase 16 in an initialized process group: its block of
+    every workload, the counts of its kernel launches, and (rank 0) its
+    inputs at shapes ``known`` does not hold, on the CPU."""
+    import torch
+    from repro_torch.core import transport as tp
+    from repro_torch.core.fabric import tree_map
+    from repro_torch.kernels import _build
+    _build.library()
+    dev = rank_device(torch)
+    mesh = tp.make_tenant_mesh(device=dev)
+    check((mesh.rank, mesh.size) == (rank, world),
+          f"rank {rank}: a mesh of {mesh.size} lanes at rank {mesh.rank}")
+    # the first collectives set the communicator up (NCCL: lazily, in
+    # seconds): run them before any timed run
+    tp.all_gather(tp.all_reduce_sum(torch.ones((1,), dtype=torch.int32,
+                                               device=dev), mesh), mesh)
+    tp.all_to_all_tiles(torch.zeros((world,), dtype=torch.int32,
+                                    device=dev), mesh)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "device": str(dev)}
+    seen = {}
+    for name, fn in SHARD_WORKLOADS:
+        t0 = time.perf_counter()
+        out[name] = fn(torch, dev, mesh, seen)
+        say(f"sharded {backend}{world} rank {rank}: {name} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if rank == 0:
+        out["seen"] = {
+            k: {sig: tree_map(lambda x: x.cpu() if isinstance(
+                x, torch.Tensor) else x, v)
+                for sig, v in d.items() if (k, sig) not in known}
+            for k, d in seen.items()}
+    return out
+
+
+def shard_world(torch, backend, world, known):
+    """Spawn ``world`` ranks of ``shard_rank`` and load their results; a
+    world of one rank runs in this process (its own process group, torn
+    down after)."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch import ranks
+    out_dir = ROOT / "build" / "phase16" / f"{backend}{world}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    if world == 1:
+        store = out_dir / "store"
+        store.unlink(missing_ok=True)
+        dist.init_process_group(
+            backend, init_method=f"file://{store}", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        try:
+            res = [rank_results(0, 1, backend, known)]
+        finally:
+            dist.destroy_process_group()
+        return res, time.perf_counter() - t0
+    ranks.spawn(shard_rank, world, args=(backend, str(out_dir), known),
+                store_dir=str(out_dir), timeout_s=SHARD_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(world)], secs
+
+
+def no_token(st, tok):
+    """A serving fabric state with the token word of every TX ring slot
+    (its enqueued responses) zeroed: tokens are compared only within one
+    batch shape."""
+    buf = st.tx.buf.clone()
+    buf[..., tok] = 0
+    return dataclasses.replace(st, tx=dataclasses.replace(st.tx, buf=buf))
+
+
+def shard_check(torch, what, res, ref):
+    """Hold one world's results (the stack gathered at rank 0, and each
+    rank's own values) against the single-process runs."""
+    from repro_torch.core import telemetry as tlm
+    d, g = len(res), res[0]
+    # loopback: every int32 leaf of every call's states
+    for key in ("steps", "until", "global"):
+        tree_equal(torch, g["loop"][key], ref["loop"][key],
+                   f"{what} loop.{key}")
+    check(torch.equal(ref["loop"]["ghist"],
+                      tlm.merge_hist(ref["loop"]["global"][3].hist)),
+          f"{what}: the fleet histogram is not the lanes' sum")
+    for r in res:
+        check(r["loop"]["dev_steps"] == ref["loop"]["dev_steps"] * d
+              and torch.equal(r["loop"]["ghist"], ref["loop"]["ghist"]),
+              f"{what}: rank {r['rank']} dev_steps {r['loop']['dev_steps']}"
+              f" (one process {ref['loop']['dev_steps']}) or its fleet "
+              f"histogram differ")
+    # switch: full exchange record for record, compacted canonical
+    sref = ref["switch"]
+    for name, want in (("full", sref["steps"]), ("compact", sref["canon"])):
+        tree_equal(torch, g["switch"][name]["steps"], want,
+                   f"{what} switch.{name} completions")
+        tree_equal(torch, g["switch"][name]["end"], sref["end"],
+                   f"{what} switch.{name} end state")
+    # the shrunken cap: per client tier i and its server 4 + i, the rows
+    # fetched = dropped on the wire + arrived at the other tier
+    mon = {k: v.tolist() for k, v in g["switch"]["drop"]["end"][0]
+           .mon.items()}
+    half = TENANTS // 2
+    for i in range(TENANTS):
+        j = (i + half) % TENANTS
+        arrived = (mon["rpcs_delivered"][j] + mon["drops_no_slot"][j]
+                   + mon["drops_fifo_full"][j])
+        check(mon["rpcs_ingested"][i] == mon["drops_exchange"][i] + arrived,
+              f"{what} switch.drop: tier {i} fetched "
+              f"{mon['rpcs_ingested'][i]}, dropped on the wire "
+              f"{mon['drops_exchange'][i]}, {arrived} arrived at tier {j}")
+    check(sum(mon["drops_exchange"]) > 0,
+          f"{what} switch.drop: the cap dropped nothing")
+    # KVS: stores, fabric states, telemetry and the rounds' steps
+    for key in ("global", "steps"):
+        tree_equal(torch, g["kvs"][key], ref["kvs"][key], f"{what} kvs.{key}")
+    for r in res:
+        check([s for _, s in r["kvs"]["rounds"]]
+              == [s * d for _, s in ref["kvs"]["rounds"]]
+              and torch.equal(r["kvs"]["ghist"], ref["kvs"]["ghist"]),
+              f"{what}: rank {r['rank']}'s KVS rounds or histogram differ")
+    # serving: every int32 part but the token words
+    tok = ref["tok_word"]
+    for key in ("steps", "global"):
+        (fst, sess, served), (out_s, out_v) = ref["serve"][key]
+        (gfst, gsess, gserved), (gout_s, gout_v) = g["serve"][key]
+        tree_equal(torch, (no_token(gfst, tok), gsess.session_id,
+                           gsess.pos, gserved, gout_v),
+                   (no_token(fst, tok), sess.session_id, sess.pos, served,
+                    out_v), f"{what} serve.{key}")
+        words = [w for w in range(out_s.shape[-1]) if w != tok]
+        check(torch.equal(gout_s[..., words], out_s[..., words]),
+              f"{what} serve.{key}: a non-token egress word differs")
+    for r in res:
+        check(r["serve"]["dev_steps"] == ref["serve"]["dev_steps"] * d,
+              f"{what}: rank {r['rank']} serving dev_steps differ")
+
+
+def shard_line(rank, res):
+    """A rank's numbers for one workload: steps/s and the exchange's share
+    of the wall for each timed run (the first is the main one), and the
+    profiled steps' device and wall time a step (a world's ranks; the
+    single-process runs are not profiled)."""
+    runs = {k: {"steps_per_s": v["steps"] / v["secs"],
+                "wire_share": v["wire"]["seconds"] / v["secs"],
+                "wire_calls": v["wire"]["calls"]}
+            for k, v in res["timing"].items()}
+    main = next(iter(runs.values()))
+    return {"rank": rank, **main, **res.get("profile", {}), "runs": runs}
+
+
+def shard_text(line):
+    return (f"{line['steps_per_s']:.2f} steps/s, exchange "
+            f"{line['wire_share']:.3f} of the wall ({line['wire_calls']} "
+            f"collectives)"
+            + (f", {line['device_us_per_step']:.1f} device us/step of "
+               f"{line['wall_us_per_step']:.1f} wall, "
+               f"{line['activities_per_step']:.1f} activities/step"
+               if "device_us_per_step" in line else "")
+            + "".join(f"; {k} {v['steps_per_s']:.2f} steps/s, exchange "
+                      f"{v['wire_share']:.3f}"
+                      for k, v in list(line["runs"].items())[1:]))
+
+
+def phase_sharded(torch, dev, seen, card, worlds=None):
+    """Phase 16: the single-process runs, then the gloo world (4 ranks
+    sharing cuda:0, when the machine has fewer than 4 cards) and the nccl
+    world (the largest of 1, 2, 4, 8 cards), each held against them;
+    their launches and new shapes go to phase 4.  ``worlds`` [(backend,
+    ranks)] overrides the two."""
+    from repro_torch.core import serdes
+    from repro_torch.core import transport as tp
+    from repro_torch.core.fabric import tree_map
+    one = tp.make_tenant_mesh(device=dev)
+    ref, times = {}, {}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for name, fn in SHARD_WORKLOADS:
+        t1 = time.perf_counter()
+        ref[name] = fn(torch, dev, one, {}) if name != "switch" \
+            else shard_switch_reference(torch, dev)
+        times[name] = time.perf_counter() - t1
+    ref["tok_word"] = serdes.HEADER_WORDS + 1
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    say(f"sharded: single-process runs in {ref_s:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()) + ")")
+    if worlds is None:
+        n = torch.cuda.device_count()
+        worlds = [("gloo", SHARD_GLOO)] if n < SHARD_GLOO else []
+        worlds.append(("nccl", max(x for x in (1, 2, 4, 8) if x <= n)))
+    known = {(k, sig) for k, d in seen.items() for sig in d}
+    report, paths = {"single_s": ref_s}, {}
+    for backend, world in worlds:
+        what = f"{backend}{world}"
+        res, secs = shard_world(torch, backend, world, known)
+        shard_check(torch, what, res, ref)
+        counts = {k: sum(r[w]["counts"].get(k, 0) for r in res
+                         for w, _ in SHARD_WORKLOADS) for k in KERNELS}
+        tally = {}
+        for r in res:
+            for w, _ in SHARD_WORKLOADS:
+                for key, c in r[w]["tally"].items():
+                    tally[key] = tally.get(key, 0) + c
+        for r in res:
+            for k in ("switch_step_fused", "ring_push_packed",
+                      "hash_bucket_tag", "kv_probe", "decode_attention"):
+                check(sum(r[w]["counts"].get(k, 0)
+                          for w, _ in SHARD_WORKLOADS) > 0,
+                      f"{what}: rank {r['rank']} never launched {k}")
+        for k, d_ in res[0].get("seen", {}).items():
+            for sig, v in d_.items():
+                seen.setdefault(k, {}).setdefault(sig, tree_map(
+                    lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                    else x, v))
+        paths[f"sharded_{what}"] = (counts, tally, None)
+        rep = {"secs": secs, "words": res[0]["switch"]["words"],
+               "launches": counts}
+        say(f"sharded {what} [{card}]: {world} ranks in {secs:.1f} s, "
+            f"equal to one process; wire words a rank and step full "
+            f"{res[0]['switch']['words']['full']}, compact "
+            f"{res[0]['switch']['words']['compact']}; launches {counts}")
+        for w, _ in SHARD_WORKLOADS:
+            rows = []
+            for r in res:
+                line = shard_line(r["rank"], r[w])
+                rows.append(line)
+                say(f"sharded {what} {w} rank {r['rank']} [{card}]: "
+                    + shard_text(line))
+            rep[w] = rows
+        report[what] = rep
+        del res
+    single = {}
+    for w, _ in SHARD_WORKLOADS:
+        if "timing" in ref[w]:
+            single[w] = shard_line(0, ref[w])
+            say(f"sharded one process {w} [{card}]: "
+                + shard_text(single[w]))
+    report["single"] = single
+    return report, paths
+
+
 def card_label():
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
@@ -4352,8 +5045,11 @@ def main():
                       for route, r in runs.items()}
     report["full"]["rate"] = rate
     say(f"phase 3: full-size routes equal ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     report["device_share"] = device_share(torch, runs)
     seen = capture_inputs(torch, runs, {})
+    say(f"phase 3: profiles and captured inputs "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     kvs = phase_kvs(torch, dev, seen)
@@ -4367,7 +5063,9 @@ def main():
                   for name, m in r["serve"].items()}}
         for route, r in kvs.items()}
     say(f"phase 5: KVS routes equal ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     report["kvs_device_share"] = kvs_share(torch, dev, kvs)
+    say(f"phase 5: profiles ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     report["lm"], lm_counts, lm_tally = phase_lm(torch, dev, seen)
@@ -4425,6 +5123,11 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
+    report["sharded"], shard_paths = phase_sharded(torch, dev, seen, card)
+    say(f"phase 16: the tenant axis on a mesh of ranks "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
     paths = {"fused": (runs["fused"]["counts"], runs["fused"]["tally"],
                        FULL_STEPS),
              "staged": (runs["staged"]["counts"], runs["staged"]["tally"],
@@ -4437,7 +5140,7 @@ def main():
              "kvs_tenants": (kt_counts, kt_tally, kt_steps),
              "lm_tenants": (lt_counts, lt_tally, LM_TENANT_STEPS),
              "serving": (sv_counts, sv_tally, sv_steps), **zoo_paths,
-             **moe_paths, **ssm_paths, **front_paths}
+             **moe_paths, **ssm_paths, **front_paths, **shard_paths}
     rows = phase_summary(torch, paths, seen)
     report["kernels"] = rows
     say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")

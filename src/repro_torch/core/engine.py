@@ -452,3 +452,151 @@ class TenantEngine:
         if self.stateful:
             return cst, sst, hstate, done, dvalid
         return cst, sst, done, dvalid
+
+
+# ---------------------------------------------------------------------------
+# The tenant axis on a mesh of ranks (paper §5.7's scale-out)
+# ---------------------------------------------------------------------------
+
+def shard_states(states, mesh, dim: int = 0):
+    """This rank's block of stacked states: every leaf whose ``dim`` has a
+    size that splits over the mesh gives its rank's contiguous block
+    [T/D, ...] (a copy on the mesh's device); other leaves (scalars, a
+    dim that does not split) stay whole, as the reference's
+    ``legalize_specs`` keeps them replicated.  The first leaf with a
+    ``dim`` gives the tenant count T, which must divide over the mesh
+    (the reference's ``ValueError``: whole NIC slots per rank).  The
+    inputs are left as they are.  ``dim=1`` splits staged tiles [K, T,
+    ...]."""
+    d, r = mesh.size, mesh.rank
+    first = next((x for x in tree_leaves(states) if x.dim() > dim), None)
+    if first is not None and first.shape[dim] % d:
+        raise ValueError(
+            f"n_tenants={first.shape[dim]} must divide over the {d}-device "
+            f"'{mesh.axis}' mesh axis (whole NIC slots per device)")
+
+    def block(x):
+        if x.dim() > dim and x.shape[dim] % d == 0:
+            n = x.shape[dim] // d
+            x = x.narrow(dim, r * n, n)
+        return x.to(mesh.device).clone()
+    return tree_map(block, states)
+
+
+def gather_states(local, mesh, dim: int = 0):
+    """Inverse of ``shard_states``: every rank's block concatenated in
+    rank order along ``dim`` (one ``all_gather`` a leaf); leaves with no
+    such dim are returned as they are."""
+    from repro_torch.core.transport import all_gather
+
+    def cat(x):
+        if mesh.size == 1 or x.dim() <= dim:
+            return x
+        g = all_gather(x, mesh)
+        return torch.cat(list(g.unbind(0)), dim=dim)
+    return tree_map(cat, local)
+
+
+def _global_run_until(step, mesh, cst, sst, carry, global_target,
+                      max_steps):
+    """Every local lane keeps stepping until the FLEET-WIDE completion
+    total — an ``all_reduce`` of the ranks' done counts, taken before
+    every step as the reference's ``psum`` predicate is — reaches
+    ``global_target``, or ``max_steps`` steps have run.  The predicate
+    is the same on every rank, so all ranks stop on the same step.
+    Returns (cst, sst, carry, done [T_local], steps)."""
+    from repro_torch.core.transport import all_reduce_sum
+    done = torch.zeros((cst.rr.shape[0],), dtype=I32, device=cst.rr.device)
+    steps = 0
+    while steps < max_steps and int(all_reduce_sum(
+            done.sum(dtype=I32), mesh)) < global_target:
+        cst, sst, carry, _, dvalid = step(cst, sst, carry)
+        done = done + _per_tenant_done(dvalid)
+        steps += 1
+    return cst, sst, carry, done, steps
+
+
+class ShardedTenantEngine(TenantEngine):
+    """``TenantEngine`` with the tenant axis on a mesh of ranks
+    (``transport.make_tenant_mesh``): each rank owns WHOLE NIC slots — a
+    contiguous block of T/D client/server pairs with their rings, FIFOs,
+    connection tables and counters on its device — and drives them with
+    the same step and loops ``TenantEngine`` runs (``_batched_run_steps``,
+    ``_batched_run_until``), on its block.  Loopback tenants never talk
+    across slots, so ``run_steps`` and ``run_until`` put no collective on
+    the path; ``run_until_global`` adds one ``all_reduce`` of the done
+    counts a step (the fleet-wide termination test).
+
+    The run methods take and return this rank's block: place stacked
+    states with ``shard_states`` (which raises the reference's
+    ``ValueError`` when T does not divide over the mesh) and collect them
+    with ``gather_states``.  On any mesh the gathered results equal
+    ``TenantEngine``'s on the whole stack.
+
+    In place on the card as ``TenantEngine``: on a ``use_pallas`` fabric
+    the run methods consume the states they are passed; clone a state
+    you reuse.
+    """
+
+    def __init__(self, client: DaggerFabric, server: DaggerFabric,
+                 handler: Callable, mesh=None, axis: str = "tenant",
+                 stateful: bool = False, loadgen=None,
+                 batched: bool = False):
+        super().__init__(client, server, handler, stateful=stateful,
+                         loadgen=loadgen, batched=batched)
+        if mesh is None:
+            from repro_torch.core.transport import make_tenant_mesh
+            mesh = make_tenant_mesh(axis=axis)
+        self.mesh = mesh
+
+    def _local_lanes(self, v, tl):
+        """A scalar, a [T_local] or a global [T] per-lane vector as this
+        rank's [T_local] block."""
+        v = torch.as_tensor(v).reshape(-1)
+        if self.mesh.size > 1 and v.numel() == tl * self.mesh.size:
+            v = v[self.mesh.rank * tl:(self.mesh.rank + 1) * tl]
+        return v
+
+    def run_until(self, cst: FabricState, sst: FabricState, target,
+                  max_steps, hstate=None, tel=None, gen=None):
+        """Per-tenant ``run_until`` on this rank's block: ``target`` and
+        ``max_steps`` are scalars, this block's [T/D] vectors or the whole
+        [T] vectors (this rank's slice is taken).  Returns as
+        ``TenantEngine.run_until``, per local lane."""
+        tl = cst.rr.shape[0]
+        return super().run_until(cst, sst, self._local_lanes(target, tl),
+                                 self._local_lanes(max_steps, tl),
+                                 hstate=hstate, tel=tel, gen=gen)
+
+    def run_until_global(self, cst: FabricState, sst: FabricState,
+                         global_target, max_steps, hstate=None, tel=None,
+                         gen=None):
+        """Global-completion sweep: every rank keeps stepping ALL its
+        lanes (no per-lane freezing) until the fleet-wide done total
+        reaches ``global_target`` or ``max_steps`` steps have run; all
+        ranks stop on the same step.
+
+        Returns ``(cst, sst, n_done [T/D], dev_steps [D])`` — the local
+        lanes' done counts and every rank's step count — with ``hstate``
+        inserted before ``n_done`` when stateful.  With ``tel`` the local
+        per-tenant Telemetry and the FLEET-WIDE histogram
+        (``telemetry.merge_hist(tel.hist, mesh)``, the same on every
+        rank) follow: ``(cst, sst, [hstate,] n_done, dev_steps, tel,
+        global_hist [n_bins])``; ``gen`` appends the LoadGenState last."""
+        from repro_torch.core.transport import all_gather
+        hstate = hstate if self.stateful else ()
+        step = self._wrapped(tel, gen)
+        cst, sst, carry, done, steps = _global_run_until(
+            step, self.mesh, cst, sst, self._carry(hstate, tel, gen),
+            int(global_target), int(max_steps))
+        dev_steps = all_gather(
+            torch.tensor(steps, dtype=I32, device=done.device), self.mesh)
+        rets = self._returns(cst, sst, carry, (done, dev_steps),
+                             tel is not None, gen is not None)
+        if tel is None:
+            return rets
+        ltel = rets[-2] if gen is not None else rets[-1]
+        ghist = tlm.merge_hist(ltel.hist, self.mesh)
+        if gen is not None:
+            return rets[:-1] + (ghist, rets[-1])
+        return rets + (ghist,)

@@ -118,12 +118,17 @@ def tick(tel: Telemetry) -> Telemetry:
     return Telemetry(tel.step + 1, tel.hist, tel.n_done, tel.sum_steps)
 
 
-def merge_hist(hist):
+def merge_hist(hist, mesh=None):
     """Collapse the leading lane axes of a histogram stack to one
-    [n_bins] total."""
+    [n_bins] total; with a ``transport.TenantMesh`` also sum it over the
+    mesh's ranks (one ``all_reduce``) — the fleet-wide histogram of
+    ``ShardedTenantEngine.run_until_global``, the same on every rank."""
     h = torch.as_tensor(hist)
     if h.dim() > 1:
         h = h.reshape(-1, h.shape[-1]).sum(0, dtype=h.dtype)
+    if mesh is not None:
+        from repro_torch.core.transport import all_reduce_sum
+        h = all_reduce_sum(h, mesh)
     return h
 
 

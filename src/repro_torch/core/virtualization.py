@@ -25,11 +25,12 @@ and step), as in the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, List, Optional
 
 import torch
 
-from repro_torch.core import serdes
+from repro_torch.core import monitor, serdes
 from repro_torch.core import telemetry as tlm
 from repro_torch.core.engine import lane_view, stack_states, unstack_states
 from repro_torch.core.fabric import (DaggerFabric, FabricState,
@@ -112,6 +113,54 @@ def _read_dest(conn, cid):
             torch.gather(conn.tag, 1, i) == cid)
 
 
+def _crossbar(fab, sts, all_slots, all_valid, all_dest, tier_ids):
+    """The L2 crossbar and the receive side on the plain or staged
+    stages: tier j of ``sts`` (global id ``tier_ids[j]``) takes its rows
+    of the candidate list, delivers and emits; then every tier drains its
+    RX rings.  Returns (sts', records [t, F*B, ...], valid [t, F*B])."""
+    tiers = []
+    for j, gid in enumerate(tier_ids):
+        st = fab.nic_deliver(lane_view(sts, j), all_slots,
+                             all_valid & (all_dest == gid))
+        tiers.append(fab.nic_sched_emit(st))
+    sts, recs, rvalid = fab.host_rx_drain_batch(stack_states(tiers),
+                                                fab.cfg.batch_size)
+    flat_r = {k: x.flatten(1, 2) for k, x in recs.items()}
+    return sts, flat_r, rvalid.reshape(len(tiers), -1)
+
+
+def _respond(fab, sts, flat_r, fv, handlers, tier_ids, tel, fused_tel, gen):
+    """The switch step's tail: tier j's handler (``handlers[tier_ids[j]]``)
+    runs on its drained rows, the responses go out in one batched TX
+    enqueue, and the telemetry is the fused kernel's (``fused_tel``) or
+    observed here.  Returns (sts', (records, valid)[, tel][, gen])."""
+    is_req = (flat_r["flags"] & serdes.FLAG_RESPONSE) == 0
+    resps, rvalids = [], []
+    for j, gid in enumerate(tier_ids):
+        h = handlers[gid] if handlers else None
+        out, ov = _dispatch(h, {k: x[j] for k, x in flat_r.items()},
+                            fv[j], is_req[j])
+        resps.append(out)
+        rvalids.append(ov)
+    resp = {k: torch.stack([r[k] for r in resps]) for k in resps[0]}
+    flow_of = torch.arange(fab.cfg.n_flows, dtype=I32, device=fv.device) \
+        .repeat_interleave(fab.cfg.batch_size)
+    sts, _ = fab.host_tx_enqueue_batch(sts, resp, flow_of,
+                                       torch.stack(rvalids))
+    out = (sts, (flat_r, fv))
+    if tel is not None:
+        if fused_tel is None:
+            # a drained RESPONSE completes an RPC this tier issued
+            tel = tlm.tick(tlm.observe(tel, flat_r["timestamp"],
+                                       fv & ~is_req))
+        else:
+            tel = fused_tel
+        out = out + (tel,)
+    if gen is not None:
+        out = out + (gen,)
+    return out
+
+
 class Switch:
     """Static L2 switch over N virtual NICs on one device."""
 
@@ -176,6 +225,7 @@ class Switch:
         if loadgen is not None:
             stacked, gen = loadgen.inject(stacked, gen)
 
+        ntel = None
         if fused:
             sts, flat_r, fv, ntel = fused_switch_front(fab, stacked, tel)
         else:
@@ -185,46 +235,126 @@ class Switch:
             flat = slots.reshape(t, -1, w)
             # read port 1: the destination NIC of each outgoing row
             dest, hit = _read_dest(sts.conn, flat[..., 0])
-            all_slots = flat.reshape(-1, w)
-            all_valid = (valid.reshape(t, -1) & hit).reshape(-1)
-            all_dest = dest.reshape(-1)
-            # the L2 crossbar: every tier takes its rows of all tiles
-            tiers = []
-            for i in range(t):
-                st = fab.nic_deliver(lane_view(sts, i), all_slots,
-                                     all_valid & (all_dest == i))
-                tiers.append(fab.nic_sched_emit(st))
-            sts, recs, rvalid = fab.host_rx_drain_batch(
-                stack_states(tiers), fab.cfg.batch_size)
-            flat_r = {k: x.flatten(1, 2) for k, x in recs.items()}
-            fv = rvalid.reshape(t, -1)
+            sts, flat_r, fv = _crossbar(
+                fab, sts, flat.reshape(-1, w),
+                (valid.reshape(t, -1) & hit).reshape(-1), dest.reshape(-1),
+                range(t))
+        return _respond(fab, sts, flat_r, fv, handlers, range(t), tel,
+                        ntel, gen)
 
-        is_req = (flat_r["flags"] & serdes.FLAG_RESPONSE) == 0
-        resps, rvalids = [], []
-        for i in range(t):
-            h = handlers[i] if handlers else None
-            out, ov = _dispatch(h, {k: x[i] for k, x in flat_r.items()},
-                                fv[i], is_req[i])
-            resps.append(out)
-            rvalids.append(ov)
-        resp = {k: torch.stack([r[k] for r in resps]) for k in resps[0]}
-        flow_of = torch.arange(fab.cfg.n_flows, dtype=I32,
-                               device=fv.device) \
-            .repeat_interleave(fab.cfg.batch_size)
-        sts, _ = fab.host_tx_enqueue_batch(sts, resp, flow_of,
-                                           torch.stack(rvalids))
-        out = (sts, (flat_r, fv))
-        if tel is not None:
-            if not fused:
-                # a drained RESPONSE completes an RPC this tier issued
-                tel = tlm.tick(tlm.observe(tel, flat_r["timestamp"],
-                                           fv & ~is_req))
-            else:
-                tel = ntel
-            out = out + (tel,)
-        if gen is not None:
-            out = out + (gen,)
-        return out
+    # ------------------------------------------------- sharded representation
+    def switch_step_sharded(self, stacked_local: FabricState,
+                            handlers: Optional[List[Callable]] = None,
+                            mesh=None, exchange: str = "full",
+                            bucket_cap: Optional[int] = None, tel=None,
+                            use_pallas: Optional[bool] = None,
+                            loadgen=None, gen=None):
+        """``switch_step_stacked`` on a mesh of ranks
+        (``transport.make_tenant_mesh``): this rank owns the contiguous
+        block of T/D whole tiers ``stacked_local`` (``engine.shard_states``
+        of the stacked state), runs fetch, deliver, emit and dispatch on
+        it, and the crossbar's rows between ranks ride the ToR hop — one
+        ``all_to_all_single`` of per-destination buckets.
+
+        Two exchange formats (``exchange``), as in the reference:
+
+        * ``"full"`` (the oracle) — every rank ships its whole fetched
+          tile to every rank with a per-destination valid mask, so each
+          rank sees the GLOBAL candidate list in tier order: the results
+          equal ``switch_step_stacked``'s on any mesh
+          (``transport.full_exchange_words`` a rank and step).
+        * ``"compact"`` — each bucket carries only the destined rows and
+          a count (``transport.exchange_compact``; ``bucket_cap`` rows a
+          bucket, default the whole local tile, which never overflows).
+          Delivered records are the same; only the RX-batch positions of
+          completions may differ (equal under
+          ``canonicalize_completions``).  Rows past a shrunken cap are
+          dropped ON THE WIRE and each source tier's monitor counts them
+          in ``mon["drops_exchange"]``.
+
+        ``handlers[i]`` belongs to GLOBAL tier i (tier j of this block is
+        ``rank * T/D + j``).  With ``use_pallas`` (default
+        ``cfg.use_pallas``) the back half — deliver, emit, drain,
+        telemetry — is one ext-route ``switch_step_fused`` launch over
+        the block's tiers, the candidates' destinations rebased to local
+        tier ids (rows for other ranks fall outside [0, T/D) and are not
+        this block's); otherwise the plain or staged stages run per tier.
+        ``tel`` and ``loadgen`` + ``gen`` are this block's, as in
+        ``switch_step_stacked``.  Returns (stacked_local', (records
+        [T/D, N, ...], valid [T/D, N])), then the Telemetry and the
+        LoadGenState when passed.  In place on the card as
+        ``switch_step_stacked``'s fused route.
+        """
+        from repro_torch.core import transport
+        if not self.homogeneous:
+            raise ValueError("sharded switch step needs homogeneous tiers")
+        if exchange not in ("full", "compact"):
+            raise ValueError(f"exchange must be 'full' or 'compact', "
+                             f"got {exchange!r}")
+        if (loadgen is None) != (gen is None):
+            raise ValueError("loadgen and gen must be passed together")
+        if mesh is None:
+            mesh = transport.make_tenant_mesh(device=stacked_local.rr.device)
+        fab = self.fabrics[0]
+        d, rank = mesh.size, mesh.rank
+        if self.n % d:
+            raise ValueError(f"n_tiers={self.n} must divide over the "
+                             f"{d}-device '{mesh.axis}' mesh axis")
+        tl = self.n // d
+        if stacked_local.rr.shape[0] != tl:
+            raise ValueError(f"this rank's block holds "
+                             f"{stacked_local.rr.shape[0]} tiers, not "
+                             f"n_tiers / {d} = {tl}")
+        fused = fab.cfg.use_pallas if use_pallas is None else use_pallas
+        sts = stacked_local
+        if loadgen is not None:
+            # open-loop injection, rank-local, before the fetch
+            sts, gen = loadgen.inject(sts, gen)
+        sts, slots, valid = fab.nic_fetch_batch(sts)
+        w = slots.shape[-1]
+        flat = slots.reshape(tl, -1, w)
+        dest, hit = _read_dest(sts.conn, flat[..., 0])
+        loc_slots = flat.reshape(-1, w)
+        loc_valid = (valid.reshape(tl, -1) & hit).reshape(-1)
+        loc_dest = dest.reshape(-1)
+        nb = loc_slots.shape[0]
+        if exchange == "compact":
+            cap = nb if bucket_cap is None else int(bucket_cap)
+            # fabriclint: allow(FL005) a rank's own block: no shard_map in the port
+            rows, all_valid, _, shipped = transport.exchange_compact(
+                {"slots": loc_slots, "dest": loc_dest}, loc_valid,
+                torch.div(loc_dest, tl, rounding_mode="floor"), mesh, cap)
+            all_slots, all_dest = rows["slots"], rows["dest"]
+            # bucket overflow loses rows on the wire (no leak-back retry):
+            # each source tier's monitor counts them
+            tier_drops = (loc_valid & ~shipped).reshape(tl, -1).sum(
+                1, dtype=I32)
+            sts = dataclasses.replace(sts, mon=monitor.bump(
+                sts.mon, drops_exchange=tier_drops))
+        else:
+            owner = torch.arange(d, dtype=I32, device=loc_dest.device)
+            mask = torch.div(loc_dest, tl, rounding_mode="floor")[None, :] \
+                == owner[:, None]                            # [D, nb]
+            # fabriclint: allow(FL005) a rank's own block: no shard_map in the port
+            g = transport.all_to_all_tiles({
+                "slots": loc_slots[None].expand(d, nb, w).reshape(d * nb, w),
+                "valid": (loc_valid[None, :] & mask).reshape(d * nb),
+                "dest": loc_dest[None].expand(d, nb).reshape(d * nb),
+            }, mesh)
+            # block j of the exchange is rank j's tile: concatenated, the
+            # global candidate list in tier order
+            all_slots, all_valid, all_dest = g["slots"], g["valid"], g["dest"]
+        gids = range(rank * tl, (rank + 1) * tl)
+        ntel = None
+        if fused:
+            sts, flat_r, fv, ntel = fused_switch_front(
+                fab, sts, tel, ext=(all_slots, all_valid.to(I32),
+                                    all_dest - rank * tl))
+        else:
+            sts, flat_r, fv = _crossbar(fab, sts, all_slots, all_valid,
+                                        all_dest, gids)
+        return _respond(fab, sts, flat_r, fv, handlers, gids, tel,
+                        ntel, gen)
 
     # --------------------------------------------------------- list API
     def switch_step(self, states: List[FabricState],

@@ -215,6 +215,27 @@ class DeviceKVS:
         return TenantEngine(client, server, self._tenant_record_handler(),
                             stateful=True, batched=True)
 
+    def make_sharded_tenant_engine(self, client, server, mesh=None,
+                                   axis: str = "tenant"):
+        """The tenant engine on a mesh of ranks: each rank owns whole NIC
+        slots — client/server pairs AND their stores — and runs the
+        folded GET/SET handler of ``make_tenant_engine`` on its block of
+        T/D stores (MICA's core partitioning lifted to the mesh).  Place
+        the stacked states with ``engine.shard_states((csts, ssts, dbs),
+        mesh)``;
+        gathered, the results equal ``make_tenant_engine``'s on any mesh.
+
+        ``engine.run_until_global(csts, ssts, global_target, max_steps,
+        hstate=dbs)`` runs until the whole fleet has served
+        ``global_target`` GET/SETs and returns ``(csts, ssts, dbs, n_done
+        [T/D], dev_steps [D])``; with ``tel=telemetry.create_batch(T/D)``
+        also the local Telemetry and the fleet-wide histogram.
+        """
+        from repro_torch.core.engine import ShardedTenantEngine
+        return ShardedTenantEngine(client, server,
+                                   self._tenant_record_handler(), mesh=mesh,
+                                   axis=axis, stateful=True, batched=True)
+
     def _tenant_record_handler(self):
         kw, vw, nb = self.kw, self.vw, self.nb
 

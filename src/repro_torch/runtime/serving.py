@@ -233,6 +233,81 @@ class ServingEngine:
         return _run_tiles(step, _with_telemetry(step))
 
     # ------------------------------------------------------------------
+    def shard_tenant_states(self, fst, cache, sess, mesh):
+        """This rank's block of stacked (fabric, cache, sessions) triples
+        (``engine.shard_states``): T/D whole tenants; T must divide over
+        the mesh."""
+        from repro_torch.core.engine import shard_states
+        return shard_states((fst, cache, sess), mesh)
+
+    def _mesh(self, mesh, axis):
+        if mesh is None:
+            from repro_torch.core.transport import make_tenant_mesh
+            mesh = make_tenant_mesh(axis=axis, device=self.device)
+        return mesh
+
+    def make_sharded_tenant_run_steps(self, mesh=None, axis: str = "tenant"):
+        """``make_tenant_run_steps`` with the tenant axis on a mesh of
+        ranks: ``run_steps(fst, cache, sess, in_slots, in_valid,
+        tel=None)`` takes this rank's block of states
+        (``shard_tenant_states``) and either this rank's tiles [K, T/D,
+        N, W] or the whole [K, T, N, W] (its block is taken), and returns
+        this block's results.  Each rank holds the whole model (the
+        weights replicated); no collective runs inside."""
+        mesh = self._mesh(mesh, axis)
+        run = self.make_tenant_run_steps()
+
+        def run_steps(fst, cache, sess, in_slots, in_valid, tel=None):
+            in_slots, in_valid = _local_tiles(mesh, sess, in_slots,
+                                              in_valid)
+            return run(fst, cache, sess, in_slots, in_valid, tel=tel)
+
+        return run_steps
+
+    def make_sharded_tenant_run_until_global(self, mesh=None,
+                                             axis: str = "tenant"):
+        """Global-completion serving sweep on the mesh: every rank runs
+        serve steps on its block, consuming its staged ingress tiles in
+        order, until the FLEET-WIDE served total (an ``all_reduce`` before
+        every step) reaches ``global_target`` or ``max_steps`` (clipped to
+        K) steps have run.  ``run(fst, cache, sess, in_slots, in_valid,
+        global_target, max_steps)`` returns ``(fst, cache, sess, served
+        [T/D], dev_steps [D], out_slots [K, T/D, F*B, W], out_valid [K,
+        T/D, F*B])``; egress tiles of steps the loop never reached are
+        zero and invalid, and ``dev_steps`` agrees across ranks."""
+        from repro_torch.core.transport import all_gather, all_reduce_sum
+        mesh = self._mesh(mesh, axis)
+        step = self._make_tenant_serve_step()
+        fab = self.fabric
+        rows = fab.cfg.n_flows * fab.cfg.batch_size
+
+        def run(fst, cache, sess, in_slots, in_valid, global_target,
+                max_steps):
+            in_slots, in_valid = _local_tiles(mesh, sess, in_slots,
+                                              in_valid)
+            k, tl = in_slots.shape[0], in_slots.shape[1]
+            dev = in_slots.device
+            max_steps = min(int(max_steps), k)
+            outs = torch.zeros((k, tl, rows, fab.slot_words), dtype=I32,
+                               device=dev)
+            outv = torch.zeros((k, tl, rows), dtype=torch.bool, device=dev)
+            served = torch.zeros((tl,), dtype=I32, device=dev)
+            steps = 0
+            while steps < max_steps and int(all_reduce_sum(
+                    served.sum(dtype=I32), mesh)) < int(global_target):
+                fst, cache, sess, n, out_s, out_v = step(
+                    fst, cache, sess, in_slots[steps], in_valid[steps])
+                outs[steps] = out_s
+                outv[steps] = out_v
+                served = served + n
+                steps += 1
+            dev_steps = all_gather(
+                torch.tensor(steps, dtype=I32, device=dev), mesh)
+            return fst, cache, sess, served, dev_steps, outs, outv
+
+        return run
+
+    # ------------------------------------------------------------------
     def prefill_sessions(self, cache, sess: SessionState, prompts,
                          session_ids):
         """Batch-prefill ``prompts`` [Nslots, S] into fresh sessions:
@@ -268,6 +343,21 @@ def _with_telemetry(step):
         return fst, cache, sess, tel, served, out_s, out_v
 
     return tstep
+
+
+def _local_tiles(mesh, sess, in_slots, in_valid):
+    """Staged tiles as this rank's block [K, T/D, ...]: tiles of the
+    block's T/D tenants pass as they are, the whole [K, T, ...] is cut to
+    the rank's block, any other tenant count raises."""
+    tl, t = sess.session_id.shape[0], in_slots.shape[1]
+    if t == tl:
+        return in_slots, in_valid
+    if t != tl * mesh.size:
+        raise ValueError(
+            f"n_tenants={t} must divide over the {mesh.size}-device "
+            f"'{mesh.axis}' mesh axis, {tl} tenants a rank")
+    return (in_slots.narrow(1, mesh.rank * tl, tl),
+            in_valid.narrow(1, mesh.rank * tl, tl))
 
 
 def _run_tiles(step, tstep):

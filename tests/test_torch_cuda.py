@@ -1128,3 +1128,105 @@ def test_frontend_model_kernel_route_matches_cpu(cuda, arch):
         got, gc = card.prefill(tok[:, :6].to(cuda), card.cache_init(2, 24))
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
         assert not any(c[n].any() for c in gc for n in ("xk", "xv"))
+
+
+# ------------------------------------------------- the tenant axis on ranks
+def _plain_switch_steps():
+    """The fan-out switch of ``torch_sharded_ranks`` on the CPU plain
+    route, stacked: per step (state, canonical completions)."""
+    import torch_sharded_ranks as R
+    from repro_torch import interop
+    from repro_torch.config import FabricConfig
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.virtualization import (Switch,
+                                                 canonicalize_completions)
+    sw = Switch([DaggerFabric(FabricConfig(**R.SW_CFG))] * R.T)
+    st = interop.fabric_state_from_numpy(R.switch_start("fanout"), "cpu")
+    out = []
+    for _ in range(R.SW_STEPS):
+        st, (recs, valid) = sw.switch_step_stacked(st, R.switch_handlers())
+        out.append((st,) + canonicalize_completions(recs, valid))
+    return out
+
+
+def test_sharded_engine_and_switch_one_nccl_rank(cuda, tmp_path):
+    """An in-process nccl world of one rank: ``ShardedTenantEngine``
+    (``run_steps``, ``run_until_global`` with telemetry) and
+    ``switch_step_sharded`` (both exchanges) on the kernel route, their
+    ``all_reduce`` and exchange through NCCL, equal to the CPU plain
+    route bit for bit."""
+    import torch.distributed as dist
+
+    import torch_sharded_ranks as R
+    from repro_torch import interop
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core import transport as tp
+    from repro_torch.core.engine import (ShardedTenantEngine, TenantEngine,
+                                         shard_states)
+    from repro_torch.core.fabric import DaggerFabric
+
+    start = R.loop_start(R.LOADS)
+    plain = DaggerFabric(FabricConfig(**R.LOOP_CFG))
+    cpu = tuple(interop.fabric_state_from_numpy(x, "cpu") for x in start)
+    want = TenantEngine(plain, plain, R.echo).run_steps(*cpu, 5)
+    want_g = ShardedTenantEngine(
+        plain, plain, R.echo, mesh=tp.make_tenant_mesh(device="cpu")) \
+        .run_until_global(*want[:2], 20, 16,
+                          tel=tlm.create_batch(R.T, device="cpu"))
+    want_sw = {ex: _plain_switch_steps() for ex in ("full", "compact")}
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = tp.make_tenant_mesh(device=cuda)
+        assert mesh.group is not None and mesh.size == 1
+        fab = DaggerFabric(FabricConfig(**R.LOOP_CFG, use_pallas=True))
+        eng = ShardedTenantEngine(fab, fab, R.echo, mesh=mesh)
+        st = shard_states(tuple(interop.fabric_state_from_numpy(x, cuda)
+                                for x in start), mesh)
+        before = ops.launch_counts()["switch_step_fused"]
+        got = eng.run_steps(*st, 5)
+        snap = R.flat(got)
+        got_g = eng.run_until_global(*got[:2], 20, 16,
+                                     tel=tlm.create_batch(R.T, device=cuda))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["switch_step_fused"] > before
+        got_sw = {ex: R.switch_steps(mesh, cuda, ex)
+                  for ex in ("full", "compact")}
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for g, w in ((snap, R.flat(want)), (R.flat(got_g), R.flat(want_g)),
+                 (R.flat(got_sw), R.flat(want_sw))):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert g[k].dtype == w[k].dtype, k
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+def test_sharded_switch_two_spawned_ranks(cuda, tmp_path):
+    """Two spawned ranks (on a one-card machine gloo ranks sharing the
+    card, CUDA tensors passed to gloo as they are): the sharded
+    switch on the kernel route, full and compacted, gathered, equals the
+    CPU plain stacked switch; the all-to-all of int32 and bool leaves is
+    the block transpose."""
+    import torch_sharded_ranks as R
+    from repro_torch.launch import ranks
+
+    ranks.spawn(R.card_exchange, 2, args=(str(tmp_path),),
+                store_dir=str(tmp_path), threads=1)
+    got = dict(np.load(tmp_path / "card.npz"))
+    want = _plain_switch_steps()
+    for ex in ("full", "compact"):
+        w = {}
+        for k, res in enumerate(want):
+            w.update(R.flat(res, f"{ex}/{k}"))
+        for key, v in w.items():
+            assert got[key].dtype == v.dtype, key
+            np.testing.assert_array_equal(got[key], v, err_msg=key)
+    # rank r ends with block r of every rank's tile, in rank order
+    src = [np.arange(8, dtype=np.int32) + 100 * x for x in range(2)]
+    bits = [np.arange(8) % 3 == 0] * 2
+    for key, tiles in (("a", src), ("b", bits)):
+        np.testing.assert_array_equal(got[f"a2a/{key}"], np.concatenate(
+            [tiles[x][4 * r:4 * r + 4] for r in range(2) for x in range(2)]))
