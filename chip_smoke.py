@@ -39,7 +39,8 @@ exit, no result line) on any mismatch:
    head, hd 256), nemotron-4-15b (48 on 8) and phi3-medium-14b (40 on
    10) over 32 slots of 1,024 rows, phi3.5-moe-42b's (32 on 8, hd 128;
    jamba-v0.1-52b's too), internvl2-2b's (16 on 8, hd 128) and
-   seamless-m4t-medium's (16 on 16, hd 64) over 8 and 32 slots, within
+   seamless-m4t-medium's (16 on 16, hd 64) over 8 and 32 slots, a rank's
+   share of Qwen2-1.5B on phase 17's grid (64 slots, 6 on 1), within
    the stated tolerance
    (``DA_TOL``); and at the shapes
    of phases 7 and 8: the switch step's fetch route over the flight
@@ -235,15 +236,34 @@ exit, no result line) on any mismatch:
    activities a step of two profiled steps (the single-process runs
    print steps/s and the collectives' share only); the ranks' launches
    and their inputs at new shapes go to phase 4;
+17. the model axis on a grid of ranks: an unprofiled one-process
+   ``make_tenant_run_steps`` of phase 10's 4 tenants (phase 6's pool,
+   Qwen2-1.5B at full width and depth in bf16, seeds 0-3) for
+   ``TP_STEPS`` steps, then ``DecodeEngine.make_sharded_run_steps`` on a
+   (2, 2) grid of 4 gloo ranks sharing cuda:0 (when the machine has
+   fewer than 4 cards: 2 tenants, 6 of 12 query heads, 1 of 2 kv heads,
+   half the FFN and vocabulary a rank, the model group's sums and
+   gather on CUDA tensors) and on an nccl grid of the machine's cards
+   (1 x 1 on one card, in this process): every int32 part but the token
+   words, gathered over each rank's tenant group, equal to the one-process
+   run, the launches a rank equal to its (28 ``decode_attention`` a
+   step); one decode step from each rank's end state, TP against the
+   whole model on the kv heads gathered over the model group, within
+   ``LOGIT_TOL`` of the largest logit, and the same at
+   ``TP_F32_LAYERS`` layers in float32 after ``TP_F32_STEPS`` steps
+   within ``F32_TOL``; per rank it prints steps/s, the model and tenant
+   groups' collective share of the wall, and the device and wall time,
+   busy share and activities a step of two profiled steps; the ranks'
+   launches and inputs at new shapes go to phase 4;
 4. kernel summary (run last): one JSON line with each kernel's launches
-   on the main paths (phases 3, 5-16) and, at the shape with the most
+   on the main paths (phases 3, 5-17) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
    version's, its bound and, for decode attention, the time of
    ``F.scaled_dot_product_attention`` on the same inputs.  Every kernel
    is timed at every shape its main paths give it (``by_shape`` in the
    details: launches by path, ms, call ms, bound, device activities a
    call), on inputs captured at that shape in one more step of phases
-   3 and 5-16; the launches by shape are the ``ops`` wrappers' own
+   3 and 5-17; the launches by shape are the ``ops`` wrappers' own
    counts (``ops.launch_shapes``) from the main-path runs.  The switch
    step's graph restores its captured state before every call, and its
    time is that graph's less a graph of the restores.  Four kernels run
@@ -269,6 +289,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -431,6 +452,24 @@ SHARD_SERVE_TILES = 8               # phase 11's first 8 tiles
 SHARD_SERVE_TARGET = 6 * 8 * 4
 SHARD_PROFILE_STEPS = 2
 SHARD_TIMEOUT_S = 300
+# phase 17: the model axis — tensor-parallel decode of phase 10's 4
+# tenants (phase 6's pool and traffic, seeds 0-3) on a (2, 2) grid of 4
+# gloo ranks sharing cuda:0 (when the machine has fewer than 4 cards: 2
+# tenants, 6 of 12 query heads, 1 of 2 kv heads, 4,480 of d_ff 8,960 and
+# 75,968 of vocab 151,936 a rank) and on an nccl grid of the machine's
+# cards (1 x 1 on one card), for the reference test's ``TP_STEPS``; one
+# decode step's logits from a rank's end state, TP against one process,
+# in bf16 and, at ``TP_F32_LAYERS`` of the 28 layers after
+# ``TP_F32_STEPS`` steps, in float32
+TP_GRID = (2, 2)
+TP_STEPS = 48
+TP_F32_LAYERS = 4
+TP_F32_STEPS = 8
+# float32 logits, TP against one process: the model-axis sums add the
+# partial products in another order (tests/test_archs.py's tolerance),
+# relative to the largest logit
+F32_TOL = 2e-4
+TP_PROFILE_STEPS = 2
 
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
@@ -1076,6 +1115,11 @@ def phase_kernels(torch, dev):
         for b_ in (ZOO_SLOTS, LM_POOL["n_slots"]):
             shapes.append((b_, fc.n_heads, fc.n_kv_heads,
                            fc.resolved_head_dim, ZOO_ROWS))
+    # phase 17: a rank of the (2, 2) grid — 2 tenants' pools as one of 64
+    # slots, 6 of Qwen2-1.5B's 12 query heads on 1 of its 2 kv heads
+    shapes.append((LM_TENANTS // TP_GRID[0] * LM_POOL["n_slots"],
+                   lm.n_heads // TP_GRID[1], lm.n_kv_heads // TP_GRID[1],
+                   lm.resolved_head_dim, LM_POOL["max_seq"]))
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         for b_, nq, nkv, hd, s_, *zero in shapes:
@@ -4765,6 +4809,316 @@ def phase_sharded(torch, dev, seen, card, worlds=None):
     return report, paths
 
 
+# --------------------------------------------------------------------------
+# phase 17: the model axis on a grid of ranks
+# --------------------------------------------------------------------------
+
+def tp_engine(torch, dev, dtype):
+    """Phase 10's kernel-route decode engine (Qwen2-1.5B, seeded weights,
+    phase 6's fabric, pool and bins): in bf16 at full depth, or in float32
+    at ``TP_F32_LAYERS`` layers."""
+    from repro_torch.apps.lm_decode import build_engine
+    from repro_torch.core import loadgen as lg
+    from repro_torch.runtime.decode import default_fabric_config
+    cfg = get_lm_config()
+    if dtype == "f32":
+        cfg = cfg.replace(n_layers=TP_F32_LAYERS, param_dtype="float32",
+                          compute_dtype="float32")
+    return build_engine(
+        cfg=cfg, fabric_cfg=default_fabric_config(n_flows=LM_FLOWS,
+                                                  use_pallas=True),
+        mode=lg.MODE_POISSON, seed=0, use_pallas=True, n_bins=LM_BINS,
+        device=dev, **LM_POOL)
+
+
+def tp_start(eng):
+    """Phase 10's start: 4 tenants at ``LM_RATE``, seeds 0-3."""
+    return eng.init_states_batch([LM_RATE] * LM_TENANTS,
+                                 seeds=list(range(LM_TENANTS)))
+
+
+def tp_ints(torch, st, comp, valid, slot_words):
+    """Every int32 part of a decode run but its token words, on the CPU:
+    the slots with ``tok`` zeroed, telemetry, generator and fabric states
+    and the completion tiles with the token word of every slot-wide
+    buffer zeroed (tokens are compared only within one batch shape)."""
+    from repro_torch.core import serdes
+    from repro_torch.core.fabric import tree_map
+    tok = serdes.HEADER_WORDS + 1
+
+    def mask(x):
+        x = x.cpu()
+        if x.dim() >= 2 and x.shape[-1] == slot_words:
+            x = x.clone()
+            x[..., tok] = 0
+        return x
+    slots = dataclasses.replace(st.slots, tok=torch.zeros_like(st.slots.tok))
+    return tree_map(mask, (st.cst, st.sst, st.gst, slots, st.ttft, st.itl,
+                           comp, valid))
+
+
+def tp_logit_gap(torch, eng, run, grid, st):
+    """One decode step from ``st`` (a rank's tenants and kv heads): the
+    TP model's logits against the engine's whole model on the cache's kv
+    heads gathered over the model mesh; max |diff| over the largest
+    logit.  Only the rows the step reads (up to the largest position)
+    are gathered; the rest of the whole cache is zeros, never read."""
+    from repro_torch.core import transport as tp
+    from repro_torch.runtime.decode import _fold_cache
+    t = st.slots.tok.shape[0]
+    tok, pos = st.slots.tok.reshape(-1, 1), st.slots.pos.reshape(-1)
+    rows = int(pos.max()) + 1
+
+    def heads(x):
+        if grid.model.size == 1:
+            return x.clone()
+        part = x[:, :, :rows].contiguous()
+        got = torch.cat(tp.all_gather(part, grid.model).unbind(0), dim=-2)
+        out = x.new_zeros(x.shape[:3] + got.shape[3:])
+        out[:, :, :rows] = got
+        return out
+    whole = [{k: heads(x) for k, x in c.items()} for c in st.cache]
+    one, _ = eng.model.decode_step(_fold_cache(whole), tok, pos, groups=t)
+    del whole
+    got, _ = run.model.decode_step(_fold_cache(fresh(torch, st.cache)), tok,
+                                   pos, groups=t)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()) and got.shape == one.shape,
+          f"tp: TP logits {tuple(got.shape)} not finite or not "
+          f"{tuple(one.shape)}")
+    return float((got - one).abs().max() / one.abs().max())
+
+
+def tp_results(rank, world, backend, known, shape):
+    """One rank of phase 17 in an initialized process group: the grid
+    ``shape``, its block of the 4 tenants with TP over its model group,
+    in bf16 (``TP_STEPS``) and float32 (``TP_F32_STEPS``): every int32
+    part but the token words gathered over its tenant group, launches,
+    timings and the collectives' host time, the logit gap, a profile of
+    the bf16 run; rank 0 its inputs at shapes ``known`` does not hold,
+    on the CPU."""
+    import torch
+    from repro_torch.core import transport as tp
+    from repro_torch.core.engine import gather_states, shard_states
+    from repro_torch.core.fabric import tree_map
+    from repro_torch.kernels import _build, ops
+    from repro_torch.runtime.decode import _run_loop
+    _build.library()
+    dev = rank_device(torch)
+    grid = tp.make_grid_mesh(*shape, device=dev)
+    check(grid.tenant.size * grid.model.size == world,
+          f"rank {rank}: a {grid.shape} grid in a world of {world}")
+    # the first collectives set the groups up: before any timed run
+    one = torch.ones((1,), dtype=torch.int32, device=dev)
+    for mesh in (grid.tenant, grid.model):
+        tp.all_gather(tp.all_reduce_sum(one, mesh), mesh)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "coords": grid.coords,
+           "host": {"threads": torch.get_num_threads(),
+                    "cpus": len(os.sched_getaffinity(0))}}
+    seen = {}
+    for dtype, steps in (("bf16", TP_STEPS), ("f32", TP_F32_STEPS)):
+        t0 = time.perf_counter()
+        eng = tp_engine(torch, dev, dtype)
+        st = shard_states(tp_start(eng), grid.tenant)
+        torch.cuda.synchronize()
+        res = {"engine_s": time.perf_counter() - t0, "steps": steps}
+        t0 = time.perf_counter()
+        run = eng.make_sharded_run_steps(grid, steps)
+        torch.cuda.synchronize()
+        res["make_s"] = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        for mesh in (grid.tenant, grid.model):
+            mesh.wire.update(seconds=0.0, calls=0)
+        t0 = time.perf_counter()
+        st, (comp, valid) = run(st)
+        torch.cuda.synchronize()
+        res.update(secs=time.perf_counter() - t0,
+                   wire_model=dict(grid.model.wire),
+                   wire_tenant=dict(grid.tenant.wire),
+                   counts=ops.launch_counts(), tally=ops.launch_shapes())
+        t0 = time.perf_counter()
+        res["logit_gap"] = tp_logit_gap(torch, eng, run, grid, st)
+        res["gap_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if dtype == "bf16":
+            whole = gather_states(dataclasses.replace(st, cache=[]),
+                                  grid.tenant)
+            res["ints"] = tp_ints(
+                torch, whole, *gather_states((comp, valid), grid.tenant, 1),
+                eng.client.slot_words)
+            prof = _run_loop(eng.make_tenant_decode_step(run.model),
+                             TP_PROFILE_STEPS)
+            state = fresh(torch, st)
+            res["profile"] = profile_steps(
+                torch, lambda: prof(state), TP_PROFILE_STEPS,
+                res["secs"] / steps * 1e6)
+            with recording(seen):
+                _run_loop(eng.make_tenant_decode_step(run.model), 1)(
+                    fresh(torch, st))
+            torch.cuda.synchronize()
+        res["after_s"] = time.perf_counter() - t0
+        out[dtype] = res
+        del eng, run, st, comp, valid
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["seen"] = {
+            k: {sig: tree_map(lambda x: x.cpu() if isinstance(
+                x, torch.Tensor) else x, v)
+                for sig, v in d.items() if (k, sig) not in known}
+            for k, d in seen.items()}
+    return out
+
+
+def tp_rank(rank, world, backend, out_dir, known, shape):
+    """One spawned rank of phase 17: ``tp_results`` written to
+    ``out_dir/rank<r>.pt``."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.save(tp_results(rank, world, backend, known, shape),
+               Path(out_dir) / f"rank{rank}.pt")
+
+
+def tp_world(torch, backend, world, shape, known):
+    """Spawn ``world`` ranks of ``tp_rank`` on the grid ``shape`` and load
+    their results; a world of one rank runs in this process (its own
+    process group, torn down after)."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch import ranks
+    out_dir = ROOT / "build" / "phase17" / f"{backend}{world}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    if world == 1:
+        store = out_dir / "store"
+        store.unlink(missing_ok=True)
+        dist.init_process_group(
+            backend, init_method=f"file://{store}", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        try:
+            res = [tp_results(0, 1, backend, known, shape)]
+        finally:
+            dist.destroy_process_group()
+        return res, time.perf_counter() - t0
+    ranks.spawn(tp_rank, world, args=(backend, str(out_dir), known, shape),
+                store_dir=str(out_dir), timeout_s=SHARD_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(world)], secs
+
+
+def tp_line(r):
+    """A rank's numbers: steps/s of its bf16 run, each group's collective
+    host time over the wall, the profile, the logit gaps."""
+    b = r["bf16"]
+    return {"rank": r["rank"], "coords": r["coords"], "host": r["host"],
+            "steps_per_s": b["steps"] / b["secs"],
+            "model_wire_share": b["wire_model"]["seconds"] / b["secs"],
+            "model_wire_calls": b["wire_model"]["calls"],
+            "tenant_wire_share": b["wire_tenant"]["seconds"] / b["secs"],
+            "logit_gap_bf16": b["logit_gap"],
+            "seconds": {d: {k: r[d][k] for k in ("engine_s", "make_s",
+                                                  "secs", "gap_s",
+                                                  "after_s")}
+                        for d in ("bf16", "f32")},
+            "logit_gap_f32": r["f32"]["logit_gap"], **b["profile"]}
+
+
+def phase_tp(torch, dev, seen, card, worlds=None):
+    """Phase 17: an unprofiled one-process ``make_tenant_run_steps`` of
+    phase 10's 4 tenants for ``TP_STEPS``, then ``make_sharded_run_steps``
+    on the gloo grid (4 ranks sharing cuda:0, when the machine has fewer
+    than 4 cards) and the nccl grid (the largest of 1, 2, 4, 8 cards),
+    each held against it; their launches and new shapes go to phase 4.
+    ``worlds`` [(backend, ranks, grid shape)] overrides the two."""
+    from repro_torch.core.fabric import tree_map
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = tp_engine(torch, dev, "bf16")
+    n_layers = eng.cfg.n_layers
+    st = tp_start(eng)
+    ops.reset_launch_counts()
+    st, (comp, valid) = eng.make_tenant_run_steps(TP_STEPS)(st)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref = tp_ints(torch, st, comp, valid, eng.client.slot_words)
+    ref_counts = ops.launch_counts()
+    del eng, st, comp, valid
+    torch.cuda.empty_cache()
+    say(f"tp: one process, {LM_TENANTS} tenants, {TP_STEPS} steps in "
+        f"{ref_s:.1f} s (engine built and run)")
+    if worlds is None:
+        n = torch.cuda.device_count()
+        worlds = [("gloo", TP_GRID[0] * TP_GRID[1], TP_GRID)] \
+            if n < TP_GRID[0] * TP_GRID[1] else []
+        d = max(x for x in (1, 2, 4, 8) if x <= n)
+        m = max(x for x in range(1, int(d ** 0.5) + 1) if d % x == 0)
+        worlds.append(("nccl", d, (d // m, m)))
+    known = {(k, sig) for k, d_ in seen.items() for sig in d_}
+    report, paths = {"single_s": ref_s}, {}
+    for backend, world, shape in worlds:
+        what = f"{backend}{world}"
+        res, secs = tp_world(torch, backend, world, shape, known)
+        for r in res:
+            b = r["bf16"]
+            tree_equal(torch, b["ints"], ref,
+                       f"tp {what} rank {r['rank']} against one process")
+            check(b["logit_gap"] <= LOGIT_TOL
+                  and r["f32"]["logit_gap"] <= F32_TOL,
+                  f"tp {what} rank {r['rank']}: logits {b['logit_gap']:.3g}"
+                  f" (bf16, tolerance {LOGIT_TOL}) and "
+                  f"{r['f32']['logit_gap']:.3g} (float32, {F32_TOL}) of the"
+                  f" largest from one process's")
+            c = b["counts"]
+            check(c["decode_attention"] == n_layers * TP_STEPS
+                  and c["switch_step_fused"] > 0
+                  and c["ring_push_packed"] > 0
+                  and all(c.get(k, 0) == ref_counts.get(k, 0)
+                          for k in KERNELS),
+                  f"tp {what} rank {r['rank']}: launches {c}, one process "
+                  f"{ref_counts}")
+        counts = {k: sum(r["bf16"]["counts"].get(k, 0) for r in res)
+                  for k in KERNELS}
+        tally = {}
+        for r in res:
+            for key, c in r["bf16"]["tally"].items():
+                tally[key] = tally.get(key, 0) + c
+        for k, d_ in res[0].get("seen", {}).items():
+            for sig, v in d_.items():
+                seen.setdefault(k, {}).setdefault(sig, tree_map(
+                    lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                    else x, v))
+        paths[f"tp_{what}"] = (counts, tally, None)
+        rows = [tp_line(r) for r in res]
+        say(f"tp {what} [{card}]: grid {shape[0]}x{shape[1]}, {world} ranks "
+            f"in {secs:.1f} s; every int32 part but the token words equal "
+            f"to one process; launches {counts}")
+        for line in rows:
+            say(f"tp {what} rank {line['rank']} {line['coords']} [{card}]: "
+                f"{line['host']['threads']} threads of "
+                f"{line['host']['cpus']} cpus, "
+                f"{line['steps_per_s']:.2f} steps/s, model group "
+                f"{line['model_wire_share']:.3f} of the wall "
+                f"({line['model_wire_calls']} collectives), tenant group "
+                f"{line['tenant_wire_share']:.3f}; "
+                f"{line['device_us_per_step']:.1f} device us/step of "
+                f"{line['wall_us_per_step']:.1f} wall, busy "
+                f"{line['busy_share']:.3f}, "
+                f"{line['activities_per_step']:.1f} activities/step; "
+                f"logits {line['logit_gap_bf16']:.3g} (bf16), "
+                f"{line['logit_gap_f32']:.3g} (float32) of the largest; "
+                f"engine, TP model, run, logits, profile s: "
+                + "; ".join(f"{d} " + "/".join(
+                    f"{v:.1f}" for v in line["seconds"][d].values())
+                    for d in ("bf16", "f32")))
+        report[what] = {"secs": secs, "shape": list(shape),
+                        "launches": counts, "ranks": rows}
+        del res
+    return report, paths
+
+
 def card_label():
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
@@ -5128,6 +5482,11 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
+    report["tp"], tp_paths = phase_tp(torch, dev, seen, card)
+    say(f"phase 17: the model axis on a grid of ranks "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
     paths = {"fused": (runs["fused"]["counts"], runs["fused"]["tally"],
                        FULL_STEPS),
              "staged": (runs["staged"]["counts"], runs["staged"]["tally"],
@@ -5140,7 +5499,8 @@ def main():
              "kvs_tenants": (kt_counts, kt_tally, kt_steps),
              "lm_tenants": (lt_counts, lt_tally, LM_TENANT_STEPS),
              "serving": (sv_counts, sv_tally, sv_steps), **zoo_paths,
-             **moe_paths, **ssm_paths, **front_paths, **shard_paths}
+             **moe_paths, **ssm_paths, **front_paths, **shard_paths,
+             **tp_paths}
     rows = phase_summary(torch, paths, seen)
     report["kernels"] = rows
     say(f"phase 4: kernel timings ({time.perf_counter() - t0:.1f} s)")

@@ -13,7 +13,8 @@ under open-loop load.  Two fabric shapes matter:
   that queues in the rings.
 
 ``sweep_rates`` reads the TTFT/ITL tails against the offered rate on
-the tenant-batched loop.
+the tenant-batched loop, or on a grid of ranks with tensor-parallel
+decode.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.config import FabricConfig
 from repro_torch.configs.repro_100m import REDUCED
 from repro_torch.core import loadgen as lg
 from repro_torch.core import telemetry as tlm
+from repro_torch.core.engine import gather_states, shard_states
 from repro_torch.runtime.decode import DecodeEngine
 
 # tiny dense GQA: 2 layers, TP-divisible heads/ff/vocab for 2- and
@@ -64,26 +66,37 @@ def sweep_rates(engine: DecodeEngine, rates: Sequence[float],
     """Latency-vs-offered-load sweep: for each rate, run ``n_tenants``
     tenants at that rate for ``n_steps`` steps of
     ``make_tenant_run_steps`` (tenant t of point i seeded ``100 i + t``)
-    and read their TTFT/ITL histograms.  Returns ``{rate:
-    {ttft_p99_steps, itl_p99_steps, ttft_done, itl_done, completed,
-    rejected}}``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sweep_rates on a device mesh waits for the multi-GPU port "
-            "(ROADMAP queue 1, item 9)")
-    run = engine.make_tenant_run_steps(n_steps)
+    and read their TTFT/ITL histograms.  On a grid of ranks (``mesh``, a
+    ``core.transport.GridMesh``) each point runs
+    ``make_sharded_run_steps`` on this rank's block of the tenants, and
+    the numbers are the fleet's: histograms and counters gathered over
+    the tenant mesh (``gather_states``), the histograms merged
+    (``telemetry.merge_hist``) — the same dict on every rank.  Returns
+    ``{rate: {ttft_p99_steps, itl_p99_steps, ttft_done, itl_done,
+    completed, rejected}}``."""
+    run = (engine.make_tenant_run_steps(n_steps) if mesh is None
+           else engine.make_sharded_run_steps(mesh, n_steps))
     out = {}
     for i, rate in enumerate(rates):
         st = engine.init_states_batch(
             [rate] * n_tenants,
             seeds=[100 * i + t for t in range(n_tenants)])
+        if mesh is not None:
+            st = shard_states(st, mesh.tenant)
         st, _ = run(st)
+        parts = (st.ttft.hist, st.itl.hist, st.ttft.n_done, st.itl.n_done,
+                 st.slots.completed, st.slots.rejected)
+        if mesh is not None:
+            parts = gather_states(parts, mesh.tenant)
+        ttft, itl, ttft_done, itl_done, completed, rejected = parts
         out[rate] = {
-            "ttft_p99_steps": tlm.quantiles(st.ttft.hist, (0.99,))[0.99],
-            "itl_p99_steps": tlm.quantiles(st.itl.hist, (0.99,))[0.99],
-            "ttft_done": int(st.ttft.n_done.sum()),
-            "itl_done": int(st.itl.n_done.sum()),
-            "completed": int(st.slots.completed.sum()),
-            "rejected": int(st.slots.rejected.sum()),
+            "ttft_p99_steps": tlm.quantiles(tlm.merge_hist(ttft),
+                                            (0.99,))[0.99],
+            "itl_p99_steps": tlm.quantiles(tlm.merge_hist(itl),
+                                           (0.99,))[0.99],
+            "ttft_done": int(ttft_done.sum()),
+            "itl_done": int(itl_done.sum()),
+            "completed": int(completed.sum()),
+            "rejected": int(rejected.sum()),
         }
     return out

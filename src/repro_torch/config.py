@@ -106,7 +106,7 @@ class ModelConfig:
     remat_policy: str = "dots"
     fsdp: bool = False
     use_pallas: bool = False        # route hot paths through the kernels
-    tp_axis: str = ""               # tensor-parallel axis name (not served)
+    tp_axis: str = ""               # tensor-parallel (model) axis name
     # attention scores without f32 copies of Q/K/V (w rounded to v's dtype)
     fast_attn: bool = False
     flash_block: int = 0

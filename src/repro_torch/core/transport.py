@@ -7,7 +7,9 @@ The reference moves tiles between *mesh lanes* with ``lax.ppermute`` /
 contiguous block of T/D tenants or tiers), the ToR hop is one
 ``all_to_all_single`` between ranks, and a fleet-wide test is one
 ``all_reduce``.  ``ShardedTenantEngine`` and ``Switch.switch_step_sharded``
-are its users.
+are its users.  ``make_grid_mesh`` lays the ranks out as a 2-D (tenant x
+model) grid: a tenant mesh and a model-axis mesh a rank, the latter the
+group of tensor-parallel decode (``DecodeEngine.make_sharded_run_steps``).
 
 Every function here takes the rank's own block (the reference's
 per-lane view); there is no global array.  A 1-lane mesh needs no
@@ -70,6 +72,13 @@ class TenantMesh:
         return {self.axis: self.size}
 
 
+def _rank_device(device) -> torch.device:
+    dev = resolve(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def make_tenant_mesh(n_devices: Optional[int] = None, axis: str = "tenant",
                      group=None, device="cuda") -> TenantMesh:
     """The tenant mesh of this rank.
@@ -80,9 +89,7 @@ def make_tenant_mesh(n_devices: Optional[int] = None, axis: str = "tenant",
     A mesh of more lanes than the group has, or of fewer, raises: the
     mesh never shrinks quietly."""
     import torch.distributed as dist
-    dev = resolve(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = _rank_device(device)
     if group is None and n_devices != 1 and dist.is_available() \
             and dist.is_initialized():
         group = dist.group.WORLD
@@ -100,6 +107,101 @@ def make_tenant_mesh(n_devices: Optional[int] = None, axis: str = "tenant",
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError("an nccl group needs a CUDA device")
     return TenantMesh(group, dist.get_rank(group), size, axis, dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh:
+    """A 2-D (tenant x model) grid of ranks, row-major: rank ``r`` of a
+    ``t x m`` grid sits at ``(r // m, r % m)``.  ``tenant`` is the 1-D
+    mesh over the ranks that share this rank's model coordinate (a
+    ``TenantMesh``, so ``shard_states``, ``gather_states`` and
+    ``telemetry.merge_hist`` take it as they are), ``model`` the 1-D mesh
+    over the ranks that share its tenant coordinate (the tensor-parallel
+    group of ``models.Model``).  An axis of one rank has no group and its
+    collectives are the identity."""
+    tenant: TenantMesh
+    model: TenantMesh
+
+    @property
+    def axis_names(self) -> tuple:
+        return (self.tenant.axis, self.model.axis)
+
+    @property
+    def shape(self) -> dict:
+        """``{tenant_axis: t, model_axis: m}``, as the reference's
+        ``mesh.shape``."""
+        return {self.tenant.axis: self.tenant.size,
+                self.model.axis: self.model.size}
+
+    @property
+    def coords(self) -> dict:
+        """This rank's ``{tenant_axis: i, model_axis: j}``."""
+        return {self.tenant.axis: self.tenant.rank,
+                self.model.axis: self.model.rank}
+
+    @property
+    def device(self) -> torch.device:
+        return self.tenant.device
+
+
+def make_grid_mesh(n_tenant: Optional[int] = None,
+                   n_model: Optional[int] = None,
+                   tenant_axis: str = "tenant", model_axis: str = "model",
+                   device="cuda") -> GridMesh:
+    """2-D (tenant, model) grid for the serving dataplane: tenants shard
+    over the first axis (whole NIC slots per rank group, as in
+    ``make_tenant_mesh``), and each tenant's model weights/KV heads
+    tensor-parallel over the second.  Defaults split the ranks of the
+    world as evenly as possible, favoring the tenant axis: ``n_model`` is
+    the largest divisor of the rank count that is <= sqrt(count).  The
+    world is the default process group when ``torch.distributed`` is
+    initialized, else this one process.
+
+    Every rank builds every tenant group and every model group, in the
+    same order (``dist.new_group`` is a collective of the whole world),
+    and keeps its own.  A grid that needs more ranks than the world has
+    raises, as the reference does; one that would leave ranks out raises
+    too: the mesh never shrinks quietly."""
+    import torch.distributed as dist
+    dev = _rank_device(device)
+    init = dist.is_available() and dist.is_initialized()
+    n = dist.get_world_size() if init else 1
+    if n_tenant is None and n_model is None:
+        n_model = max(d for d in range(1, int(n ** 0.5) + 1) if n % d == 0)
+        n_tenant = n // n_model
+    elif n_model is None:
+        n_model = n // int(n_tenant)
+    elif n_tenant is None:
+        n_tenant = n // int(n_model)
+    n_tenant, n_model = int(n_tenant), int(n_model)
+    if n_tenant * n_model > n:
+        raise ValueError(
+            f"grid mesh {n_tenant}x{n_model} needs {n_tenant * n_model} "
+            f"ranks, the world has {n}")
+    if n_tenant * n_model < n:
+        raise ValueError(
+            f"grid mesh {n_tenant}x{n_model} leaves "
+            f"{n - n_tenant * n_model} of the world's {n} ranks out")
+    if init and str(dist.get_backend()) == "nccl" and dev.type != "cuda":
+        raise ValueError("an nccl group needs a CUDA device")
+    ti, mi = divmod(dist.get_rank() if init else 0, n_model)
+
+    def axis(size, axis_name, members, mine):
+        """The 1-D mesh of one grid axis: ``members(k)`` are the ranks of
+        its k-th group, ``mine`` this rank's group and place in it."""
+        if size == 1:
+            return TenantMesh(None, 0, 1, axis_name, dev)
+        groups = [dist.new_group(members(k))
+                  for k in range(n // size)]
+        return TenantMesh(groups[mine[0]], mine[1], size, axis_name, dev)
+
+    model = axis(n_model, model_axis,
+                 lambda k: [k * n_model + j for j in range(n_model)],
+                 (ti, mi))
+    tenant = axis(n_tenant, tenant_axis,
+                  lambda k: [i * n_model + k for i in range(n_tenant)],
+                  (mi, ti))
+    return GridMesh(tenant, model)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.transport import all_gather, all_reduce_sum
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -113,13 +114,34 @@ def embed_init(gen, cfg: ModelConfig) -> nn.ParameterDict:
     return nn.ParameterDict(p)
 
 
-def embed_apply(cfg: ModelConfig, p, tokens):
-    return p["tok"][tokens].to(dtype_of(cfg.compute_dtype))
+def embed_apply(cfg: ModelConfig, p, tokens, *, tp_mesh=None):
+    """Token embeddings in the compute dtype.  Vocab-parallel when
+    ``cfg.tp_axis`` is set and ``tok`` holds a block of the vocabulary:
+    model rank r owns rows ``[r * V/m, (r + 1) * V/m)``, out-of-block
+    tokens contribute zero and a sum over ``tp_mesh`` (in the parameter
+    dtype, as the reference's ``psum``) assembles the embedding."""
+    tok = p["tok"]
+    if cfg.tp_axis and tok.shape[0] < cfg.vocab:
+        v_local = tok.shape[0]
+        loc = tokens - tp_mesh.rank * v_local
+        ok = (loc >= 0) & (loc < v_local)
+        emb = tok[loc.clamp(0, v_local - 1)]
+        emb = torch.where(ok[..., None], emb, torch.zeros_like(emb))
+        return all_reduce_sum(emb, tp_mesh).to(dtype_of(cfg.compute_dtype))
+    return tok[tokens].to(dtype_of(cfg.compute_dtype))
 
 
-def unembed_apply(cfg: ModelConfig, p, x):
+def unembed_apply(cfg: ModelConfig, p, x, *, tp_mesh=None):
+    """Logits in float32.  Vocab-parallel when ``cfg.tp_axis`` is set and
+    the head holds a block of the vocabulary: each model rank computes
+    its block's logit columns and a gather over ``tp_mesh``, concatenated
+    in rank order along the last dim (the reference's tiled
+    ``all_gather``), restores [..., V]."""
     w = p["tok"].T if cfg.tie_embeddings else p["lm_head"]
-    return (x @ w.to(x.dtype)).to(torch.float32)
+    logits = (x @ w.to(x.dtype)).to(torch.float32)
+    if cfg.tp_axis and logits.shape[-1] < cfg.vocab:
+        logits = torch.cat(all_gather(logits, tp_mesh).unbind(0), dim=-1)
+    return logits
 
 
 def frontend_apply(cfg: ModelConfig, p, feats):

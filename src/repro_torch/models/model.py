@@ -28,11 +28,22 @@ self-attention layers, as the reference runs them; the decoder layers
 attend to it through cross attention, whose K/V the cache keeps in
 ``xk``/``xv``) — with the logit soft-cap and flash (``flash_block``)
 attention.  It raises ``NotImplementedError`` for every feature of the
-reference's ``ModelConfig`` that it does not serve (tensor
-parallelism, attention kinds other than GQA and MLA), rather than
-taking another path, and ``ValueError`` for features a model cannot
-take (``frontend_feats`` without a vision prefix, ``enc_feats``
-without an encoder, a feature width other than ``frontend_dim``).
+reference's ``ModelConfig`` that it does not serve (attention kinds
+other than GQA and MLA), rather than taking another path, and
+``ValueError`` for features a model cannot take (``frontend_feats``
+without a vision prefix, ``enc_feats`` without an encoder, a feature
+width other than ``frontend_dim``).
+
+Tensor parallelism (``cfg.tp_axis``): ``Model(cfg, model_mesh=mesh)``
+holds the block of every weight that its rank of the model axis
+(``mesh``, a 1-D ``core.transport.TenantMesh`` named ``cfg.tp_axis``)
+holds under ``parallel.param_specs``: its query and kv heads, its
+columns of the FFN and its rows of the vocabulary.  The attention,
+cross-attention and MLP outputs are summed over the mesh before their
+residual adds, the embedding is assembled by a sum and the logits by a
+gather (``layers.embed_apply`` / ``unembed_apply``), and the cache
+holds the rank's kv heads.  It serves dense GQA stacks only, as the
+reference's TP decode path does.
 """
 from __future__ import annotations
 
@@ -44,7 +55,10 @@ from repro_torch.device import resolve
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (dense_init, dtype_of, embed_apply,
                                        embed_init, frontend_apply,
-                                       norm_apply, norm_init, unembed_apply)
+                                       norm_apply, norm_init, param,
+                                       unembed_apply)
+from repro_torch.parallel.sharding import (legalize_specs, param_specs,
+                                           shard_tree)
 
 
 def _refuse_unserved(cfg: ModelConfig) -> None:
@@ -52,7 +66,6 @@ def _refuse_unserved(cfg: ModelConfig) -> None:
         "attn_kind": cfg.attn_kind not in ("gqa", "mla"),
         # local layers without a window: the reference gives them no cache
         "local_pattern": bool(cfg.local_pattern and not cfg.local_window),
-        "tp_axis": bool(cfg.tp_axis),
     }
     bad = [k for k, v in unserved.items() if v]
     if bad:
@@ -60,11 +73,49 @@ def _refuse_unserved(cfg: ModelConfig) -> None:
             f"{cfg.name}: the port does not serve {bad} yet")
 
 
+def check_tensor_parallel(cfg: ModelConfig, mp: int) -> None:
+    """The reference's refusals of tensor parallelism over ``mp`` ranks
+    (``DecodeEngine.make_sharded_run_steps``): head counts, FFN width and
+    vocabulary must split into ``mp`` blocks, and the stack must be dense
+    GQA (no MoE, MLA or recurrent layer: none of those has the sums)."""
+    bad = [nm for nm, d in (("n_heads", cfg.n_heads),
+                            ("n_kv_heads", cfg.n_kv_heads),
+                            ("d_ff", cfg.d_ff),
+                            ("vocab", cfg.vocab)) if d % mp]
+    if bad:
+        raise ValueError(
+            f"tensor parallelism over {mp} devices needs "
+            f"{bad} divisible by {mp}")
+    if cfg.attn_kind != "gqa" or cfg.moe is not None or any(
+            kind in tf.RECURRENT for kind, _ in cfg._layer_kinds()):
+        raise ValueError("TP decode path requires dense GQA")
+
+
+def _check_model_mesh(cfg: ModelConfig, mesh) -> None:
+    if not cfg.tp_axis:
+        if mesh is not None:
+            raise ValueError(f"{cfg.name}: a model mesh without tp_axis")
+        return
+    if mesh is None:
+        raise ValueError(f"{cfg.name}: tp_axis {cfg.tp_axis!r} needs the "
+                         f"model-axis mesh (model_mesh=)")
+    if mesh.axis != cfg.tp_axis:
+        raise ValueError(f"{cfg.name}: tp_axis {cfg.tp_axis!r}, but the "
+                         f"model mesh's axis is {mesh.axis!r}")
+    check_tensor_parallel(cfg, mesh.size)
+
+
 class Model(nn.Module):
+    """``model_mesh`` (with ``cfg.tp_axis``): the model-axis mesh of this
+    rank; the model keeps its rank's block of each weight, cut from
+    ``weights`` (a full-size ``Model`` of the same architecture) or else
+    from its own draw."""
+
     def __init__(self, cfg: ModelConfig, device="cuda", generator=None,
-                 seed: int = 0):
+                 seed: int = 0, model_mesh=None, weights=None):
         super().__init__()
         _refuse_unserved(cfg)
+        _check_model_mesh(cfg, model_mesh)
         dev = resolve(device)
         if generator is None:
             generator = torch.Generator(device=dev)
@@ -92,6 +143,25 @@ class Model(nn.Module):
                 "proj": dense_init(generator, (2 * cfg.d_model, cfg.d_model),
                                    dtype_of(cfg.param_dtype)),
                 "norm": norm_init(cfg, cfg.d_model, dev)})
+        self.tp_mesh = model_mesh
+        if model_mesh is not None:
+            self._keep_blocks(self if weights is None else weights)
+
+    def _keep_blocks(self, src: nn.Module) -> None:
+        """Replace every weight by this rank's block of ``src``'s."""
+        mesh = self.tp_mesh
+        mine = dict(self.named_parameters())
+        theirs = dict(src.named_parameters())
+        if set(mine) != set(theirs):
+            raise ValueError(f"weights: parameters "
+                             f"{sorted(set(mine) ^ set(theirs))} differ")
+        specs = legalize_specs(param_specs(self.cfg, src, tp=mesh.axis,
+                                           fsdp=False), src, mesh.shape)
+        blocks = shard_tree(src, specs, {mesh.axis: mesh.rank}, mesh.shape,
+                            device=self.device)
+        for name, block in blocks.items():
+            owner, _, leaf = name.rpartition(".")
+            self.get_submodule(owner)[leaf] = param(block)
 
     @property
     def device(self) -> torch.device:
@@ -99,9 +169,13 @@ class Model(nn.Module):
 
     def cache_init(self, batch: int, max_seq: int) -> list:
         """The zeroed cache: an encoder-decoder's layers add cross K/V of
-        ``frontend_tokens`` rows (the reference's ``cross_len``)."""
-        cross_len = self.cfg.frontend_tokens if self.cfg.enc_layers else 0
-        return tf.stack_cache_init(self.cfg, self.dec_kinds, batch, max_seq,
+        ``frontend_tokens`` rows (the reference's ``cross_len``); under
+        tensor parallelism the rank's kv heads."""
+        cfg = self.cfg
+        cross_len = cfg.frontend_tokens if cfg.enc_layers else 0
+        if self.tp_mesh is not None:
+            cfg = cfg.replace(n_kv_heads=cfg.n_kv_heads // self.tp_mesh.size)
+        return tf.stack_cache_init(cfg, self.dec_kinds, batch, max_seq,
                                    self.device, cross_len)
 
     def _check_features(self, tokens, feats, name: str, takes: bool):
@@ -124,7 +198,7 @@ class Model(nn.Module):
         """Token embeddings, the projected patch embeddings put before
         them when ``frontend_feats`` is given (a vision prefix)."""
         cfg = self.cfg
-        x = embed_apply(cfg, self.embed, tokens)
+        x = embed_apply(cfg, self.embed, tokens, tp_mesh=self.tp_mesh)
         if frontend_feats is not None:
             x = torch.cat([frontend_apply(cfg, self.embed, frontend_feats),
                            x], dim=1)
@@ -142,7 +216,8 @@ class Model(nn.Module):
         positions = torch.arange(h.shape[1], device=h.device) \
             .expand(h.shape[:2])
         h, _, _ = tf.stack_apply(cfg, self.encoder, h, self.enc_kinds,
-                                 mode="train", positions=positions)
+                                 mode="train", positions=positions,
+                                 tp_mesh=self.tp_mesh)
         return norm_apply(cfg, self.enc_norm, h)
 
     def _run(self, tokens, mode: str, cache=None, pos=None,
@@ -160,7 +235,8 @@ class Model(nn.Module):
             .expand(x.shape[:2])
         x, new_cache, aux = tf.stack_apply(
             cfg, self.layers, x, self.dec_kinds, mode=mode, cache=cache,
-            pos=pos, positions=positions, groups=groups, enc_out=enc_out)
+            pos=pos, positions=positions, groups=groups, enc_out=enc_out,
+            tp_mesh=self.tp_mesh)
         return norm_apply(cfg, self.final_norm, x), new_cache, aux
 
     def forward(self, tokens, mode: str = "decode", cache=None, pos=None,
@@ -193,16 +269,19 @@ class Model(nn.Module):
                               enc_feats=batch.get("enc_feats"))
         if front is not None:
             x = x[:, front.shape[1]:]
-        logits = unembed_apply(cfg, self.embed, x)          # [B,S,V] f32
+        logits = unembed_apply(cfg, self.embed, x,
+                               tp_mesh=self.tp_mesh)        # [B,S,V] f32
         ce, denom = _masked_ce(logits[:, :-1], labels[:, 1:])
         loss = ce + 0.01 * aux
         metrics = {"ce": ce, "tokens": denom, "aux": aux}
         if cfg.mtp_depth:
-            emb_next = embed_apply(cfg, self.embed, tokens)[:, 1:]
+            emb_next = embed_apply(cfg, self.embed, tokens,
+                                   tp_mesh=self.tp_mesh)[:, 1:]
             h_pair = torch.cat([x[:, :-1], emb_next], dim=-1)
             h_mtp = h_pair @ self.mtp["proj"].to(h_pair.dtype)
             h_mtp = norm_apply(cfg, self.mtp["norm"], h_mtp)
-            mtp_logits = unembed_apply(cfg, self.embed, h_mtp)
+            mtp_logits = unembed_apply(cfg, self.embed, h_mtp,
+                                       tp_mesh=self.tp_mesh)
             mtp_ce, _ = _masked_ce(mtp_logits[:, :-1], labels[:, 2:])
             loss = loss + 0.3 * mtp_ce
             metrics["mtp_ce"] = mtp_ce
@@ -230,7 +309,8 @@ class Model(nn.Module):
         x, new_cache = self.forward(tokens, mode="prefill", cache=cache,
                                     frontend_feats=frontend_feats,
                                     enc_feats=enc_feats)
-        logits = unembed_apply(self.cfg, self.embed, x[:, -1:])
+        logits = unembed_apply(self.cfg, self.embed, x[:, -1:],
+                               tp_mesh=self.tp_mesh)
         return logits[:, 0], new_cache
 
     def decode_step(self, cache, tokens, pos, groups: int = 1):
@@ -244,7 +324,8 @@ class Model(nn.Module):
         tokens as a step of that pool alone would.  Returns (logits
         [B, V] float32, cache)."""
         x, new_cache, _ = self._run(tokens, "decode", cache, pos, groups)
-        logits = unembed_apply(self.cfg, self.embed, x[:, -1:])
+        logits = unembed_apply(self.cfg, self.embed, x[:, -1:],
+                               tp_mesh=self.tp_mesh)
         return logits[:, 0], new_cache
 
 

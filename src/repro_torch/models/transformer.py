@@ -32,6 +32,7 @@ from torch import nn
 
 from repro_torch.config import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA, MLSTM,
                                 SLSTM, ModelConfig)
+from repro_torch.core.transport import all_reduce_sum
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -166,8 +167,21 @@ def _ring_fill(fresh, window: int):
     return torch.roll(fresh[:, s - window:], (s - window) % window, dims=1)
 
 
+def _tp_psum(cfg: ModelConfig, y, tp_mesh):
+    """Reduce a tensor-parallel partial sum over the model axis.
+
+    Under ``param_specs`` the head/FFN projections shard their output
+    features, so attention-out and MLP-out products give PARTIAL sums on
+    each model rank; an ``all_reduce`` over ``tp_mesh`` in ``y``'s dtype
+    (the compute dtype, as the reference's ``psum``) sums them.  Nothing
+    happens when ``cfg.tp_axis`` is empty."""
+    if not cfg.tp_axis:
+        return y
+    return all_reduce_sum(y, tp_mesh)
+
+
 def _cross_apply(cfg: ModelConfig, p, x, mode: str, cache, positions,
-                 enc_out):
+                 enc_out, tp_mesh=None):
     """The cross-attention branch of a decoder layer (after its
     self-attention): ln_x, then attention over the encoder's output
     ``enc_out`` when it is given (a prefill writes the encoder's K/V
@@ -182,8 +196,8 @@ def _cross_apply(cfg: ModelConfig, p, x, mode: str, cache, positions,
         return x
     hx = norm_apply(cfg, p["ln_x"], x)
     if enc_out is None:
-        return x + attn.gqa_cross_decode(cfg, p["cross"], hx, cache["xk"],
-                                         cache["xv"])
+        return x + _tp_psum(cfg, attn.gqa_cross_decode(
+            cfg, p["cross"], hx, cache["xk"], cache["xv"]), tp_mesh)
     out, fresh = attn.gqa_full(cfg, p["cross"], hx, positions,
                                causal=False, xkv=enc_out)
     if mode == "prefill":
@@ -192,12 +206,12 @@ def _cross_apply(cfg: ModelConfig, p, x, mode: str, cache, positions,
                 cache[name].copy_(t)
             else:
                 cache[name] = t.to(cache[name].dtype)
-    return x + out
+    return x + _tp_psum(cfg, out, tp_mesh)
 
 
 def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
                 mode: str = "decode", cache=None, pos=None, positions=None,
-                groups: int = 1, enc_out=None):
+                groups: int = 1, enc_out=None, tp_mesh=None):
     """Apply one layer: ln1 -> attention or a recurrent cell -> residual
     -> ln2 -> MLP or MoE -> residual (no FFN where ``d_ff`` is 0 and the
     layer is not MoE).  Returns (x, cache, aux): the cache dict the one
@@ -220,7 +234,10 @@ def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
     goes to ``moe_apply`` (the folded tenant pools).  A decoder layer
     with cross attention (``"cross"`` in ``p``) runs ``_cross_apply``
     between its attention and its FFN, over ``enc_out`` [B, T, d] when
-    it is given (train, prefill) or the cache's ``xk``/``xv``."""
+    it is given (train, prefill) or the cache's ``xk``/``xv``.  With
+    ``cfg.tp_axis`` the layer holds its model rank's heads and FFN
+    columns, and the attention, cross-attention and MLP outputs are
+    summed over ``tp_mesh`` (``_tp_psum``) before their residual adds."""
     if mode not in ("decode", "prefill", "train"):
         raise ValueError(f"mode {mode!r}: decode, prefill or train")
     local = _is_local(cfg, kind)
@@ -258,9 +275,10 @@ def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
                 s = k.shape[1]
                 ck[:, :s] = k.to(ck.dtype)
                 cv[:, :s] = v.to(cv.dtype)
-    x = x + out
+    x = x + _tp_psum(cfg, out, tp_mesh)
     if "cross" in p:
-        x = _cross_apply(cfg, p, x, mode, cache, positions, enc_out)
+        x = _cross_apply(cfg, p, x, mode, cache, positions, enc_out,
+                         tp_mesh)
     aux = 0.0
     if "moe" in p:
         y, aux = moe_mod.moe_apply(cfg, p["moe"],
@@ -268,7 +286,9 @@ def layer_apply(cfg: ModelConfig, p, x, *, kind: int, is_moe: bool,
                                    decode=mode == "decode", groups=groups)
         x = x + y
     elif "mlp" in p:
-        x = x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
+        x = x + _tp_psum(cfg, mlp_apply(cfg, p["mlp"],
+                                        norm_apply(cfg, p["ln2"], x)),
+                         tp_mesh)
     return x, cache, aux
 
 
@@ -280,20 +300,21 @@ def stack_cache_init(cfg: ModelConfig, kinds: List[LayerSpec], batch: int,
 
 def stack_apply(cfg: ModelConfig, layers, x, kinds: List[LayerSpec], *,
                 mode: str = "decode", cache=None, pos=None, positions=None,
-                groups: int = 1, enc_out=None):
+                groups: int = 1, enc_out=None, tp_mesh=None):
     """Run the whole stack, layer by layer.  Returns (x, cache, aux):
     every layer writes its cache in place (a prefill's cross K/V of
     another length replace the layer dict's ``xk``/``xv``), so the
     cache returned is the list given (``None`` in ``mode="train"``
     without one); ``aux`` is the MoE layers' balance terms summed,
     float32 (a scalar, [groups] when ``groups`` > 1 and the stack has an
-    MoE layer).  ``enc_out`` goes to every layer's cross attention."""
+    MoE layer).  ``enc_out`` goes to every layer's cross attention,
+    ``tp_mesh`` (the model axis under ``cfg.tp_axis``) to every layer."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (p, (kind, is_moe)) in enumerate(zip(layers, kinds)):
         x, _, aux = layer_apply(cfg, p, x, kind=kind, is_moe=is_moe,
                                 mode=mode,
                                 cache=None if cache is None else cache[i],
                                 pos=pos, positions=positions, groups=groups,
-                                enc_out=enc_out)
+                                enc_out=enc_out, tp_mesh=tp_mesh)
         aux_total = aux_total + aux
     return x, cache, aux_total

@@ -52,6 +52,7 @@ state you reuse.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -67,6 +68,8 @@ from repro_torch.core.indexing import set_drop
 from repro_torch.core.load_balancer import LB_ROUND_ROBIN
 from repro_torch.device import resolve
 from repro_torch.models import Model
+from repro_torch.models.model import check_tensor_parallel
+from repro_torch.parallel.sharding import decode_cache_specs, shard_tree
 
 I32 = torch.int32
 
@@ -233,7 +236,7 @@ class DecodeEngine:
                              for r, s in zip(rates, seeds)])
 
     # ---------------------------------------------------------- serve step
-    def _make_serve_step(self):
+    def _make_serve_step(self, model=None):
         """Server half of the step over a leading tenant axis: deliver ->
         decode pool -> stream tokens -> free -> admit -> NACK -> egress
         fetch.
@@ -248,8 +251,9 @@ class DecodeEngine:
         and the enqueues ``host_tx_enqueue_batch``, so the kernel route
         launches what one tenant's step launches, whatever T.  The
         free-list sort, the admission rank and the slot scatters run
-        along dim 1."""
+        along dim 1.  ``model`` (default the engine's) decodes the pool."""
         fab, n = self.server, self.n_slots
+        model = self.model if model is None else model
         vocab, pw = self.cfg.vocab, self.pw
 
         def step(sst, slots: DecodeSlots, cache, ttft, itl, in_slots,
@@ -265,7 +269,7 @@ class DecodeEngine:
             # decode rows they never advance past; those rows are
             # rewritten before any admitted request attends them.
             active = slots.req_id >= 0
-            logits, cache = self.model.decode_step(
+            logits, cache = model.decode_step(
                 _fold_cache(cache), slots.tok.reshape(-1, 1),
                 slots.pos.reshape(-1), groups=t)
             cache = _unfold_cache(cache, t)
@@ -375,15 +379,16 @@ class DecodeEngine:
 
         return step
 
-    def make_tenant_decode_step(self):
+    def make_tenant_decode_step(self, model=None):
         """The full step of T stacked tenants: ``DecodeStates`` (every
         leaf [T]-leading) ``-> (DecodeStates, (comp_slots [T, F*B, W],
         comp_valid [T, F*B]))`` — the client-delivered token fragments,
         packed.  Injection is the stacked ``LoadGen.inject``, the client
         fetch ``nic_fetch_batch`` and the client delivery
         ``tenant_receive``: what the reference's ``vmap`` of
-        ``make_decode_step`` computes, one tenant at a time."""
-        serve = self._make_serve_step()
+        ``make_decode_step`` computes, one tenant at a time.  ``model``
+        (default the engine's) decodes the pool."""
+        serve = self._make_serve_step(model)
         gen, client = self.loadgen, self.client
 
         def step(st: DecodeStates):
@@ -435,6 +440,52 @@ class DecodeEngine:
         ``use_pallas`` fabrics the stacked fabric states, are updated
         where they lie; clone ``st`` to keep it."""
         return _run_loop(self.make_tenant_decode_step(), n_steps)
+
+    def make_sharded_run_steps(self, mesh, n_steps: int):
+        """2-D (tenant x model) grid loop on this rank (``mesh`` a
+        ``core.transport.GridMesh``): tenants shard the tenant axis;
+        weights and KV-cache kv heads shard the model axis (tensor
+        parallelism: a ``Model`` with ``cfg.tp_axis`` on the grid's model
+        mesh, whose collectives are the attention-out and MLP-out sums,
+        the vocab-parallel embedding's sum and the head's gather).
+        Fabric, generator and telemetry states are replicated over the
+        model axis: every model rank runs the same deterministic
+        dataplane, since the gathered logits, and so the tokens, are the
+        same on each.
+
+        ``run(st) -> (st, (comp_slots [K, T/t, N, W], comp_valid [K, T/t,
+        N]))`` as ``make_tenant_run_steps``, on this rank's tenant block
+        (``core.engine.shard_states(st, mesh.tenant)``, whose
+        ``ValueError`` is the reference's for a tenant count that does not
+        divide over the tenant axis; ``gather_states`` collects the
+        results).  A cache that holds all kv heads is cut to the rank's
+        (``decode_cache_specs``); the returned state holds the rank's.
+        The weights are cut (``param_specs``, no fsdp) and the TP model
+        built once, here: it is ``run.model``.  A model axis of one rank
+        uses the engine's own model.  The reference's sanitizer note waits
+        for the port of ``debug/sanitize.py`` (ROADMAP queue 1)."""
+        m_axis, mp = mesh.model.axis, mesh.model.size
+        cfg = self.cfg
+        if mp > 1:
+            check_tensor_parallel(cfg, mp)
+            model = Model(cfg.replace(tp_axis=m_axis), device=mesh.device,
+                          model_mesh=mesh.model, weights=self.model)
+        else:
+            model = self.model
+        loop = _run_loop(self.make_tenant_decode_step(model), n_steps)
+
+        def run(st: DecodeStates):
+            heads = {x.shape[-2] for c in st.cache
+                     for k, x in c.items() if k in ("k", "v")}
+            if mp > 1 and heads == {cfg.n_kv_heads}:
+                specs = decode_cache_specs(cfg, st.cache, mesh.shape,
+                                           tenant_axis=None, tp_axis=m_axis)
+                st = dataclasses.replace(st, cache=shard_tree(
+                    st.cache, specs, {m_axis: mesh.model.rank}, mesh.shape))
+            return loop(st)
+
+        run.model = model
+        return run
 
 
 def _run_loop(step, n_steps: int):

@@ -1230,3 +1230,50 @@ def test_sharded_switch_two_spawned_ranks(cuda, tmp_path):
     for key, tiles in (("a", src), ("b", bits)):
         np.testing.assert_array_equal(got[f"a2a/{key}"], np.concatenate(
             [tiles[x][4 * r:4 * r + 4] for r in range(2) for x in range(2)]))
+
+
+# -------------------------------------------------- the model axis on ranks
+def test_tp_decode_step_two_spawned_ranks(cuda, tmp_path):
+    """Tensor-parallel decode on a (1, 2) grid of spawned ranks (gloo
+    ranks sharing the card on a one-card machine): TINY in float32 with
+    the ``decode_attention`` kernel at its local shape (2 of 4 query
+    heads on 1 of 2 kv heads a rank).  One step of
+    ``make_sharded_run_steps`` from an unsharded run's state equals the
+    unsharded step in every int32 part, and one decode step's logits
+    from each end state agree within 2e-5."""
+    import torch_tp_ranks as R
+    from repro_torch.launch import ranks
+
+    ranks.spawn(R.card_tp_step, 2, args=(str(tmp_path),),
+                store_dir=str(tmp_path), threads=1)
+    got = dict(np.load(tmp_path / "card_tp.npz"))
+    assert int(got["launched"]) == R.TINY.n_layers
+    assert int(got["one_kv_heads"]) == R.TINY.n_kv_heads
+    assert int(got["grid_kv_heads"]) == R.TINY.n_kv_heads // 2
+    keys = [k[len("one"):] for k in got if k.startswith("one/")]
+    assert keys
+    for k in keys:
+        assert got["grid" + k].dtype == got["one" + k].dtype, k
+        np.testing.assert_array_equal(got["grid" + k], got["one" + k],
+                                      err_msg=k)
+    np.testing.assert_allclose(got["grid_logits"], got["one_logits"],
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_grid_mesh_layout_four_spawned_ranks(cuda, tmp_path):
+    """``make_grid_mesh(2, 2)`` on four spawned ranks on the card: rank r
+    at (r // 2, r % 2), its tenant group the ranks with its model
+    coordinate and its model group the ranks with its tenant coordinate
+    (gathered through each group), and a sum over each group."""
+    import torch_tp_ranks as R
+    from repro_torch.launch import ranks
+
+    ranks.spawn(R.card_grid_layout, 4, args=(str(tmp_path),),
+                store_dir=str(tmp_path), threads=1)
+    rows = np.load(tmp_path / "card_grid.npz")["rows"]
+    for r, row in enumerate(rows):
+        ti, mi = divmod(r, 2)
+        tenant, model = [mi, 2 + mi], [2 * ti, 2 * ti + 1]
+        assert row.tolist() == [ti, mi] + tenant + model + [sum(tenant),
+                                                           sum(model)]
+

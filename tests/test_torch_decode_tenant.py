@@ -97,14 +97,17 @@ def test_tenant_lane_matches_single_tenant_run():
 
 
 def test_sweep_rates_matches_reference():
-    """Two offered rates, 2 tenants, 16 steps: the same dict."""
+    """Two offered rates, 2 tenants, 16 steps: the same dict, without a
+    mesh and on a 1 x 1 grid."""
     jeng, eng = _engines("plain", mode=lg.MODE_POISSON)
     want = jsweep_rates(jeng, [0.4, 1.6], n_tenants=2, n_steps=16)
     got = sweep_rates(eng, [0.4, 1.6], n_tenants=2, n_steps=16)
     assert got == want
     assert got[1.6]["completed"] > 0
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        sweep_rates(eng, [0.4], mesh=object())
+    # a 1 x 1 grid of ranks (this process) gives the same numbers
+    from repro_torch.core.transport import make_grid_mesh
+    assert sweep_rates(eng, [0.4, 1.6], n_tenants=2, n_steps=16,
+                       mesh=make_grid_mesh(1, 1, device="cpu")) == want
 
 
 def test_decode_states_batch_round_trip():

@@ -235,7 +235,9 @@ def _refusal(field, value):
     """Build a model and call what it must refuse: (the exception, its
     message pattern, the call)."""
     if field in ("attn_kind", "tp_axis"):
-        return NotImplementedError, field, lambda: Model(
+        # tp_axis without the model-axis mesh: a ValueError naming it
+        exc = NotImplementedError if field == "attn_kind" else ValueError
+        return exc, field, lambda: Model(
             TINY.replace(**{field: value}), device="cpu")
     tok = torch.zeros((2, 3), dtype=torch.long)
     if field == "frontend_feats":      # on a model without a frontend
@@ -256,7 +258,8 @@ def _refusal(field, value):
     ("enc_feats", "wrong-width"), ("tp_axis", "model")])
 def test_model_refuses_what_it_does_not_serve(field, value):
     """What the port does not serve raises ``NotImplementedError``;
-    features a model cannot take raise ``ValueError``."""
+    features a model cannot take raise ``ValueError``, and so does a
+    config naming ``tp_axis`` without the model-axis mesh."""
     exc, pattern, call = _refusal(field, value)
     with pytest.raises(exc, match=pattern):
         call()
