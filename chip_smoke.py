@@ -255,6 +255,22 @@ exit, no result line) on any mismatch:
    groups' collective share of the wall, and the device and wall time,
    busy share and activities a step of two profiled steps; the ranks'
    launches and inputs at new shapes go to phase 4;
+18. training (no kernel of the port runs in it): (a) ``Trainer`` on
+   Qwen2-1.5B at full width and depth (bf16 parameters, float32 AdamW
+   moments, remat "dots", seeded weights) on ``SyntheticLMData``
+   batches of 8 x 512 for ``TRAIN_STEPS`` steps, two profiled, then two
+   at 2 micro-batches: the loss finite and below its first step's at
+   the end, grad norms finite, the weight matrices moved, no kernel
+   launched; it prints the losses, ms a step, tokens/s, the peak memory
+   and the device time, busy share and top activities of the profiled
+   steps; (b) the kill-and-resume contract through ``launch/train.py``
+   at repro-100m (float32, 8 x 256): 8 steps, then a run checkpointing
+   every 4 killed at step 6 and a fresh trainer resumed from step 4 to
+   8, its parameters, moments and losses equal to the first run's bit
+   for bit; (c) one ``make_train_step`` at Qwen2-1.5B's width, 4 of 28
+   layers in float32, batch 2 x 128, on the card and on the CPU from
+   the same weights: loss, grad norm, moments and parameters within
+   ``CARD_CPU_TOL`` and ``CARD_CPU_PARAM_TOL``;
 4. kernel summary (run last): one JSON line with each kernel's launches
    on the main paths (phases 3, 5-17) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
@@ -457,12 +473,13 @@ SHARD_TIMEOUT_S = 300
 # gloo ranks sharing cuda:0 (when the machine has fewer than 4 cards: 2
 # tenants, 6 of 12 query heads, 1 of 2 kv heads, 4,480 of d_ff 8,960 and
 # 75,968 of vocab 151,936 a rank) and on an nccl grid of the machine's
-# cards (1 x 1 on one card), for the reference test's ``TP_STEPS``; one
-# decode step's logits from a rank's end state, TP against one process,
-# in bf16 and, at ``TP_F32_LAYERS`` of the 28 layers after
+# cards (1 x 1 on one card), for ``TP_STEPS`` (cut from the reference
+# test's 48 to keep the script under 650 s with phase 18); one decode
+# step's logits from a rank's end state, TP against one process, in
+# bf16 and, at ``TP_F32_LAYERS`` of the 28 layers after
 # ``TP_F32_STEPS`` steps, in float32
 TP_GRID = (2, 2)
-TP_STEPS = 48
+TP_STEPS = 32
 TP_F32_LAYERS = 4
 TP_F32_STEPS = 8
 # float32 logits, TP against one process: the model-axis sums add the
@@ -470,6 +487,37 @@ TP_F32_STEPS = 8
 # relative to the largest logit
 F32_TOL = 2e-4
 TP_PROFILE_STEPS = 2
+# phase 18: training.  (a) Qwen2-1.5B at full width and depth (bf16
+# parameters, float32 AdamW moments, remat "dots", seeded weights) on
+# SyntheticLMData batches of 8 x 512 at tests/test_archs.py's
+# TrainConfig: ``TRAIN_STEPS`` steps, ``TRAIN_PROFILE_STEPS`` profiled,
+# then ``TRAIN_MB_STEPS`` with 2 micro-batches; (b) kill and resume
+# through the launcher at repro-100m (float32, 8 x 256): 8 steps, then
+# a run checkpointing every 4 killed at 6, resumed from 4 to 8 by a
+# fresh trainer, its parameters and moments equal bit for bit; (c) one
+# train step at Qwen2-1.5B's width, 4 of its 28 layers, float32, 2 x
+# 128 tokens, on the card and on the CPU from the same weights
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_SHAPE = (8, 512)
+TRAIN_KW = dict(lr=1e-3, total_steps=10, warmup_steps=2)
+TRAIN_STEPS = 6
+TRAIN_PROFILE_STEPS = 2
+TRAIN_MB_STEPS = 2
+RESUME_ARGS = ["--arch", "repro-100m", "--batch", "8", "--seq", "256",
+               "--steps", "8", "--ckpt-every", "4"]
+RESUME_FAIL_AT = 6
+CARD_CPU_LAYERS = 4
+CARD_CPU_SHAPE = (2, 128)
+# card against CPU in float32: the loss and the grad norm within 1e-4
+# relative (sums of 256 x 151,936 logits in another order), the moments
+# within 1e-4 of the largest; a parameter within 1e-5 where the CPU's
+# clipped gradient is at least 1e-5 (its m at least 1e-6), every entry
+# within two steps of opposite sign (Adam's first step moves an entry by
+# about lr * sign(g), and a gradient within roundoff of zero may take
+# either sign)
+CARD_CPU_TOL = 1e-4
+CARD_CPU_SURE_M = 1e-6
+CARD_CPU_PARAM_TOL = 1e-5
 
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
@@ -1999,13 +2047,30 @@ def profile_steps(torch, fn, steps, wall_us):
     ev = device_events(torch, fn, 1)
     steps = steps() if callable(steps) else steps
     dev_us = sum(us for _, us in ev) / steps
-    by_name = {}
+    by_name, by_kind = {}, {}
     for name, us in ev:
         by_name[name[:70]] = by_name.get(name[:70], 0.0) + us / steps
+        kind = by_kind.setdefault(activity_kind(name), [0.0, 0.0])
+        kind[0] += us / steps
+        kind[1] += 1 / steps
     return {"device_us_per_step": dev_us, "wall_us_per_step": wall_us,
             "busy_share": dev_us / wall_us if ev else None,
             "activities_per_step": len(ev) / steps,
-            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:5]}
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:5],
+            "by_kind": by_kind}
+
+
+def activity_kind(name):
+    """A device activity's kind by its name: a matrix product (cuBLAS,
+    CUTLASS), an elementwise or copy kernel, a reduction, or other."""
+    n = name.lower()
+    if any(k in n for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+        return "matmul"
+    if "elementwise" in n or "memcpy" in n or "memset" in n:
+        return "elementwise"
+    if "reduce" in n:
+        return "reduce"
+    return "other"
 
 
 def say_profile(what, sh):
@@ -5119,6 +5184,229 @@ def phase_tp(torch, dev, seen, card, worlds=None):
     return report, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training
+# ---------------------------------------------------------------------------
+
+def train_qwen(torch, dev, card):
+    """Phase 18 (a): ``Trainer`` on Qwen2-1.5B at full width and depth.
+    Returns its report."""
+    import dataclasses as dc
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.train_loop import Trainer, make_train_step
+    b, s = TRAIN_SHAPE
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.param_dtype == "bfloat16" and cfg.remat
+          and cfg.remat_policy == "dots", f"train: config {cfg}")
+    tr = Trainer(cfg, TrainConfig(**TRAIN_KW), batch=b, seq=s, device=dev,
+                 seed=0)
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    check(all(m.dtype == torch.float32 for m in tr.opt_state["m"].values()),
+          "train: AdamW moments not float32")
+    # the weight matrices; a norm scale at 1.0 moves only once lr passes
+    # half a bf16 unit there (2^-8), as it has no float32 master copy
+    watch = ["embed.tok", "layers.0.attn.wq", "layers.27.mlp.w_out",
+             "final_norm.scale"]
+    before = {k: tr.params[k].detach().clone() for k in watch}
+    metrics = []
+
+    def logged(step_fn):
+        def step(opt, batch):
+            opt, m = step_fn(opt, batch)
+            metrics.append(m)
+            return opt, m
+        return step
+    tr.step_fn = logged(tr.step_fn)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tr.run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    hist = list(tr.history)
+    losses = [h["loss"] for h in hist]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"train: losses {losses}, grad norms {gnorms}")
+    check(losses[-1] < losses[0],
+          f"train: the loss does not fall from its first step: {losses}")
+    moved = {k: float((tr.params[k].detach().float()
+                       - before[k].float()).abs().max()) for k in watch}
+    check(all(v > 0 for k, v in moved.items() if k != "final_norm.scale"),
+          f"train: parameters did not move: {moved}")
+    check(not any(counts.values()),
+          f"train: the train path launched a kernel: {counts}")
+    steady = [h["dt"] for h in hist[1:]]
+    ms = statistics.median(steady) * 1e3
+    r = dict(n_params=n_params, build_s=build_s, losses=losses,
+             grad_norms=gnorms, first_step_ms=hist[0]["dt"] * 1e3,
+             ms_per_step=ms, step_ms=[x * 1e3 for x in steady],
+             tokens_per_s=b * s / (ms / 1e3), peak_bytes=peak, moved=moved)
+    say(f"train {TRAIN_ARCH} [{card}]: {n_params} parameters (bf16), "
+        f"float32 moments, remat dots, batch {b} x {s}; built in "
+        f"{build_s:.1f} s; {TRAIN_STEPS} steps, losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in gnorms)
+        + f"; first step {r['first_step_ms']:.1f} ms, then median "
+        f"{ms:.1f} ms a step ({min(steady) * 1e3:.1f}-"
+        f"{max(steady) * 1e3:.1f}), {r['tokens_per_s']:.0f} tokens/s; peak "
+        f"memory {peak / 1e9:.2f} GB (max_memory_allocated); largest move "
+        + ", ".join(f"{k} {v:.3g}" for k, v in moved.items()))
+    r["share"] = profile_steps(
+        torch, lambda: tr.run(tr.step + TRAIN_PROFILE_STEPS),
+        TRAIN_PROFILE_STEPS, ms * 1e3)
+    say_profile(f"train {TRAIN_ARCH}", r["share"])
+    say(f"train {TRAIN_ARCH} device time by kind: " + "; ".join(
+        f"{k} {us:.1f} us in {n:.1f} activities a step"
+        for k, (us, n) in sorted(r["share"]["by_kind"].items(),
+                                 key=lambda kv: -kv[1][0])))
+    tr.step_fn = logged(make_train_step(
+        tr.model, dc.replace(tr.tc, microbatches=2)))
+    n0 = len(metrics)
+    tr.run(tr.step + TRAIN_MB_STEPS)
+    mb = [h["loss"] for h in tr.history[-TRAIN_MB_STEPS:]]
+    mb_gn = [float(m["grad_norm"]) for m in metrics[n0:]]
+    check(len(mb_gn) == TRAIN_MB_STEPS
+          and all(math.isfinite(x) for x in mb + mb_gn),
+          f"train: micro-batched losses {mb}, grad norms {mb_gn}")
+    r.update(mb_losses=mb, mb_grad_norms=mb_gn,
+             mb_step_ms=[h["dt"] * 1e3
+                         for h in tr.history[-TRAIN_MB_STEPS:]])
+    say(f"train {TRAIN_ARCH}: {TRAIN_MB_STEPS} more steps at 2 "
+        f"micro-batches of {b // 2}: losses "
+        + ", ".join(f"{x:.4f}" for x in mb) + ", grad norms "
+        + ", ".join(f"{x:.3f}" for x in mb_gn) + "; "
+        + ", ".join(f"{x:.1f}" for x in r["mb_step_ms"]) + " ms")
+    del tr, before, metrics
+    return r
+
+
+def train_resume(torch, dev):
+    """Phase 18 (b): the kill-and-resume contract through the launcher.
+    Returns its report."""
+    import tempfile
+    from repro_torch.launch import train as launch
+    dev_args = ["--device", str(dev)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        whole = launch.main(RESUME_ARGS + dev_args)
+        ck = ["--ckpt-dir", str(Path(tmp) / "ck")]
+        killed = launch.make_trainer(launch.parse_args(
+            RESUME_ARGS + dev_args + ck))
+        try:
+            killed.run(killed.tc.total_steps, failure_at=RESUME_FAIL_AT)
+        except RuntimeError as e:
+            check("injected node failure" in str(e), f"resume: {e}")
+        else:
+            check(False, "resume: the run was not killed")
+        check(killed.ckpt.latest_step() == 4,
+              f"resume: checkpoints {killed.ckpt._steps()}")
+        del killed
+        resumed = launch.main(RESUME_ARGS + dev_args + ck + ["--resume"])
+        check([h["step"] for h in resumed.history] == [5, 6, 7, 8],
+              f"resume: steps {[h['step'] for h in resumed.history]}")
+    same = [k for k, p in whole.params.items()
+            if torch.equal(p, resumed.params[k])]
+    same_opt = all(torch.equal(whole.opt_state[m][k],
+                               resumed.opt_state[m][k])
+                   for m in ("m", "v") for k in whole.opt_state[m])
+    losses = [h["loss"] for h in whole.history]
+    check(len(same) == len(whole.params) and same_opt
+          and [h["loss"] for h in resumed.history] == losses[4:],
+          f"resume: {len(whole.params) - len(same)} parameters differ "
+          f"(moments equal: {same_opt}); losses {losses[4:]} against "
+          f"{[h['loss'] for h in resumed.history]}")
+    r = dict(secs=time.perf_counter() - t0, losses=losses,
+             n_params=sum(p.numel() for p in whole.params.values()),
+             step_ms=[h["dt"] * 1e3 for h in whole.history])
+    say(f"train resume {RESUME_ARGS[1]}: 8 steps, then killed at "
+        f"{RESUME_FAIL_AT} and resumed from 4: {len(same)} of "
+        f"{len(whole.params)} parameters and every moment equal bit for "
+        f"bit, losses equal ({r['secs']:.1f} s)")
+    return r
+
+
+def train_card_cpu(torch, dev):
+    """Phase 18 (c): one train step at Qwen2-1.5B's width (4 layers,
+    float32) on the card against the same step on the CPU.  Returns its
+    report."""
+    import copy
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init, lr_schedule
+    from repro_torch.runtime.train_loop import make_train_step
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).replace(
+        n_layers=CARD_CPU_LAYERS, param_dtype="float32",
+        compute_dtype="float32")
+    tc = TrainConfig(**TRAIN_KW)
+    card = Model(cfg, device=dev, seed=0)
+    cpu = copy.deepcopy(card).to("cpu")
+    batch = SyntheticLMData(cfg, *CARD_CPU_SHAPE).batch_at(0)
+    out = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        opt, m = make_train_step(model, tc)(
+            adamw_init(dict(model.named_parameters())),
+            {k: torch.from_numpy(v).to(model.device)
+             for k, v in batch.items()})
+        out[name] = (dict(model.named_parameters()), opt, m)
+    torch.cuda.synchronize()
+    (pg, og, mg), (pc, oc, mc) = out["card"], out["cpu"]
+    rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+           for k in ("loss", "grad_norm")}
+    m_gap = max(float((og["m"][k].cpu() - oc["m"][k]).abs().max())
+                for k in oc["m"]) / max(float(oc["m"][k].abs().max())
+                                        for k in oc["m"])
+    lr1 = float(lr_schedule(tc, torch.tensor(1, dtype=torch.int32)))
+    sure_gap, any_gap, n_apart = 0.0, 0.0, 0
+    for k, p in pc.items():
+        d = (pg[k].detach().cpu() - p.detach()).abs()
+        sure = oc["m"][k].abs() >= CARD_CPU_SURE_M
+        any_gap = max(any_gap, float(d.max()))
+        n_apart += int((d > CARD_CPU_PARAM_TOL).sum())
+        if sure.any():
+            sure_gap = max(sure_gap, float(d[sure].max()))
+    r = dict(secs=time.perf_counter() - t0, loss=[float(mg["loss"]),
+                                                 float(mc["loss"])],
+             grad_norm=[float(mg["grad_norm"]), float(mc["grad_norm"])],
+             rel=rel, m_gap=m_gap, param_gap_sure=sure_gap,
+             param_gap=any_gap, entries_apart=n_apart,
+             n_params=sum(p.numel() for p in pc.values()))
+    check(max(rel.values()) <= CARD_CPU_TOL and m_gap <= CARD_CPU_TOL
+          and sure_gap <= CARD_CPU_PARAM_TOL and any_gap <= 2 * lr1 + 1e-6,
+          f"train card against cpu: {r}")
+    say(f"train card against cpu ({CARD_CPU_LAYERS} of 28 layers, float32, "
+        f"{CARD_CPU_SHAPE[0]} x {CARD_CPU_SHAPE[1]}): loss {r['loss'][0]:.6f}"
+        f" / {r['loss'][1]:.6f}, grad norm {r['grad_norm'][0]:.5f} / "
+        f"{r['grad_norm'][1]:.5f} (relative {rel['loss']:.2e}, "
+        f"{rel['grad_norm']:.2e}; tolerance {CARD_CPU_TOL}); moments "
+        f"{m_gap:.2e} of the largest; parameters {sure_gap:.2e} where the "
+        f"gradient is sure (tolerance {CARD_CPU_PARAM_TOL}), {any_gap:.2e} "
+        f"over all (bound {2 * lr1:.0e}; {n_apart} of {r['n_params']} "
+        f"entries past {CARD_CPU_PARAM_TOL}) ({r['secs']:.1f} s)")
+    return r
+
+
+def phase_train(torch, dev, card):
+    """Phase 18: training on the card, (a)-(c).  Returns the report."""
+    import gc
+    report = {}
+    for name, fn in (("qwen", lambda: train_qwen(torch, dev, card)),
+                     ("resume", lambda: train_resume(torch, dev)),
+                     ("card_cpu", lambda: train_card_cpu(torch, dev))):
+        t0 = time.perf_counter()
+        report[name] = fn()
+        report[name]["total_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
 def card_label():
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
@@ -5485,6 +5773,10 @@ def main():
     report["tp"], tp_paths = phase_tp(torch, dev, seen, card)
     say(f"phase 17: the model axis on a grid of ranks "
         f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    report["train"] = phase_train(torch, dev, card)
+    say(f"phase 18: training ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     paths = {"fused": (runs["fused"]["counts"], runs["fused"]["tally"],

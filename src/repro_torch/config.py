@@ -1,5 +1,5 @@
-"""Model and fabric configuration (``ModelConfig``, ``FabricConfig``),
-field for field.
+"""Model, training and fabric configuration (``ModelConfig``,
+``TrainConfig``, ``FabricConfig``), field for field.
 
 ``ModelConfig`` describes any architecture of the reference (plus reduced
 smoke-test variants); the port's ``models.Model`` serves its decoder-only
@@ -199,6 +199,22 @@ class ModelConfig:
                     is_moe = i >= int(pat.split(":")[1])
             out.append((kind, is_moe))
         return out
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    microbatches: int = 1           # gradient accumulation
+    grad_compression: str = "none"  # none | int8_ef  (cross-pod trick)
+    opt_dtype: str = "float32"      # AdamW m/v dtype (bf16 for huge models)
+    seed: int = 0
 
 
 @dataclass(frozen=True)

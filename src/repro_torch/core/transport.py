@@ -223,16 +223,27 @@ def _timed(fn):
     return call
 
 
-@_timed
-def all_reduce_sum(x, mesh: TenantMesh):
-    """The sum of ``x`` over the mesh's ranks (a new tensor on ``x``'s
-    device; ``x`` itself on a 1-lane mesh)."""
+def _all_reduce(x, mesh: TenantMesh, op: str):
     if mesh.group is None:
         return x
     import torch.distributed as dist
     w = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(w, group=mesh.group)
+    dist.all_reduce(w, op=getattr(dist.ReduceOp, op), group=mesh.group)
     return w
+
+
+@_timed
+def all_reduce_sum(x, mesh: TenantMesh):
+    """The sum of ``x`` over the mesh's ranks (a new tensor on ``x``'s
+    device; ``x`` itself on a 1-lane mesh)."""
+    return _all_reduce(x, mesh, "SUM")
+
+
+@_timed
+def all_reduce_max(x, mesh: TenantMesh):
+    """The elementwise max of ``x`` over the mesh's ranks, as
+    ``all_reduce_sum`` gives the sum."""
+    return _all_reduce(x, mesh, "MAX")
 
 
 @_timed

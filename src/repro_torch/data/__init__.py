@@ -1,1 +1,2 @@
-from repro_torch.data.pipeline import ZipfKVWorkload, zipf_keys  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    SyntheticLMData, ZipfKVWorkload, zipf_keys)

@@ -1,9 +1,18 @@
-"""The MICA KVS workload (§5.6): Zipf key popularity over a key space.
+"""Data pipelines: synthetic LM batches and the MICA KVS workload.
 
-``ZipfKVWorkload`` draws zipf-skewed keys (s = 0.99 / 0.9999), tiny
-(8B/8B) or small (16B/32B) records and a set/get mix (50/50 or 5/95).
-Pure numpy on the host, like the reference's ``repro.data.pipeline``;
-its draws equal the reference's for the same seed.
+``SyntheticLMData`` is deterministic per (seed, step): a restart after a
+failure regenerates the exact same batch stream, which is what makes
+checkpoint/restart bitwise reproducible.  Tokens follow a Markov-ish
+mixture so the LM loss curve is non-trivial (structure to learn) rather
+than uniform noise.  Its batches equal the reference's bit for bit.
+
+``ZipfKVWorkload`` (§5.6) draws zipf-skewed keys (s = 0.99 / 0.9999),
+tiny (8B/8B) or small (16B/32B) records and a set/get mix (50/50 or
+5/95).
+
+Both are pure numpy on the host, like the reference's
+``repro.data.pipeline``; their draws equal the reference's for the same
+seed.
 
 ``zipf_keys`` keeps the reference's draws but not its cost: numpy's
 ``Generator.choice(n, p=...)`` builds ``cdf = p.cumsum(); cdf /=
@@ -19,6 +28,57 @@ from dataclasses import dataclass
 from typing import Iterator, Tuple
 
 import numpy as np
+
+from repro_torch.config import ModelConfig
+
+
+class SyntheticLMData:
+    """Batches of ``batch`` x ``seq`` tokens (and the model's frontend or
+    encoder features) as numpy arrays, a pure function of (seed, step)."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, seq: int, seed: int = 0):
+        self.cfg = cfg
+        self.batch = batch
+        self.seq = seq
+        self.seed = seed
+        # fixed "grammar": each token prefers a successor band.  Host
+        # generator, fully determined by seed  # fabriclint: allow(FL003)
+        rng = np.random.default_rng(seed)
+        self._succ = rng.integers(0, cfg.vocab, size=(256,), dtype=np.int64)
+
+    def batch_at(self, step: int) -> dict:
+        """Deterministic batch for a given global step: ``tokens`` and
+        ``labels`` [batch, seq] int32, ``frontend_feats`` (a vision
+        prefix) or ``enc_feats`` (an encoder) [batch, frontend_tokens,
+        frontend_dim] float32."""
+        # pure in (seed, step) by construction — the reproducibility
+        # contract FL003 protects  # fabriclint: allow(FL003)
+        rng = np.random.default_rng((self.seed << 32) ^ step)
+        v = self.cfg.vocab
+        toks = np.empty((self.batch, self.seq), np.int64)
+        toks[:, 0] = rng.integers(0, v, size=self.batch)
+        noise = rng.random((self.batch, self.seq))
+        jumps = rng.integers(0, v, size=(self.batch, self.seq))
+        for t in range(1, self.seq):
+            follow = (self._succ[toks[:, t - 1] % 256] + toks[:, t - 1]) % v
+            toks[:, t] = np.where(noise[:, t] < 0.75, follow, jumps[:, t])
+        batch = {"tokens": toks.astype(np.int32),
+                 "labels": toks.astype(np.int32)}
+        if self.cfg.frontend and not self.cfg.enc_layers:
+            batch["frontend_feats"] = rng.standard_normal(
+                (self.batch, self.cfg.frontend_tokens,
+                 self.cfg.frontend_dim)).astype(np.float32)
+        if self.cfg.enc_layers:
+            batch["enc_feats"] = rng.standard_normal(
+                (self.batch, self.cfg.frontend_tokens,
+                 self.cfg.frontend_dim)).astype(np.float32)
+        return batch
+
+    def shard_for(self, step: int, shard: int, n_shards: int) -> dict:
+        """Deterministic per-host shard (multi-host input pipeline)."""
+        full = self.batch_at(step)
+        per = self.batch // n_shards
+        return {k: v[shard * per:(shard + 1) * per] for k, v in full.items()}
 
 
 @functools.lru_cache(maxsize=4)

@@ -39,7 +39,9 @@ float32 beside the compute dtype, in xlstm's ``[((S, M), 12)]`` and
 jamba's 8-layer periods; an encoder-decoder's cross K/V ``xk``/``xv``);
 LayerNorm biases, tied embeddings (no ``lm_head``), the MoE layers'
 float32 router and stacked experts (with a nested ``shared`` MLP) and
-the MTP head load by name like every other weight.  Their dtypes
+the MTP head load by name like every other weight;
+``adamw_state_from_numpy`` carries the reference's AdamW moments, laid
+out like its parameters, by the same mapping.  Their dtypes
 are carried exactly too (bfloat16 as its bits).  Tenant-stacked decode
 states (``DecodeEngine.init_states_batch``), ``ServingEngine`` state
 triples (``serving_states_*``, single or stacked) and stacked
@@ -206,9 +208,11 @@ def _layer_sources(kinds, tree):
                 i += 1
 
 
-def _assign(mod, tree, period, path):
-    """Copy the reference subtree ``tree`` into the parameters of
-    ``mod`` (``nn.ModuleDict`` / ``nn.ParameterDict``), same names."""
+def _walk(mod, tree, period, path, prefix):
+    """(the port's parameter name, the parameter, the reference leaf as a
+    CPU tensor: its slice ``period`` of a stacked leaf) for every
+    parameter of ``mod`` (``nn.ModuleDict`` / ``nn.ParameterDict``) and
+    the reference subtree ``tree`` of the same names."""
     keys = set(tree.keys()) if isinstance(tree, dict) else None
     if keys is not None and keys != set(mod.keys()):
         raise ValueError(
@@ -219,15 +223,40 @@ def _assign(mod, tree, period, path):
         src = _get(tree, name)
         if isinstance(child, torch.nn.Parameter):
             t = _float_tensor(src, f"{path}.{name}")
-            if period is not None:
-                t = t[period]
-            if t.dtype != child.dtype or t.shape != child.shape:
-                raise ValueError(
-                    f"{path}.{name}: reference {t.dtype}{tuple(t.shape)}, "
-                    f"port {child.dtype}{tuple(child.shape)}")
-            child.data.copy_(t)
+            yield (f"{prefix}{name}", child,
+                   t if period is None else t[period])
         else:
-            _assign(child, src, period, f"{path}.{name}")
+            yield from _walk(child, src, period, f"{path}.{name}",
+                             f"{prefix}{name}.")
+
+
+def _param_sources(model, params):
+    """``_walk`` over the whole model: the top-level modules by name,
+    then layer ``i`` of each stack (``layers``, an encoder-decoder's
+    ``encoder``) from its slice of the stacked ``decoder.seg<k>.pos<j>``
+    (``encoder.seg<k>.pos<j>``) arrays.  Names are the port's
+    ``model.named_parameters()`` names."""
+    stacks = [("decoder", "layers", model.layers, model.dec_kinds)]
+    tops = ["embed", "final_norm"]
+    if model.cfg.mtp_depth:
+        tops.append("mtp")
+    if model.cfg.enc_layers:
+        tops.append("enc_norm")
+        stacks.append(("encoder", "encoder", model.encoder,
+                       model.enc_kinds))
+    for name in tops:
+        yield from _walk(getattr(model, name), _need(params, name, ""),
+                         None, name, f"{name}.")
+    for name, attr, layers, kinds in stacks:
+        seen = 0
+        for i, sub, period in _layer_sources(kinds,
+                                             _need(params, name, "")):
+            yield from _walk(layers[i], sub, period, f"{name}.layer{i}",
+                             f"{attr}.{i}.")
+            seen += 1
+        if seen != len(layers):
+            raise ValueError(f"{name}: {seen} reference layers for "
+                             f"{len(layers)} port layers")
 
 
 def model_params_from_numpy(model, params):
@@ -238,25 +267,35 @@ def model_params_from_numpy(model, params):
     ``cross``) raises a ValueError naming it.  Layer ``i`` takes its
     slice of the stacked ``decoder.seg<k>.pos<j>`` arrays, encoder layer
     ``i`` its slice of ``encoder.seg<k>.pos<j>``.  Returns ``model``."""
-    stacks = [("decoder", model.layers, model.dec_kinds)]
-    tops = ["embed", "final_norm"]
-    if model.cfg.mtp_depth:
-        tops.append("mtp")
-    if model.cfg.enc_layers:
-        tops.append("enc_norm")
-        stacks.append(("encoder", model.encoder, model.enc_kinds))
-    for name in tops:
-        _assign(getattr(model, name), _need(params, name, ""), None, name)
-    for name, layers, kinds in stacks:
-        seen = 0
-        for i, sub, period in _layer_sources(kinds,
-                                             _need(params, name, "")):
-            _assign(layers[i], sub, period, f"{name}.layer{i}")
-            seen += 1
-        if seen != len(layers):
-            raise ValueError(f"{name}: {seen} reference layers for "
-                             f"{len(layers)} port layers")
+    for name, child, t in _param_sources(model, params):
+        if t.dtype != child.dtype or t.shape != child.shape:
+            raise ValueError(
+                f"{name}: reference {t.dtype}{tuple(t.shape)}, "
+                f"port {child.dtype}{tuple(child.shape)}")
+        with torch.no_grad():
+            child.copy_(t)
     return model
+
+
+def adamw_state_from_numpy(model, opt) -> dict:
+    """The reference's AdamW state (``{"m", "v"}`` pytrees shaped like the
+    parameters, with the stacked ``decoder.seg<k>.pos<j>`` leaves, and
+    ``step``) -> the port's ``optim.adamw`` state for ``model``: ``m``
+    and ``v`` keyed by the port's parameter names, in the reference's
+    moment dtype, and an int32 ``step``, on the model's device."""
+    dev = model.device
+    state = {}
+    for key in ("m", "v"):
+        state[key] = {}
+        for name, child, t in _param_sources(model, _need(opt, key, "")):
+            if t.shape != child.shape:
+                raise ValueError(f"opt.{key}.{name}: reference "
+                                 f"{tuple(t.shape)}, port "
+                                 f"{tuple(child.shape)}")
+            state[key][name] = t.contiguous().to(dev)
+    step = np.asarray(_need(opt, "step", ""))
+    state["step"] = torch.tensor(int(step), dtype=torch.int32, device=dev)
+    return state
 
 
 def _cache_leaves(cfg) -> list:

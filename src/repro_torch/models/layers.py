@@ -3,7 +3,8 @@
 Functional, as in the reference: ``*_apply(cfg, p, x)``, where ``p`` is an
 ``nn.ParameterDict`` keyed by the reference's parameter names and every
 weight keeps the reference's ``x @ w`` layout ([in, out]).  Parameters
-carry no gradient: the port serves, training waits.
+are made without gradients; a train step (``runtime.train_loop``)
+turns them on while it runs.
 
 The initialisers follow the reference's scheme (truncated-normal fan-in)
 and draw from a ``torch.Generator``; they do not give the reference's

@@ -5,7 +5,11 @@ prefill and decode modes.
 ``nn.Module`` (parameter names follow the reference's pytree:
 ``embed.tok``, ``layers.<i>.attn.wq``, ``final_norm.scale``, ...):
 
-* ``loss(batch)``                         -> (scalar loss, metrics)
+* ``loss(batch)``                         -> (scalar loss, metrics); the
+      one entry point that records gradients (a train step of
+      ``runtime.train_loop`` turns them on for the parameters while it
+      runs; ``prefill`` and ``decode_step``
+      run under ``torch.no_grad()`` and write their caches in place)
 * ``cache_init(batch, max_seq)``          -> zeroed cache (one dict per layer)
 * ``prefill(tokens, cache, frontend_feats=None, enc_feats=None)``
       -> (last-token logits [B, V] f32, cache)
@@ -288,6 +292,7 @@ class Model(nn.Module):
         metrics["loss"] = loss
         return loss, metrics
 
+    @torch.no_grad()
     def prefill(self, tokens, cache, frontend_feats=None, enc_feats=None):
         """Run the prompts ``tokens`` [B, S] through the stack and write
         their K/V into cache rows [0, S) in place (a recurrent layer: the
@@ -313,6 +318,7 @@ class Model(nn.Module):
                                tp_mesh=self.tp_mesh)
         return logits[:, 0], new_cache
 
+    @torch.no_grad()
     def decode_step(self, cache, tokens, pos, groups: int = 1):
         """One decode step. tokens: [B, 1] int; pos: scalar or [B] int32.
 

@@ -84,11 +84,25 @@ def _chunks(s: int, chunk: int):
     return nch, ch
 
 
+def _records_grad(*ts) -> bool:
+    """Whether autograd records ops on ``ts``: the scan then runs out of
+    place (an in-place update overwrites tensors its backward reads)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _doubling_scan(a, b):
     """Inclusive scan along dim 1 of the pairs (a, b) [R, c, di, n] under
-    (a_l, b_l) . (a_r, b_r) = (a_l a_r, b_l a_r + b_r), in place, in
-    log2(c) steps: at step k position t takes (t - k) . t."""
+    (a_l, b_l) . (a_r, b_r) = (a_l a_r, b_l a_r + b_r), in log2(c) steps:
+    at step k position t takes (t - k) . t.  In place where no graph is
+    recorded (a full-width prefill keeps one tensor of each); under
+    autograd a new tensor a step, the same values."""
     c, k = a.shape[1], 1
+    if _records_grad(a, b):
+        while k < c:
+            b = torch.cat([b[:, :k], b[:, k:] + b[:, :-k] * a[:, k:]], dim=1)
+            a = torch.cat([a[:, :k], a[:, :-k] * a[:, k:]], dim=1)
+            k *= 2
+        return a, b
     while k < c:
         b[:, k:] += b[:, :-k] * a[:, k:]
         a[:, k:] = a[:, :-k] * a[:, k:]
@@ -114,7 +128,9 @@ def _selective_scan_chunked(u, dt, B, C, A, h0, chunk: int = 256):
             da = torch.exp(dtc * neg_a)                    # [R, ch, di, n]
             db = dtc * B[r, t, None, :] * u[r, t, :, None]
             da, db = _doubling_scan(da, db)
-            h_all = db.addcmul_(da, h[:, None])            # with the carry
+            carry = torch.addcmul if _records_grad(da, db, h) \
+                else torch.Tensor.addcmul_
+            h_all = carry(db, da, h[:, None])              # with the carry
             del da
             yr.append(torch.einsum("bcdn,bcn->bcd", h_all, C[r, t]))
             h = h_all[:, -1].clone()

@@ -24,11 +24,14 @@ of an encoder-decoder is a stack of the same layers, run in
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA, MLSTM,
                                 SLSTM, ModelConfig)
@@ -308,13 +311,51 @@ def stack_apply(cfg: ModelConfig, layers, x, kinds: List[LayerSpec], *,
     without one); ``aux`` is the MoE layers' balance terms summed,
     float32 (a scalar, [groups] when ``groups`` > 1 and the stack has an
     MoE layer).  ``enc_out`` goes to every layer's cross attention,
-    ``tp_mesh`` (the model axis under ``cfg.tp_axis``) to every layer."""
+    ``tp_mesh`` (the model axis under ``cfg.tp_axis``) to every layer.
+    In ``mode="train"`` under ``cfg.remat`` each layer runs as a
+    checkpoint region (``_remat``)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = _remat(cfg) if mode == "train" else None
     for i, (p, (kind, is_moe)) in enumerate(zip(layers, kinds)):
-        x, _, aux = layer_apply(cfg, p, x, kind=kind, is_moe=is_moe,
-                                mode=mode,
-                                cache=None if cache is None else cache[i],
-                                pos=pos, positions=positions, groups=groups,
-                                enc_out=enc_out, tp_mesh=tp_mesh)
+        kw = dict(kind=kind, is_moe=is_moe, mode=mode,
+                  cache=None if cache is None else cache[i], pos=pos,
+                  positions=positions, groups=groups, enc_out=enc_out,
+                  tp_mesh=tp_mesh)
+        if remat is None:
+            x, _, aux = layer_apply(cfg, p, x, **kw)
+        else:
+            x, _, aux = remat(layer_apply, cfg, p, x, **kw)
         aux_total = aux_total + aux
     return x, cache, aux_total
+
+
+# the products a "dots" remat keeps for the backward pass (the
+# reference's ``dots_with_no_batch_dims_saveable``; bmm too, which
+# batched einsums lower to)
+_DOTS = ("mm", "addmm", "bmm", "baddbmm")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    name = getattr(op, "_opname", "")
+    return (CheckpointPolicy.MUST_SAVE if name in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig):
+    """The layer wrapper of a train-mode stack under ``cfg.remat``: each
+    layer a ``torch.utils.checkpoint`` region that saves its input and,
+    per ``cfg.remat_policy``, nothing more (``"nothing"``: the backward
+    pass recomputes the layer) or its matrix products (``"dots"``);
+    ``"everything"`` saves every activation, which is no checkpoint at
+    all (``None``, as without ``cfg.remat``).  The values and gradients
+    are the same under every policy."""
+    if not cfg.remat or cfg.remat_policy == "everything":
+        return None
+    if cfg.remat_policy not in ("nothing", "dots"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: dots, "
+                         f"nothing or everything")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, use_reentrant=False, **kw)

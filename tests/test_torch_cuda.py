@@ -1277,3 +1277,51 @@ def test_grid_mesh_layout_four_spawned_ranks(cuda, tmp_path):
         assert row.tolist() == [ti, mi] + tenant + model + [sum(tenant),
                                                            sum(model)]
 
+
+
+# -------------------------------------------------------------- training
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "jamba-v0.1-52b",
+                                  "deepseek-v3-671b", "xlstm-350m"])
+def test_train_step_on_the_card_matches_cpu(cuda, arch):
+    """One ``make_train_step`` at ``REDUCED`` (float32, remat "dots") on
+    the card and on the CPU from the same weights and batch: loss and
+    grad norm within 1e-5 relative, the moments within 1e-4 of the
+    largest (float32 sums in another order, amplified by the recurrent
+    stacks: jamba's embedding gradient parts by 6e-6 of the largest
+    moment, xlstm's by 2e-5), parameters within 1e-6 where the CPU's
+    gradient is at least 1e-4 and within 2 lr everywhere (Adam's first
+    step moves an entry by about lr * sign(g)); the model's gradients
+    are off after the step."""
+    import copy
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.train_loop import make_train_step
+    cfg = get_config(arch, reduced=True)
+    tc = TrainConfig(lr=1e-3, total_steps=10, warmup_steps=2)
+    cpu = Model(cfg, device="cpu", seed=0)
+    card = copy.deepcopy(cpu).to(cuda)
+    batch = SyntheticLMData(cfg, 2, 16).batch_at(0)
+    out = []
+    for model in (card, cpu):
+        opt, m = make_train_step(model, tc)(
+            adamw_init(dict(model.named_parameters())),
+            {k: torch.from_numpy(v).to(model.device)
+             for k, v in batch.items()})
+        assert not any(p.requires_grad for p in model.parameters())
+        out.append((dict(model.named_parameters()), opt, m))
+    (pg, og, mg), (pc, oc, mc) = out
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mg[k]) / float(mc[k]) - 1) <= 1e-5, k
+    top = max(float(v.abs().max()) for v in oc["m"].values())
+    for k, p in pc.items():
+        assert float((og["m"][k].cpu() - oc["m"][k]).abs().max()) \
+            <= 1e-4 * top, k
+        d = (pg[k].detach().cpu() - p.detach()).abs()
+        sure = oc["m"][k].abs() >= 1e-5
+        assert float(d.max()) <= 2e-3 + 1e-6, k
+        if sure.any():
+            assert float(d[sure].max()) <= 1e-6, k

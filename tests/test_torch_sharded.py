@@ -585,3 +585,40 @@ def test_failed_rank_fails_the_spawn(tmp_path):
     with pytest.raises(ProcessRaisedException, match="rank 1 fails"):
         ranks.spawn(R.fail_rank, 2, store_dir=str(tmp_path),
                     threads=1)
+
+
+# ------------------------------------------------------- pod gradient sync
+@pytest.mark.parametrize("world", WORLDS)
+def test_pod_sync_step_matches_agreed_scale_mean(runs, world):
+    """``pod_sync_step`` on D ranks of a mesh named "pod", two rounds:
+    every rank gets the int32 sum of the codes at the scale agreed by
+    the max over the ranks, times the scale over D, in the leaf's dtype
+    (numpy's float32 arithmetic of the same steps: within 1e-7 of the
+    scale, the bfloat16 leaf equal); each rank keeps its own residual;
+    the second round starts from it."""
+    local = runs[world][1]
+    grads = [{k: v.float().numpy() for k, v in R.pod_grads(r).items()}
+             for r in range(world)]
+    err = [{k: np.zeros_like(v) for k, v in g.items()} for g in grads]
+    for k in range(2):
+        for name in ("w", "b"):
+            x = [g[name] + e[name] for g, e in zip(grads, err)]
+            scale = np.float32(max(np.abs(a).max() for a in x)) \
+                / np.float32(127.0)
+            q = [np.clip(np.round(a / scale), -127, 127) for a in x]
+            mean = (np.sum(q, axis=0).astype(np.float32) * scale
+                    / np.float32(world))
+            for r in range(world):
+                got = local[r][f"pod{k}/0/{name}"]
+                if name == "b":              # the bfloat16 leaf
+                    mean = torch.from_numpy(mean).to(torch.bfloat16) \
+                        .float().numpy()
+                    np.testing.assert_array_equal(got, mean)
+                else:
+                    np.testing.assert_allclose(got, mean, rtol=0,
+                                               atol=1e-7 * scale)
+                err[r][name] = x[r] - q[r].astype(np.float32) * scale
+                np.testing.assert_allclose(local[r][f"pod{k}/1/{name}"],
+                                           err[r][name], rtol=0,
+                                           atol=1e-7 * scale)
+

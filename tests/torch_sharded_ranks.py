@@ -31,6 +31,7 @@ from repro_torch.core.engine import (ShardedTenantEngine, gather_states,
 from repro_torch.core.fabric import DaggerFabric, tree_map
 from repro_torch.core.load_balancer import LB_ROUND_ROBIN
 from repro_torch.core.virtualization import Switch, canonicalize_completions
+from repro_torch.optim import pod_sync_step
 
 T = 8                                  # tenants / tiers: divides 1, 2, 4
 LOOP_CFG = dict(n_flows=4, ring_entries=32, batch_size=4,
@@ -391,6 +392,31 @@ def _transport(mesh, out):
     out.keep("compact_in", (rows, valid, dest))
 
 
+def pod_grads(rank):
+    """Rank ``rank``'s gradients for ``pod_sync_step``: a float32 and a
+    bfloat16 leaf, their scales a decade apart from rank to rank."""
+    g = np.random.default_rng(50 + rank)
+    return {"w": torch.from_numpy(g.standard_normal((8, 4))
+                                  .astype(np.float32) * 10.0 ** -rank),
+            "b": torch.from_numpy(g.standard_normal(5).astype(np.float32))
+            .to(torch.bfloat16)}
+
+
+def _pod_sync(rank, out):
+    """Two ``pod_sync_step`` rounds over a mesh named "pod" (the second
+    from the first's residuals); the synced leaves keep their dtypes and
+    are kept as float32."""
+    mesh = tp.make_tenant_mesh(axis="pod", device="cpu")
+    grads = pod_grads(rank)
+    err = {k: torch.zeros(v.shape) for k, v in grads.items()}
+    for k in range(2):
+        synced, err = pod_sync_step(grads, err, mesh)
+        assert {k: v.dtype for k, v in synced.items()} == {
+            k: v.dtype for k, v in grads.items()}
+        out.keep(f"pod{k}", ({k: v.float() for k, v in synced.items()},
+                             err))
+
+
 def fail_rank(rank, world):
     if rank == 1:
         raise RuntimeError("rank 1 fails")
@@ -407,6 +433,7 @@ def run_all(rank, world, out_dir, serve_params):
     _kvs(mesh, out)
     _serving(mesh, out, serve_params)
     _transport(mesh, out)
+    _pod_sync(rank, out)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out.local)
     if rank == 0:
         np.savez(os.path.join(out_dir, "gathered.npz"), **out.gathered)
