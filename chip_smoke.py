@@ -270,7 +270,26 @@ exit, no result line) on any mismatch:
    for bit; (c) one ``make_train_step`` at Qwen2-1.5B's width, 4 of 28
    layers in float32, batch 2 x 128, on the card and on the CPU from
    the same weights: loss, grad norm, moments and parameters within
-   ``CARD_CPU_TOL`` and ``CARD_CPU_PARAM_TOL``;
+   ``CARD_CPU_TOL`` and ``CARD_CPU_PARAM_TOL``; it also prints the
+   step's model FLOPs (``launch.analysis.model_flops``) over the step's
+   seconds and ``config.HW.peak_flops_bf16``, as information;
+19. the sanitizer on the kernel routes (``FABRIC_SANITIZE`` set inside
+   the phase only, engines built after it): (a) phase 3's loopback pair
+   for ``SAN_STEPS`` steps with telemetry and deterministic arrivals,
+   (b) phase 7's 8 tenants for ``SAN_TENANT_STEPS`` and (c) phase 5's
+   KVSRig on an empty 704 MiB store for ``SAN_KVS_BATCHES`` batches
+   through ``DeviceKVS.make_engine``, each sanitized against unsanitized
+   from clones of one start: every returned leaf equal, the inputs as
+   they were, the same kernels launched as often (the fused route still
+   launches ``switch_step_fused`` and ``ring_push_packed``, the KVS
+   ``hash_bucket_tag`` and ``kv_probe``), the telemetry and load ledger
+   conserved; (d) ``rx.head + 5`` (on the staged route: the fused
+   drain heals a negative occupancy in one step, as the reference's
+   kernel does), ``tx.tail + 1000``, a tenant's ``free.tail + 1000`` and
+   a handler that makes a NaN each raise the reference's text, the card
+   running on after each; (e) under
+   ``FABRIC_SANITIZE=strict`` a clean window raises the out-of-bounds
+   check of a sentinel drop; (f) ms a step of (a)-(c), sanitized and not;
 4. kernel summary (run last): one JSON line with each kernel's launches
    on the main paths (phases 3, 5-17) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
@@ -313,8 +332,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.config import HW  # noqa: E402  (the card's data sheet)
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+HBM_BYTES_PER_S = HW.hbm_bw         # H100 SXM HBM3 (NVIDIA data sheet)
 
 # full-size loopback pair: the widest configuration FabricConfig names
 # (n_flows <= 512, the paper's bound), B = 4, request buffer B*F
@@ -358,7 +379,8 @@ LOGIT_TOL = 3e-2
 # from the same inputs and differ in the order of their sums; the
 # reference's tolerances (tests/test_kernels.py), as rtol and atol
 DA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
+PEAK_FLOPS = {"float32": 67e12,                       # H100 SXM, dense
+              "bfloat16": HW.peak_flops_bf16}
 
 # tenant batching: 8 of phase 3's 512-flow pairs stacked (16 NICs, about
 # 128 MB of fabric state), deterministic open-loop arrivals at 1,638.4 x
@@ -518,6 +540,17 @@ CARD_CPU_SHAPE = (2, 128)
 CARD_CPU_TOL = 1e-4
 CARD_CPU_SURE_M = 1e-6
 CARD_CPU_PARAM_TOL = 1e-5
+
+# phase 19: FABRIC_SANITIZE on the kernel routes, sanitized against
+# unsanitized from clones of one start: (a) phase 3's loopback pair
+# (deterministic arrivals at 1,638.4 a step) for ``SAN_STEPS`` steps with
+# telemetry and the generator; (b) phase 7's 8 tenants for
+# ``SAN_TENANT_STEPS``; (c) phase 5's KVSRig on an empty 704 MiB store for
+# ``SAN_KVS_BATCHES`` batches of its write-intense mix; then corrupted
+# states, a poisoned handler and a strict window, each of which must raise
+SAN_STEPS = 50
+SAN_TENANT_STEPS = 20
+SAN_KVS_BATCHES = 8
 
 KERNELS = {
     "ring_push": ("src/repro_torch/kernels/csrc/ring_push.cu",
@@ -1625,18 +1658,18 @@ def kvs_key_words(torch, keys):
         .to(torch.int32)
 
 
-def kvs_requests(torch, dev, set_fraction, pw):
+def kvs_requests(torch, dev, set_fraction, pw, n_batches=KVS_BATCHES):
     """``KVSRig.run``'s request batches for one mix, made in bulk and
     moved to the card once: payloads [K, 16, pw] (key words, then value
-    words from word 2) and SET flags [K, 16]."""
+    words from word 2) and SET flags [K, 16], K = ``n_batches``."""
     import numpy as np
     from repro_torch.data import ZipfKVWorkload
     gen = ZipfKVWorkload(n_keys=KVS_KEYS, skew=0.99,
                          set_fraction=set_fraction, key_bytes=8,
                          value_bytes=8, seed=0).batches(KVS_BATCH)
-    pay = np.zeros((KVS_BATCHES, KVS_BATCH, pw), np.int32)
-    is_set = np.zeros((KVS_BATCHES, KVS_BATCH), np.int32)
-    for b in range(KVS_BATCHES):
+    pay = np.zeros((n_batches, KVS_BATCH, pw), np.int32)
+    is_set = np.zeros((n_batches, KVS_BATCH), np.int32)
+    for b in range(n_batches):
         _, s_, kw, vw = next(gen)
         pay[b, :, :kw.shape[1]] = kw
         pay[b, :, 2:2 + vw.shape[1]] = vw
@@ -4626,7 +4659,6 @@ def shard_rank(rank, world, backend, out_dir, known):
     """One spawned rank of phase 16: ``rank_results`` written to
     ``out_dir/rank<r>.pt``."""
     import torch
-    sys.path.insert(0, str(ROOT / "src"))
     torch.save(rank_results(rank, world, backend, known),
                Path(out_dir) / f"rank{rank}.pt")
 
@@ -5039,7 +5071,6 @@ def tp_rank(rank, world, backend, out_dir, known, shape):
     """One spawned rank of phase 17: ``tp_results`` written to
     ``out_dir/rank<r>.pt``."""
     import torch
-    sys.path.insert(0, str(ROOT / "src"))
     torch.save(tp_results(rank, world, backend, known, shape),
                Path(out_dir) / f"rank{rank}.pt")
 
@@ -5256,6 +5287,16 @@ def train_qwen(torch, dev, card):
         f"{max(steady) * 1e3:.1f}), {r['tokens_per_s']:.0f} tokens/s; peak "
         f"memory {peak / 1e9:.2f} GB (max_memory_allocated); largest move "
         + ", ".join(f"{k} {v:.3g}" for k, v in moved.items()))
+    # the whole step's model-FLOPs share of the card's dense bf16 peak
+    # (information only)
+    from repro_torch.config import ShapeCell
+    from repro_torch.launch.analysis import model_flops
+    r["model_flops"] = model_flops(cfg, ShapeCell("phase18", s, b, "train"))
+    r["mfu"] = r["model_flops"] / (ms / 1e3 * HW.peak_flops_bf16)
+    say(f"train {TRAIN_ARCH}: model FLOPs {r['model_flops']:.4g} a step "
+        f"(launch.analysis.model_flops, ShapeCell('phase18', {s}, {b}, "
+        f"'train')), {r['mfu'] * 100:.2f} % of {HW.name}'s dense bf16 "
+        f"peak {HW.peak_flops_bf16:.4g} FLOP/s at {ms:.1f} ms a step")
     r["share"] = profile_steps(
         torch, lambda: tr.run(tr.step + TRAIN_PROFILE_STEPS),
         TRAIN_PROFILE_STEPS, ms * 1e3)
@@ -5404,6 +5445,188 @@ def phase_train(torch, dev, card):
         report[name]["total_s"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
+    return report
+
+
+def phase_sanitize(torch, dev, card):
+    """Phase 19: ``FABRIC_SANITIZE`` on the card's kernel routes, (a)-(f).
+    The variable is set inside the phase only (engines consult it when
+    they are built) and restored afterwards.  Returns the report."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core import serdes
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.engine import (LoopbackEngine, TenantEngine,
+                                         stack_states)
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.load_balancer import LB_OBJECT, LB_ROUND_ROBIN
+    from repro_torch.debug import sanitize
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.kvs import DeviceKVS
+
+    old = os.environ.pop("FABRIC_SANITIZE", None)
+    report = {}
+
+    def engines(build, mode="1"):
+        """An unsanitized and a sanitized engine from ``build``."""
+        os.environ.pop("FABRIC_SANITIZE", None)
+        plain = build()
+        os.environ["FABRIC_SANITIZE"] = mode
+        return plain, build()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, ops.launch_counts()
+
+    def compare(what, pair, start, run, steps, unit="step"):
+        """``run`` unsanitized on clones of ``start``, then sanitized on
+        ``start`` itself: every returned leaf equal, ``start`` as it was,
+        the same kernels launched as often."""
+        keep = fresh(torch, start)
+        want, t_plain, c_plain = timed(lambda: run(pair[0],
+                                                   fresh(torch, start)))
+        got, t_san, c_san = timed(lambda: run(pair[1], start))
+        tree_equal(torch, got, want, f"phase 19 {what}: sanitized")
+        tree_equal(torch, start, keep, f"phase 19 {what}: input")
+        check(c_san == c_plain, f"phase 19 {what}: launches {c_san} "
+              f"sanitized, {c_plain} not")
+        r = {"ms_plain": t_plain / steps * 1e3, "ms_sanitized":
+             t_san / steps * 1e3, "launches": c_san, "unit": unit}
+        report[what] = r
+        plural = "batches" if unit == "batch" else "steps"
+        say(f"sanitize {what} [{card}]: {steps} {plural}, "
+            f"{r['ms_plain']:.3f} ms a {unit} unsanitized, "
+            f"{r['ms_sanitized']:.3f} sanitized "
+            f"({r['ms_sanitized'] / r['ms_plain']:.2f}x); equal leaf for "
+            f"leaf, inputs untouched; launches {c_san}")
+        return got
+
+    def expect(what, text, fn):
+        try:
+            fn()
+        except sanitize.SanitizerError as exc:
+            check(text in str(exc), f"phase 19 {what}: raised {exc}")
+            report.setdefault("raised", {})[what] = [exc.kind, exc.step,
+                                                     str(exc)]
+            say(f"sanitize {what}: raised {exc.kind} check at step "
+                f"{exc.step}: {exc}")
+            return exc
+        raise SmokeFailure(f"phase 19 {what}: no check fired")
+
+    try:
+        # (a) phase 3's loopback pair on the fused kernel route
+        cfg = FabricConfig(**FULL, use_pallas=True)
+        fab, c0, s0 = make_pair(DaggerFabric, cfg, dev, LB_ROUND_ROBIN,
+                                client_entry=False)
+        gen = lg.LoadGen(fab, mode=lg.MODE_DETERMINISTIC)
+        rate = LOAD * cfg.n_flows * cfg.batch_size
+        loop = engines(lambda: LoopbackEngine(fab, fab, echo, loadgen=gen))
+        cst, sst, done, tel, gst = compare(
+            "loopback", loop,
+            (c0, s0, tlm.create(device=dev),
+             gen.init_state(rate, seed=7, device=dev)),
+            lambda eng, st: eng.run_steps(st[0], st[1], SAN_STEPS,
+                                          tel=st[2], gen=st[3]), SAN_STEPS)
+        sanitize.verify_telemetry(tel)
+        sanitize.verify_ledger(gst, cst, sst, done)
+        n = report["loopback"]["launches"]
+        check(n["switch_step_fused"] == 2 * SAN_STEPS
+              and n["ring_push_packed"] > 0,
+              f"phase 19: the sanitized fused route left its kernels: {n}")
+        check(int(done) > 0.9 * lg.snapshot(gst)["offered"],
+              f"phase 19: {int(done)} RPCs done")
+
+        # (b) phase 7's 8 tenants on the ext route
+        rates = [TENANT_BASE * (TENANTS - i) / TENANTS
+                 for i in range(TENANTS)]
+        ten = engines(lambda: TenantEngine(fab, fab, echo, loadgen=gen))
+        tc, ts, tdone, ttel, tgst = compare(
+            "tenant", ten,
+            (stack_states([c0] * TENANTS), stack_states([s0] * TENANTS),
+             tlm.create_batch(TENANTS, device=dev),
+             gen.init_state_batch(rates, device=dev)),
+            lambda eng, st: eng.run_steps(st[0], st[1], SAN_TENANT_STEPS,
+                                          tel=st[2], gen=st[3]),
+            SAN_TENANT_STEPS)
+        sanitize.verify_telemetry(ttel)
+        check(report["tenant"]["launches"]["switch_step_fused"]
+              == 2 * SAN_TENANT_STEPS and int(tdone.min()) > 0,
+              f"phase 19: tenants {report['tenant']}")
+
+        # (c) phase 5's KVSRig through DeviceKVS.make_engine
+        kfab = DaggerFabric(FabricConfig(**KVS_FABRIC, use_pallas=True))
+        kvs = DeviceKVS(**KVS_STORE, use_pallas=True)
+        kc, ks = kfab.init_state(dev), kfab.init_state(dev)
+        reqs = kvs_requests(torch, dev, KVS_MIXES[0][1],
+                            kfab.slot_words - serdes.HEADER_WORDS,
+                            SAN_KVS_BATCHES)
+
+        def kvs_run(eng, st):
+            state, counts, ktel, _ = kvs_serve(torch, dev, kfab, eng, st,
+                                               reqs, SAN_KVS_BATCHES)
+            return state, torch.tensor(counts), ktel
+        _, kcounts, _ = compare(
+            "kvs", engines(lambda: kvs.make_engine(kfab, kfab)),
+            (kfab.open_connection(kc, 1, 0, 1, LB_OBJECT),
+             kfab.open_connection(ks, 1, 0, 0, LB_OBJECT),
+             kvs.init_state(dev)), kvs_run, SAN_KVS_BATCHES, "batch")
+        n = report["kvs"]["launches"]
+        check(n["hash_bucket_tag"] > 0 and n["kv_probe"] > 0
+              and int(kcounts[:, 0].sum()) == SAN_KVS_BATCHES * KVS_BATCH,
+              f"phase 19: KVS launches {n}, counts {kcounts.tolist()}")
+
+        # (d) corrupted states and a poisoned handler on the kernel
+        # route: each raises, and the next case shows the card still runs
+        # the rx case runs the staged kernel route: the fused drain takes
+        # min(occupancy, B) rows, as the reference's kernel does
+        # (src/repro/kernels/switch_step.py:273), so a negative occupancy
+        # is drained by a negative count and the step's output no longer
+        # shows it
+        san = loop[1]
+        staged = LoopbackEngine(fab, fab, echo, stages=True)
+        expect("rx.head + 5 (staged)", "head ran past tail",
+               lambda: staged.run_steps(dataclasses.replace(
+                   cst, rx=dataclasses.replace(
+                       cst.rx, head=cst.rx.head + 5)), sst, 2))
+        expect("tx.tail + 1000", "occupancy exceeds capacity",
+               lambda: san.run_steps(dataclasses.replace(
+                   cst, tx=dataclasses.replace(
+                       cst.tx, tail=cst.tx.tail + 1000)), sst, 2))
+        expect("tenant free.tail + 1000", "more slots free than exist",
+               lambda: ten[1].run_steps(dataclasses.replace(
+                   tc, free=dataclasses.replace(
+                       tc.free, tail=tc.free.tail + 1000)), ts, 2))
+
+        def nan_echo(recs, valid):
+            out = echo(recs, valid)
+            x = torch.log(recs["payload"][:, :1].to(torch.float32) - 1e9)
+            out["payload"] = out["payload"] + torch.isnan(x).to(
+                torch.int32) * 0
+            return out
+        poisoned = LoopbackEngine(fab, fab, nan_echo)
+        expect("poisoned handler", "nan generated by primitive: log",
+               lambda: poisoned.run_steps(cst, sst, 2))
+
+        # (e) strict mode flags the dataplane's sentinel drops
+        strict = engines(lambda: LoopbackEngine(fab, fab, echo),
+                         mode="strict")[1]
+        exc = expect("strict", "out-of-bounds indexing for array of shape",
+                     lambda: strict.run_steps(*fresh(torch, (c0, s0)), 2))
+        check(exc.kind == "index", f"phase 19: strict raised {exc.kind}")
+        os.environ.pop("FABRIC_SANITIZE", None)
+        # the card after the last raise: the clean window again
+        again, _, _ = timed(lambda: loop[0].run_steps(
+            *fresh(torch, (c0, s0)), 2))
+        check(int(again[2]) >= 0, "phase 19: the card stopped")
+    finally:
+        if old is None:
+            os.environ.pop("FABRIC_SANITIZE", None)
+        else:
+            os.environ["FABRIC_SANITIZE"] = old
     return report
 
 
@@ -5655,7 +5878,6 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -5777,6 +5999,11 @@ def main():
     t0 = time.perf_counter()
     report["train"] = phase_train(torch, dev, card)
     say(f"phase 18: training ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    report["sanitize"] = phase_sanitize(torch, dev, card)
+    say(f"phase 19: the sanitizer on the kernel routes "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     paths = {"fused": (runs["fused"]["counts"], runs["fused"]["tally"],

@@ -1,5 +1,8 @@
 """Model, training and fabric configuration (``ModelConfig``,
-``TrainConfig``, ``FabricConfig``), field for field.
+``TrainConfig``, ``FabricConfig``), field for field, the run's shape
+cells (``ShapeCell``, ``SHAPES``) and the card's roofline model
+(``HWSpec``, ``HW``: an H100's data-sheet peaks where the reference keeps
+a TPU's).
 
 ``ModelConfig`` describes any architecture of the reference (plus reduced
 smoke-test variants); the port's ``models.Model`` serves its decoder-only
@@ -201,6 +204,28 @@ class ModelConfig:
         return out
 
 
+# ---------------------------------------------------------------------------
+# Run / launcher configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape) cell of the assignment matrix."""
+    name: str                       # train_4k | prefill_32k | decode_32k
+    #                                 | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     lr: float = 3e-4
@@ -241,3 +266,26 @@ class FabricConfig:
 
     def replace(self, **kw) -> "FabricConfig":
         return dataclasses.replace(self, **kw)
+
+
+# Roofline hardware model: the port's card, one NVIDIA H100 SXM
+# (``nvidia-smi``: NVIDIA H100 80GB HBM3, power limit 700.00 W).  Values
+# from NVIDIA's H100 Tensor Core GPU data sheet (SXM column) and the
+# Hopper tuning guide; a card set below 700 W runs slower under load.
+@dataclass(frozen=True)
+class HWSpec:
+    """Peak rates and capacities of one card, with the reference's field
+    names.  ``smem_bytes`` replaces the reference's ``vmem_bytes`` (a TPU
+    core's vector memory): the shared memory of one streaming
+    multiprocessor, the on-chip store a kernel tiles into."""
+    name: str = "h100_sxm"
+    peak_flops_bf16: float = 989e12      # dense bf16 tensor-core FLOP/s
+    hbm_bw: float = 3.35e12              # bytes/s of HBM3
+    ici_bw_per_link: float = 900e9 / 18  # bytes/s per NVLink 4 link: 900
+    #                                      GB/s over 18 links, both
+    #                                      directions counted
+    hbm_bytes: float = 80e9              # HBM3 capacity
+    smem_bytes: float = 228 * 2 ** 10    # shared memory per SM
+
+
+HW = HWSpec()

@@ -32,9 +32,21 @@ with ``batched=True``, is written over the tenant axis itself, as the
 KVS tenant's is (vmap refuses its dataclass state, in-place scatters
 and kernel calls).  Its fused route updates
 the stacked states in place on the card, as ``LoopbackEngine``'s does.
+
+``FABRIC_SANITIZE`` (``repro_torch.debug.sanitize``) is consulted when an
+engine is built, as the reference's engines consult it: when it is set,
+the base step re-proves the fabric invariants on its output states
+(``sanitize.wrap_step``) under the telemetry and load-generator wraps,
+and every public run method (``run_steps``, ``run_until``, ``step``)
+clones the states it is given — the counterpart of the reference's
+"donation forced off": the kernel route updates states in place on the
+card — and runs as a ``sanitize.checked_entry``, which raises on the
+window's first failed check.  The route stays the route: a sanitized
+``use_pallas`` fabric still launches its kernels.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -45,8 +57,26 @@ from repro_torch.core.fabric import (DaggerFabric, FabricState,
                                      fused_switch_front,
                                      make_loopback_step_stateful, tree_leaves,
                                      tree_map)
+from repro_torch.debug import sanitize
 
 I32 = torch.int32
+
+
+def _clone(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _sanitize_entries(engine) -> None:
+    """Make a sanitized engine's public run methods clone their inputs and
+    run as ``sanitize.checked_entry`` windows."""
+    for name in ("run_steps", "run_until", "step"):
+        method = getattr(engine, name)
+
+        def call(*args, _method=method, **kw):
+            args, kw = tree_map(_clone, (args, kw))
+            return _method(*args, **kw)
+        setattr(engine, name, sanitize.checked_entry(
+            functools.wraps(method)(call)))
 
 
 def _with_telemetry(step):
@@ -109,6 +139,11 @@ class LoopbackEngine:
         self._step = make_loopback_step_stateful(client, server, h,
                                                  stages=stages)
         self.loadgen = loadgen
+        if sanitize.enabled():
+            # every iteration re-proves the ring/FIFO invariants; the run
+            # methods clone their inputs and raise on a failed check
+            self._step = sanitize.wrap_step(self._step)
+            _sanitize_entries(self)
 
     def _wrapped(self, tel, gen):
         step = self._step if tel is None else _with_telemetry(self._step)
@@ -390,6 +425,8 @@ class TenantEngine:
     they are.
     """
 
+    _SANITIZED = True
+
     def __init__(self, client: DaggerFabric, server: DaggerFabric,
                  handler: Callable, stateful: bool = False, loadgen=None,
                  batched: bool = False):
@@ -403,6 +440,10 @@ class TenantEngine:
                 return handler(recs, valid), hstate
         self._step = make_tenant_step(client, server, h, batched=batched)
         self.loadgen = loadgen
+        if self._SANITIZED and sanitize.enabled():
+            # the invariant checks reduce over the tenant axis too
+            self._step = sanitize.wrap_step(self._step)
+            _sanitize_entries(self)
 
     _wrapped = LoopbackEngine._wrapped
     _carry = staticmethod(LoopbackEngine._carry)
@@ -536,12 +577,21 @@ class ShardedTenantEngine(TenantEngine):
     In place on the card as ``TenantEngine``: on a ``use_pallas`` fabric
     the run methods consume the states they are passed; clone a state
     you reuse.
+
+    ``FABRIC_SANITIZE`` does NOT apply here, as in the reference: the
+    sanitizer's error carry does not cross the ranks' collectives, and
+    ``TenantEngine`` (which IS sanitized) runs the same step code over
+    the same states — sanitize there, then run sharded
+    (``sanitize.note_unsanitized_sharded`` warns when it is set).
     """
+
+    _SANITIZED = False
 
     def __init__(self, client: DaggerFabric, server: DaggerFabric,
                  handler: Callable, mesh=None, axis: str = "tenant",
                  stateful: bool = False, loadgen=None,
                  batched: bool = False):
+        sanitize.note_unsanitized_sharded("ShardedTenantEngine")
         super().__init__(client, server, handler, stateful=stateful,
                          loadgen=loadgen, batched=batched)
         if mesh is None:

@@ -11,12 +11,18 @@ discarded sink row sees duplicate writes.  Where kept rows can share a
 target (the KVS store's SETs), ``set_drop_last`` first keeps only the
 last kept row per target: the row JAX's scatter lets win on the CPU,
 and a choice that does not depend on the order CUDA's writes land in.
+
+Under ``FABRIC_SANITIZE=strict`` each helper reports its out-of-range
+rows to ``debug.sanitize.check_index`` (a row not kept counts as the
+reference's sentinel index); the results never change.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.debug.sanitize import check_index
 
 
 def _linear(dst_shape, idx, keep):
@@ -39,6 +45,11 @@ def set_drop(dst, idx, vals, keep):
     ``idx`` is a tuple of index tensors over the leading dims of ``dst``;
     returns a new tensor.
     """
+    check_index(dst.shape, idx, keep)
+    return _set_drop(dst, idx, vals, keep)
+
+
+def _set_drop(dst, idx, vals, keep):
     lin, nl = _linear(dst.shape, idx, keep)
     rest = dst.shape[len(idx):]
     flat = torch.empty((nl + 1,) + tuple(rest), dtype=dst.dtype,
@@ -57,18 +68,20 @@ def set_drop_last(dsts, idx, vals, keep):
     the ``amax`` of its kept rows' numbers (an order-free reduction), and
     a row is kept if it is its target's maximum.  Returns a tuple.
     """
+    check_index(dsts[0].shape, idx, keep)
     lin, nl = _linear(dsts[0].shape, idx, keep)
     lin = lin.reshape(-1)               # rows in row-major order
     rows = torch.arange(lin.numel(), dtype=torch.int64, device=lin.device)
     last = torch.full((nl + 1,), -1, dtype=torch.int64, device=lin.device)
     last.scatter_reduce_(0, lin, rows, reduce="amax")
     won = ((lin < nl) & (last[lin] == rows)).reshape(keep.shape)
-    return tuple(set_drop(d, idx, v, won) for d, v in zip(dsts, vals))
+    return tuple(_set_drop(d, idx, v, won) for d, v in zip(dsts, vals))
 
 
 def add_drop(dst, idx, vals, keep):
     """``dst.at[idx].add(vals, mode="drop")`` restricted to ``keep`` rows
     (integer adds: exact in any order)."""
+    check_index(dst.shape, idx, keep)
     lin, nl = _linear(dst.shape, idx, keep)
     rest = dst.shape[len(idx):]
     flat = torch.zeros((nl + 1,) + tuple(rest), dtype=dst.dtype,
@@ -83,6 +96,7 @@ def add_drop(dst, idx, vals, keep):
 def get_fill(src, idx, fill: int = 0):
     """``src.at[idx].get(mode="fill", fill_value=fill)`` for an index
     tensor over dim 0: rows at out-of-range indices read ``fill``."""
+    check_index(src.shape, (idx,))
     n = src.shape[0]
     idx = torch.where(idx < 0, idx + n, idx)
     ok = (idx >= 0) & (idx < n)
@@ -94,7 +108,8 @@ def get_fill(src, idx, fill: int = 0):
 def get_fill_rows(src, idx, fill: int = 0):
     """``get_fill`` along dim 1, row by row: ``src`` [T, N], ``idx``
     [T, M] -> [T, M], where row t reads ``src[t]`` (the reference's
-    ``vmap`` of a filled gather)."""
+    ``vmap`` of a filled gather, whose check sees one row of ``src``)."""
+    check_index(src.shape[1:], (idx,))
     n = src.shape[1]
     idx = torch.where(idx < 0, idx + n, idx)
     ok = (idx >= 0) & (idx < n)
@@ -106,10 +121,16 @@ def clip_index(idx, n: int):
     """JAX's default gather index rule for a dim of size ``n``: indices in
     ``[-n, 0)`` count from the end, then every index is clamped into
     ``[0, n - 1]``."""
+    check_index((n,), (idx,))
+    return _clip(idx, n)
+
+
+def _clip(idx, n: int):
     return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
 
 
 def get_clip(src, idx):
     """``src[idx]`` with JAX's default gather semantics (``clip_index``
     over dim 0)."""
-    return src[clip_index(idx, src.shape[0])]
+    check_index(src.shape, (idx,))
+    return src[_clip(idx, src.shape[0])]

@@ -8,12 +8,14 @@ build or launch is never replaced by the plain version.  Each wrapper
 adds one to its launch count, and to the count of its call's shape
 (``launch_shapes``), where it launches its kernel and nowhere else, so a
 run can show that its path went through the kernels, and at which
-shapes.
+shapes.  A plain version runs unseen by the sanitizer
+(``debug.sanitize.opaque``), as its kernel does on the card.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.debug import sanitize
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import hash_steer as _hs
 from repro_torch.kernels import kv_probe as _kv
@@ -79,9 +81,14 @@ def _on_card(t, name: str) -> bool:
     raise ValueError(f"{name}: no kernel for tensors on {t.device}")
 
 
+def _plain(fn, *args, **kw):
+    with sanitize.opaque():
+        return fn(*args, **kw)
+
+
 def ring_push(buf, queue_ids, pos, slots):
     if not _on_card(buf, "ring_push"):
-        return _rp.ring_push_plain(buf, queue_ids, pos, slots)
+        return _plain(_rp.ring_push_plain, buf, queue_ids, pos, slots)
     out = _rp.ring_push_cuda(buf, queue_ids, pos, slots)
     _launched("ring_push", (buf, queue_ids, pos, slots))
     return out
@@ -92,7 +99,7 @@ def ring_push_packed(buf, queue_ids, pos, conn_id, rpc_id, fn_id, flags,
     args = (buf, queue_ids, pos, conn_id, rpc_id, fn_id, flags,
             payload_len, frag_idx, timestamp, payload, slot_words)
     if not _on_card(buf, "ring_push_packed"):
-        return _rp.ring_push_packed_plain(*args)
+        return _plain(_rp.ring_push_packed_plain, *args)
     out = _rp.ring_push_packed_cuda(*args)
     _launched("ring_push_packed", args)
     return out
@@ -101,7 +108,7 @@ def ring_push_packed(buf, queue_ids, pos, conn_id, rpc_id, fn_id, flags,
 def ring_push_gathered(buf, queue_ids, pos, table, refs):
     args = (buf, queue_ids, pos, table, refs)
     if not _on_card(buf, "ring_push_gathered"):
-        return _rp.ring_push_gathered_plain(*args)
+        return _plain(_rp.ring_push_gathered_plain, *args)
     out = _rp.ring_push_gathered_cuda(*args)
     _launched("ring_push_gathered", args)
     return out
@@ -109,7 +116,7 @@ def ring_push_gathered(buf, queue_ids, pos, table, refs):
 
 def ring_gather(table, refs):
     if not _on_card(table, "ring_gather"):
-        return _rc.ring_gather_plain(table, refs)
+        return _plain(_rc.ring_gather_plain, table, refs)
     out = _rc.ring_gather_cuda(table, refs)
     _launched("ring_gather", (table, refs))
     return out
@@ -120,7 +127,7 @@ def nic_deliver_fused(slots, valid, fifo, req_table, ffbuf, conn_tag,
     args = (slots, valid, fifo, req_table, ffbuf, conn_tag, conn_src,
             conn_lb, fftail, ffspace, scal)
     if not _on_card(slots, "nic_deliver_fused"):
-        return _nd.nic_deliver_fused_plain(*args, **kw)
+        return _plain(_nd.nic_deliver_fused_plain, *args, **kw)
     out = _nd.nic_deliver_fused_cuda(*args, **kw)
     _launched("nic_deliver_fused", args, kw)
     return out
@@ -134,7 +141,7 @@ def switch_step_fused(tx_buf, tx_head, tx_tail, rx_buf, rx_head, rx_tail,
             fifo, ffbuf, ff_head, ff_tail, conn_tag, conn_src, conn_dest,
             conn_lb, scal, hist, ext_slots, ext_valid, ext_dest, bmax)
     if not _on_card(tx_buf, "switch_step_fused"):
-        return _ss.switch_step_fused_plain(*args, **kw)
+        return _plain(_ss.switch_step_fused_plain, *args, **kw)
     out = _ss.switch_step_fused_cuda(*args, **kw)
     _launched("switch_step_fused", args, kw)
     return out
@@ -145,7 +152,7 @@ def rpc_pack(conn_id, rpc_id, fn_id, flags, payload_len, frag_idx,
     args = (conn_id, rpc_id, fn_id, flags, payload_len, frag_idx,
             timestamp, payload, slot_words)
     if not _on_card(conn_id, "rpc_pack"):
-        return _pk.rpc_pack_plain(*args)
+        return _plain(_pk.rpc_pack_plain, *args)
     out = _pk.rpc_pack_cuda(*args)
     _launched("rpc_pack", args)
     return out
@@ -153,7 +160,8 @@ def rpc_pack(conn_id, rpc_id, fn_id, flags, payload_len, frag_idx,
 
 def hash_steer_static(payload, n_flows, key_words=2):
     if not _on_card(payload, "hash_steer_static"):
-        return _hs.hash_steer_static_plain(payload, n_flows, key_words)
+        return _plain(_hs.hash_steer_static_plain, payload, n_flows,
+                      key_words)
     out = _hs.hash_steer_static_cuda(payload, n_flows, key_words)
     _launched("hash_steer_static", (payload, n_flows, key_words))
     return out
@@ -161,7 +169,7 @@ def hash_steer_static(payload, n_flows, key_words=2):
 
 def hash_steer(payload, active_flows):
     if not _on_card(payload, "hash_steer"):
-        return _hs.hash_steer_plain(payload, active_flows)
+        return _plain(_hs.hash_steer_plain, payload, active_flows)
     flows = torch.as_tensor(active_flows, device=payload.device) \
         .to(torch.int32).reshape(())
     out = _hs.hash_steer_static_cuda(payload, 0, active_flows=flows)
@@ -172,7 +180,7 @@ def hash_steer(payload, active_flows):
 def hash_bucket_tag(keys, n_buckets, ways, key_words):
     args = (keys, n_buckets, ways, key_words)
     if not _on_card(keys, "hash_bucket_tag"):
-        return _hs.hash_bucket_tag_plain(*args)
+        return _plain(_hs.hash_bucket_tag_plain, *args)
     out = _hs.hash_bucket_tag_cuda(*args)
     _launched("hash_bucket_tag", args)
     return out
@@ -180,7 +188,7 @@ def hash_bucket_tag(keys, n_buckets, ways, key_words):
 
 def kv_probe(tags, values, q_bucket, q_tag):
     if not _on_card(tags, "kv_probe"):
-        return _kv.kv_probe_plain(tags, values, q_bucket, q_tag)
+        return _plain(_kv.kv_probe_plain, tags, values, q_bucket, q_tag)
     out = _kv.kv_probe_cuda(tags, values, q_bucket, q_tag)
     _launched("kv_probe", (tags, values, q_bucket, q_tag))
     return out
@@ -188,7 +196,7 @@ def kv_probe(tags, values, q_bucket, q_tag):
 
 def decode_attention(q, k, v, lengths):
     if not _on_card(q, "decode_attention"):
-        return _da.decode_attention_plain(q, k, v, lengths)
+        return _plain(_da.decode_attention_plain, q, k, v, lengths)
     out = _da.decode_attention_cuda(q, k, v, lengths)
     _launched("decode_attention", (q, k, v, lengths))
     return out

@@ -66,6 +66,7 @@ from repro_torch.core.engine import stack_states, tenant_receive
 from repro_torch.core.fabric import DaggerFabric, tree_map
 from repro_torch.core.indexing import set_drop
 from repro_torch.core.load_balancer import LB_ROUND_ROBIN
+from repro_torch.debug import sanitize
 from repro_torch.device import resolve
 from repro_torch.models import Model
 from repro_torch.models.model import check_tensor_parallel
@@ -462,8 +463,11 @@ class DecodeEngine:
         (``decode_cache_specs``); the returned state holds the rank's.
         The weights are cut (``param_specs``, no fsdp) and the TP model
         built once, here: it is ``run.model``.  A model axis of one rank
-        uses the engine's own model.  The reference's sanitizer note waits
-        for the port of ``debug/sanitize.py`` (ROADMAP queue 1)."""
+        uses the engine's own model.  The runner is not sanitized: with
+        ``FABRIC_SANITIZE`` set it warns
+        (``debug.sanitize.note_unsanitized_sharded``), as the
+        reference's does."""
+        sanitize.note_unsanitized_sharded("DecodeEngine (sharded)")
         m_axis, mp = mesh.model.axis, mesh.model.size
         cfg = self.cfg
         if mp > 1:

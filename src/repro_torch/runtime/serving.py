@@ -40,6 +40,7 @@ from repro_torch.core import telemetry as tlm
 from repro_torch.core.engine import stack_states, tenant_receive
 from repro_torch.core.fabric import DaggerFabric, FabricState, tree_map
 from repro_torch.core.indexing import get_fill_rows, set_drop, set_drop_last
+from repro_torch.debug import sanitize
 from repro_torch.device import resolve
 from repro_torch.models import Model
 from repro_torch.runtime.decode import _fold_cache, _unfold_cache
@@ -253,7 +254,10 @@ class ServingEngine:
         (``shard_tenant_states``) and either this rank's tiles [K, T/D,
         N, W] or the whole [K, T, N, W] (its block is taken), and returns
         this block's results.  Each rank holds the whole model (the
-        weights replicated); no collective runs inside."""
+        weights replicated); no collective runs inside.  Not sanitized:
+        with ``FABRIC_SANITIZE`` set it warns
+        (``debug.sanitize.note_unsanitized_sharded``)."""
+        sanitize.note_unsanitized_sharded("ServingEngine (sharded)")
         mesh = self._mesh(mesh, axis)
         run = self.make_tenant_run_steps()
 
@@ -274,8 +278,10 @@ class ServingEngine:
         global_target, max_steps)`` returns ``(fst, cache, sess, served
         [T/D], dev_steps [D], out_slots [K, T/D, F*B, W], out_valid [K,
         T/D, F*B])``; egress tiles of steps the loop never reached are
-        zero and invalid, and ``dev_steps`` agrees across ranks."""
+        zero and invalid, and ``dev_steps`` agrees across ranks.  Not
+        sanitized, as ``make_sharded_tenant_run_steps``."""
         from repro_torch.core.transport import all_gather, all_reduce_sum
+        sanitize.note_unsanitized_sharded("ServingEngine (sharded)")
         mesh = self._mesh(mesh, axis)
         step = self._make_tenant_serve_step()
         fab = self.fabric

@@ -1325,3 +1325,118 @@ def test_train_step_on_the_card_matches_cpu(cuda, arch):
         assert float(d.max()) <= 2e-3 + 1e-6, k
         if sure.any():
             assert float(d[sure].max()) <= 1e-6, k
+
+
+def _sanitize_setup(cuda, stages=False):
+    """A ``use_pallas`` pair at 16 flows on the card, its start states and
+    a deterministic generator at 80 % of F x B."""
+    from repro_torch.config import FabricConfig
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core.fabric import DaggerFabric
+    from repro_torch.core.load_balancer import LB_ROUND_ROBIN
+    fab = DaggerFabric(FabricConfig(n_flows=16, ring_entries=16,
+                                    batch_size=4, dynamic_batching=False,
+                                    use_pallas=True))
+    cst, sst = fab.init_state(cuda), fab.init_state(cuda)
+    sst = fab.open_connection(sst, 1, 0, 0, LB_ROUND_ROBIN)
+    return fab, (cst, sst), lg.LoadGen(fab, mode=lg.MODE_DETERMINISTIC)
+
+
+def test_sanitized_kernel_route_matches_unsanitized(cuda, monkeypatch):
+    """Phase 19 (a) at 16 flows: a sanitized ``use_pallas`` engine on the
+    card still launches ``switch_step_fused`` (two a step) and
+    ``ring_push_packed``, returns every leaf equal to an unsanitized run
+    from clones, leaves its inputs as they were, and conserves the
+    telemetry and the load ledger."""
+    from repro_torch.core import telemetry as tlm
+    from repro_torch.core.engine import LoopbackEngine
+    from repro_torch.core.fabric import tree_map
+    from repro_torch.debug import sanitize
+
+    fab, (cst, sst), gen = _sanitize_setup(cuda)
+    start = (cst, sst, tlm.create(device=cuda),
+             gen.init_state(51.2, seed=7, device=cuda))
+    keep = tree_map(torch.clone, start)
+    runs, grew = {}, {}
+    for mode in ("", "1"):
+        monkeypatch.setenv("FABRIC_SANITIZE", mode)
+        eng = LoopbackEngine(fab, fab, lambda r, v: dict(r), loadgen=gen)
+        args = start if mode else tree_map(torch.clone, start)
+        before = ops.launch_counts()
+        runs[mode] = eng.run_steps(args[0], args[1], 12, tel=args[2],
+                                   gen=args[3])
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        grew[mode] = {k: after[k] - before[k] for k in after
+                      if after[k] > before[k]}
+    assert grew["1"] == grew[""]
+    assert grew["1"]["switch_step_fused"] == 24
+    assert grew["1"]["ring_push_packed"] > 0
+    for x, y in zip(_leaves(runs["1"]), _leaves(runs[""])):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    for x, y in zip(_leaves(start), _leaves(keep)):
+        assert torch.equal(x, y), "a sanitized run changed its input"
+    c, s, done, tel, gst = runs["1"]
+    assert int(done) > 0
+    sanitize.verify_telemetry(tel)
+    sanitize.verify_ledger(gst, c, s, done)
+
+
+@pytest.mark.parametrize("case", ["rx_staged", "tx", "free", "nan",
+                                  "strict"])
+def test_sanitized_kernel_route_raises_on_the_card(cuda, monkeypatch, case):
+    """Phase 19 (d) and (e) at 16 flows: each corruption raises the
+    reference's text on the kernel route (the rx case on the staged
+    route: the fused drain takes min(occupancy, B) rows, so a negative
+    occupancy does not outlive the step), and the card runs a clean
+    window afterwards."""
+    import dataclasses
+
+    from repro_torch.core.engine import (LoopbackEngine, TenantEngine,
+                                         stack_states)
+    from repro_torch.core.fabric import tree_map
+    from repro_torch.debug import sanitize
+
+    def echo(r, v):
+        return dict(r)
+
+    def nan_echo(r, v):
+        x = torch.log(r["payload"][:, :1].to(torch.float32) - 1e9)
+        return dict(r, payload=r["payload"] + torch.isnan(x).int() * 0)
+
+    fab, start, gen = _sanitize_setup(cuda)
+    monkeypatch.setenv("FABRIC_SANITIZE", "strict" if case == "strict"
+                       else "1")
+    cst, sst = LoopbackEngine(fab, fab, echo, loadgen=gen).run_steps(
+        *tree_map(torch.clone, start), 4,
+        gen=gen.init_state(51.2, seed=1, device=cuda))[:2] \
+        if case != "strict" else start
+    text = {"rx_staged": "client.rx ring: head ran past tail",
+            "tx": "client.tx ring: occupancy exceeds capacity",
+            "free": "client.free free fifo: more slots free than exist",
+            "nan": "nan generated by primitive: log",
+            "strict": "out-of-bounds indexing for array of shape"}[case]
+    if case == "free":
+        eng = TenantEngine(fab, fab, echo)
+        cst, sst = stack_states([cst] * 3), stack_states([sst] * 3)
+        cst = dataclasses.replace(cst, free=dataclasses.replace(
+            cst.free, tail=cst.free.tail + 1000))
+    else:
+        eng = LoopbackEngine(fab, fab, nan_echo if case == "nan" else echo,
+                             stages=case == "rx_staged")
+        ring = {"rx_staged": ("rx", "head", 5), "tx": ("tx", "tail", 1000)}
+        if case in ring:
+            name, field, by = ring[case]
+            r = getattr(cst, name)
+            cst = dataclasses.replace(cst, **{name: dataclasses.replace(
+                r, **{field: getattr(r, field) + by})})
+    before = ops.launch_counts()
+    with pytest.raises(sanitize.SanitizerError, match=text):
+        eng.run_steps(cst, sst, 2)
+    assert ops.launch_counts() != before         # the kernels ran
+    monkeypatch.delenv("FABRIC_SANITIZE")
+    out = LoopbackEngine(fab, fab, echo, loadgen=gen).run_steps(
+        *tree_map(torch.clone, start), 4,
+        gen=gen.init_state(51.2, seed=1, device=cuda))
+    torch.cuda.synchronize()
+    assert int(out[2]) > 0
