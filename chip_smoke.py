@@ -290,6 +290,19 @@ exit, no result line) on any mismatch:
    running on after each; (e) under
    ``FABRIC_SANITIZE=strict`` a clean window raises the out-of-bounds
    check of a sentinel drop; (f) ms a step of (a)-(c), sanitized and not;
+20. the dry run (``launch.dryrun``, no kernel runs in it): (a)
+   ``run_cell("qwen2-1.5b", "decode_32k")`` at ``DRYRUN_LAYERS`` of its
+   28 layers traced on the 256-rank fake production mesh with fake
+   tensors on ``cuda`` and on ``cpu``, whose
+   ``argument_bytes``, ``flops_per_device`` and ``bytes_per_device``
+   must be equal; (b) ``launch.op_cost.analyze`` of one real step of
+   phase 3's fused loopback pair on the card and on the CPU from one
+   state (its counted bytes equal: the kernels report ``bytes_moved``
+   on the card, their plain twins are not counted on the CPU) and of
+   one step of phase 6's Qwen2-1.5B decode engine (32 slots x 1,024
+   rows) on the card, each step's roofline bound ``max(flops /
+   989e12, bytes / 3.35e12)`` printed against its profiled device time
+   and at most that time;
 4. kernel summary (run last): one JSON line with each kernel's launches
    on the main paths (phases 3, 5-17) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
@@ -363,6 +376,7 @@ KVS_BATCH = 16
 # 0.065 requests/step: by Little's law about 0.065 x 385 steps of mean
 # lifetime = 25 of the 32 slots busy.  8 flows x B 4 let 32 tokens a step
 # leave the server.
+DRYRUN_LAYERS = 2                   # of 28: phase 20's trace, cut for 10 s
 LM_ARCH = "qwen2-1.5b"
 LM_POOL = dict(n_slots=32, max_seq=1024, max_prompt=512, max_new_cap=256)
 LM_FLOWS = 8
@@ -5630,6 +5644,128 @@ def phase_sanitize(torch, dev, card):
     return report
 
 
+def dryrun_traces(torch):
+    """Phase 20 (a): the qwen2-1.5b decode_32k cell (at ``DRYRUN_LAYERS``
+    of its 28 layers) traced with fake tensors on the card's device and
+    on the CPU: {device: result}."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    check(not dist.is_initialized(), "dryrun: a process group is left")
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            r = dryrun.run_cell("qwen2-1.5b", "decode_32k", False,
+                                verbose=False, device=device,
+                                overrides=[f"n_layers={DRYRUN_LAYERS}"])
+            r["wall_s"] = time.perf_counter() - t0
+            out[device] = r
+    finally:
+        dist.destroy_process_group()
+    for device, r in out.items():
+        say(f"dryrun {device}: qwen2-1.5b decode_32k on {r['chips']} "
+            f"ranks, argument_bytes {r['memory']['argument_bytes']}, "
+            f"peak_live_bytes {r['memory']['peak_live_bytes']}, "
+            f"flops_per_device {r['flops_per_device']:.6g}, "
+            f"bytes_per_device {r['bytes_per_device']:.6g}, collective "
+            f"bytes {r['collective_bytes_per_device']:.6g}, dominant "
+            f"{r['dominant']}, useful_ratio {r['useful_ratio']:.4f}, "
+            f"replicated {r['replicated_ops']}, {r['wall_s']:.1f} s")
+    c, p = out["cuda"], out["cpu"]
+    for key in ("flops_per_device", "bytes_per_device"):
+        check(c[key] == p[key], f"dryrun: {key} cuda {c[key]} != cpu "
+              f"{p[key]}")
+    check(c["memory"]["argument_bytes"] == p["memory"]["argument_bytes"],
+          f"dryrun: argument_bytes cuda {c['memory']['argument_bytes']} "
+          f"!= cpu {p['memory']['argument_bytes']}")
+    return {d: {k: r[k] for k in ("memory", "flops_per_device",
+                                  "bytes_per_device",
+                                  "collective_bytes_per_device", "dominant",
+                                  "useful_ratio", "replicated_ops",
+                                  "trace_s", "wall_s")}
+            for d, r in out.items()}
+
+
+def counted_step(torch, name, make):
+    """Phase 20 (b): one step counted by ``op_cost.analyze`` on the card,
+    then one more profiled, each a call of ``make()`` (a step with its
+    own copy of the state, made outside the count): its roofline bound
+    ``max(flops / peak, bytes / HBM rate)`` (``config.HW``) against its
+    device time; the bound must not exceed it."""
+    from repro_torch.config import HW
+    from repro_torch.launch import op_cost
+    fn = make()
+    torch.cuda.synchronize()
+    c = op_cost.analyze(fn)
+    fn = make()
+    torch.cuda.synchronize()
+    ev = device_events(torch, fn, 1)
+    dev_ms = sum(us for _, us in ev) / 1e3
+    bound_ms = max(c["flops"] / HW.peak_flops_bf16,
+                   c["bytes"] / HW.hbm_bw) * 1e3
+    kernels = {rec["op"]: rec["n"] for rec in c["records"]
+               if rec["op"].startswith("kernel.")}
+    say(f"op_cost {name}: {c['flops']:.6g} flops, {c['bytes']:.6g} bytes "
+        f"counted a step ({len(c['records'])} op groups, kernels "
+        f"{kernels}); bound {bound_ms:.5f} ms against {dev_ms:.5f} ms of "
+        f"device time ({len(ev)} activities)")
+    check(ev and bound_ms <= dev_ms, f"op_cost {name}: bound {bound_ms} ms "
+          f"exceeds the device time {dev_ms} ms")
+    return {"flops": c["flops"], "bytes": c["bytes"], "bound_ms": bound_ms,
+            "device_ms": dev_ms, "activities": len(ev), "kernels": kernels}
+
+
+def phase_dryrun(torch, dev, runs):
+    """Phase 20: the dry run's traces on both devices and the op counter
+    on real steps (module docstring)."""
+    from repro_torch.apps.lm_decode import build_engine
+    from repro_torch.core import loadgen as lg
+    from repro_torch.core.fabric import tree_map
+    from repro_torch.launch import op_cost
+    from repro_torch.runtime.decode import default_fabric_config
+
+    report = {"trace": dryrun_traces(torch)}
+    # (b) phase 3's fused loopback pair, one step from its end state, on
+    # the card and on the CPU
+    r = runs["fused"]
+    eng = r["eng"]
+    start = (r["cst"], r["sst"], r["tel"], r["gst"])
+
+    def step_on(device):
+        st = tree_map(lambda t: t.clone().to(device), start)
+        return lambda: eng.run_steps(st[0], st[1], 1, tel=st[2], gen=st[3])
+    cpu = op_cost.analyze(step_on("cpu"))
+    report["loopback"] = counted_step(torch, "loopback fused step",
+                                      lambda: step_on(dev))
+    report["loopback"]["cpu_bytes"] = cpu["bytes"]
+    report["loopback"]["cpu_flops"] = cpu["flops"]
+    card_count = op_cost.analyze(step_on(dev))
+    check(card_count["bytes"] == cpu["bytes"],
+          f"op_cost loopback: card counts {card_count['bytes']} bytes, "
+          f"the CPU {cpu['bytes']}")
+    say(f"op_cost loopback: card and CPU count {cpu['bytes']:.6g} bytes "
+        f"a step")
+    # phase 6's decode engine, one step on the card
+    lm = build_engine(cfg=get_lm_config(),
+                      fabric_cfg=default_fabric_config(n_flows=LM_FLOWS,
+                                                       use_pallas=True),
+                      mode=lg.MODE_POISSON, seed=0, use_pallas=True,
+                      n_bins=LM_BINS, device=dev, **LM_POOL)
+    st = lm.init_states(LM_RATE, seed=7)
+    run = lm.make_run_steps(1)
+    st, _ = run(st)                          # a warm pool
+    def lm_step():
+        own = fresh(torch, st)
+        return lambda: run(own)
+    report["lm_decode"] = counted_step(torch, "qwen2-1.5b decode step",
+                                       lm_step)
+    check(report["lm_decode"]["kernels"].get("kernel.decode_attention")
+          == lm.cfg.n_layers, f"op_cost lm: decode_attention reported "
+          f"{report['lm_decode']['kernels']}")
+    del lm, st, run
+    return report
+
+
 def card_label():
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
@@ -6003,6 +6139,11 @@ def main():
     t0 = time.perf_counter()
     report["sanitize"] = phase_sanitize(torch, dev, card)
     say(f"phase 19: the sanitizer on the kernel routes "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    report["dryrun"] = phase_dryrun(torch, dev, runs)
+    say(f"phase 20: the dry run and the op counter "
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()

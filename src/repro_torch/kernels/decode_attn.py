@@ -111,20 +111,22 @@ def decode_attention_cuda(q, k, v, lengths):
     return out
 
 
-def bytes_moved(q, k, v, lengths) -> int:
+def bytes_moved(q, k, v, lengths, rows=None) -> int:
     """Least bytes the call must move: the K and V rows of every slot's
-    valid prefix (all S rows for a length of 0), q, the lengths and the
-    float32 output, each once."""
+    valid prefix (all S rows for a length of 0; ``rows`` in all, if
+    given), q, the lengths and the float32 output, each once."""
     s, nkv, hd = k.shape[1], k.shape[2], k.shape[3]
-    rows = int(_valid_rows(lengths, s).sum())
+    if rows is None:
+        rows = int(_valid_rows(lengths, s).sum())
     return (2 * rows * nkv * hd * k.element_size()
-            + q.numel() * q.element_size() + lengths.numel() * 4
+            + q.numel() * q.element_size() + q.shape[0] * 4
             + q.numel() * 4)
 
 
-def flops(q, k, v, lengths) -> int:
+def flops(q, k, v, lengths, rows=None) -> int:
     """Multiply-adds of the scores and the weighted sum, 2 flops each, over
-    the rows the call reads."""
+    the rows the call reads (``rows`` in all, if given)."""
     b, nq, hd = q.shape
-    rows = int(_valid_rows(lengths, k.shape[1]).sum())
+    if rows is None:
+        rows = int(_valid_rows(lengths, k.shape[1]).sum())
     return 4 * rows * nq * hd

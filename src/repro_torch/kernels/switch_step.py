@@ -339,14 +339,21 @@ def bytes_touched(args, outs, include_fetch: bool) -> int:
     rows read and written, the monitor row written and the histogram
     read and written.  Data-dependent counts come from ``outs``' monitor
     row."""
+    mon = outs[16]
+    return touched_bytes(
+        args, int((mon[:, M_DELIVERED] + mon[:, M_FIFO_FULL]).sum()),
+        int(mon[:, M_EMITTED].sum()), outs[14].shape[0] * outs[14].shape[1],
+        include_fetch)
+
+
+def touched_bytes(args, granted: int, emitted: int, drained: int,
+                  include_fetch: bool) -> int:
+    """``bytes_touched`` for ``granted`` and ``emitted`` rows and a
+    drained tile of ``drained`` rows."""
     t, f, _, w = args[0].shape
     m = args[18].shape[0]
     c = args[11].shape[1]
     nb = args[16].shape[1]
-    mon = outs[16]
-    granted = int((mon[:, M_DELIVERED] + mon[:, M_FIFO_FULL]).sum())
-    emitted = int(mon[:, M_EMITTED].sum())
-    drained = outs[14].shape[0] * outs[14].shape[1]
     words = (m * (w + 2) + 4 * t * c + granted * (w + 2)
              + emitted * (2 * w + 2) + drained * (2 * w + 1) + 8 * t * f
              + 2 * t * SCAL_COLS + t * MON_COLS + 2 * t * nb)

@@ -1,0 +1,853 @@
+"""Multi-pod dry run: trace every (arch x shape) cell on the production
+mesh and count one rank's roofline terms (port of
+``repro/launch/dryrun.py``).
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape decode_32k --multi-pod
+  python -m repro_torch.launch.dryrun --all      # every cell, a subprocess each
+
+``--device`` (default ``cuda``) is the device of the fake tensors; the
+dry run allocates nothing and launches nothing on it.
+
+The rank's program is GSPMD's counterpart: the whole step runs once on
+DTensors over ``launch.mesh.make_production_mesh`` (rank 0 of a fake
+world of 256 or 512 ranks) under ``FakeTensorMode``.  Parameters,
+optimizer state, batch and cache are placed by ``parallel.sharding``'s
+rules after ``legalize_specs`` (a multi-axis entry shards its dim over
+each of its mesh dims, the first name major).  An op DTensor cannot
+shard runs replicated after an all-gather of its inputs, which is
+counted, as GSPMD inserts one; each such op is listed
+(``replicated_ops``).  ``launch.op_cost`` counts the rank's local ops,
+its collectives and its live bytes.
+
+Each cell writes results/torch/dryrun/<arch>__<shape>__<mesh>.json with
+the reference's keys (``trace_s`` in place of ``compile_s``; no
+``loop_bodies``: eager code runs every iteration), and its op records
+to results/torch/oplog/<tag>.json.gz, from which ``launch.reanalyze``
+re-derives the numbers without tracing again.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import gzip
+import json
+import os
+import sys
+import time
+
+import torch
+from torch import nn
+
+from repro_torch.config import HW, SHAPES, ModelConfig, ShapeCell, TrainConfig
+from repro_torch.configs import all_arch_names, get_config
+from repro_torch.launch import op_cost
+from repro_torch.launch.analysis import model_flops
+from repro_torch.launch.mesh import dp_axes, make_production_mesh
+from repro_torch.models import Model
+from repro_torch.parallel.sharding import (Spec, _map_specs, batch_specs,
+                                           cache_specs, legalize_specs,
+                                           opt_specs, param_specs)
+
+RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                           "results", "torch", "dryrun")
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs per cell
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """Meta-tensor stand-ins for the model inputs of this cell."""
+    b, s = cell.global_batch, cell.seq_len
+    i32, f32 = torch.int32, torch.float32
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cell.kind in ("train", "prefill"):
+        s_text = s - (cfg.frontend_tokens
+                      if cfg.frontend and not cfg.enc_layers else 0)
+        batch = {"tokens": sds((b, s_text), i32)}
+        if cell.kind == "train":
+            batch["labels"] = sds((b, s_text), i32)
+        if cfg.frontend and not cfg.enc_layers:
+            batch["frontend_feats"] = sds(
+                (b, cfg.frontend_tokens, cfg.frontend_dim), f32)
+        if cfg.enc_layers:
+            batch["enc_feats"] = sds(
+                (b, cfg.frontend_tokens, cfg.frontend_dim), f32)
+        return batch
+    # decode: one new token against a cache of seq_len
+    return {"tokens": sds((b, 1), i32), "pos": sds((b,), i32)}
+
+
+def apply_overrides(cfg: ModelConfig, overrides) -> ModelConfig:
+    """--override key=value (dotted keys reach nested configs).
+
+    e.g. fast_attn=True  moe.decode_mode=gather  ssm.chunk=64
+    """
+    def coerce(v):
+        for cast in (int, float):
+            try:
+                return cast(v)
+            except ValueError:
+                pass
+        return {"True": True, "False": False}.get(v, v)
+
+    for ov in overrides or []:
+        key, val = ov.split("=", 1)
+        val = coerce(val)
+        if "." in key:
+            head, sub = key.split(".", 1)
+            inner = dataclasses.replace(getattr(cfg, head), **{sub: val})
+            cfg = cfg.replace(**{head: inner})
+        else:
+            cfg = cfg.replace(**{key: val})
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# DTensors on the mesh
+# ---------------------------------------------------------------------------
+
+def _axes(entry) -> tuple:
+    """The mesh axes of a spec entry (None, a name or a tuple of names,
+    the first major)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+class _Placer:
+    """Fake DTensors of a rank's blocks on ``mesh`` under ``fake``."""
+
+    def __init__(self, mesh, fake, device):
+        self.mesh, self.fake, self.device = mesh, fake, device
+        self.names = mesh.mesh_dim_names
+        self.sizes = dict(zip(self.names, mesh.shape))
+
+    def placements(self, spec):
+        from torch.distributed.tensor import Replicate, Shard
+        pl = [Replicate()] * len(self.names)
+        for d, entry in enumerate(spec):
+            for a in _axes(entry):
+                pl[self.names.index(a)] = Shard(d)
+        return pl
+
+    def dtensor(self, meta, spec):
+        """A DTensor of ``meta``'s global shape and dtype whose local
+        shard is a fake tensor of its block under ``spec``."""
+        from torch.distributed.tensor import DTensor
+        local = list(meta.shape)
+        for d, entry in enumerate(spec):
+            for a in _axes(entry):
+                local[d] //= self.sizes[a]
+        with self.fake:
+            t = torch.empty(local, dtype=meta.dtype, device=self.device)
+            return DTensor.from_local(
+                t, self.mesh, self.placements(spec), run_check=False,
+                shape=meta.shape,
+                stride=torch.empty(meta.shape, device="meta").stride())
+
+    def tree(self, specs, tree):
+        return _map_specs(lambda s, x: self.dtensor(x, s), specs, tree)
+
+    def legal(self, specs, tree):
+        return legalize_specs(specs, tree, self.sizes)
+
+
+def _on_unsharded(names: set):
+    """The ``Meter``'s handler of an op DTensor cannot shard (each is
+    named in ``names`` with the step that served it: ``moved``, ``model
+    whole`` or ``whole``).  As GSPMD reshards an operand before an op, its
+    DTensor inputs are laid out again and the op tried anew, in turn:
+
+    1. a single sharded input moves its shard on the last mesh dim (the
+       model axis) to another of its dims that splits evenly (an
+       all-to-all: a head split that does not divide moves to the
+       sequence);
+    2. every input is all-gathered over the last mesh dim;
+    3. every input is all-gathered over every mesh dim, and the op runs
+       on the whole tensors.
+
+    A mutated input is written back to its own layout."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.utils._pytree import tree_flatten, tree_map
+
+    def moves(x, mesh):
+        """The layouts of ``x`` with its last mesh dim's shard moved."""
+        i = mesh.ndim - 1
+        p = x.placements[i]
+        if type(p) is not Shard:
+            return []
+        taken = {q.dim for j, q in enumerate(x.placements)
+                 if j != i and q.is_shard()}
+        return [[Shard(d) if j == i else q
+                 for j, q in enumerate(x.placements)]
+                for d in range(x.dim()) if d != p.dim and d not in taken
+                and x.shape[d] % mesh.size(i) == 0]
+
+    def handle(meter, func, args, kwargs):
+        dts = [a for a in tree_flatten((args, kwargs))[0]
+               if isinstance(a, DTensor)]
+        mesh = dts[0].device_mesh
+        last = mesh.ndim - 1
+        layouts = [] if len(dts) != 1 else [
+            (lambda x, pl=pl: pl) for pl in moves(dts[0], mesh)]
+        layouts.append(lambda x: [Replicate() if i == last else p
+                                  for i, p in enumerate(x.placements)])
+        layouts.append(None)
+        how = ["moved"] * (len(layouts) - 2) + ["model whole", "whole"]
+        for layout, note in zip(layouts, how):
+            def laid(x):
+                if not isinstance(x, DTensor):
+                    return x
+                pl = ([Replicate()] * mesh.ndim if layout is None
+                      else layout(x))
+                return _as(x, mesh, pl)
+            handler, meter.on_unsharded = meter.on_unsharded, None
+            try:
+                with meter:
+                    nargs, nkw = tree_map(laid, (args, kwargs))
+                    if layout is None:
+                        out = _run_whole(func, nargs, nkw, mesh)
+                    else:
+                        out = func(*nargs, **nkw)
+                    out = _write_back(meter, func, args, kwargs, nargs,
+                                      nkw, out)
+                    names.add(f"{func} [{note}]")
+                    return out
+            except Exception as e:          # noqa: BLE001 - rethrown
+                if layout is None or not op_cost._unshardable(e):
+                    raise
+            finally:
+                meter.on_unsharded = handler
+    return handle
+
+
+def _run_whole(func, args, kwargs, mesh):
+    """``func`` on the local tensors of replicated DTensors, its tensor
+    results replicated DTensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.utils._pytree import tree_map
+    rep = [Replicate()] * mesh.ndim
+    largs, lkw = tree_map(lambda x: x._local_tensor
+                          if isinstance(x, DTensor) else x, (args, kwargs))
+    out = func(*largs, **lkw)
+    by_id = {id(x._local_tensor): x for x in
+             torch.utils._pytree.tree_flatten((args, kwargs))[0]
+             if isinstance(x, DTensor)}
+
+    def wrap(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if id(t) in by_id:
+            return by_id[id(t)]
+        return DTensor.from_local(t, mesh, rep, run_check=False)
+    return tree_map(wrap, out)
+
+
+def _write_back(meter, func, args, kwargs, nargs, nkw, out):
+    """Copy each input ``func`` mutated, if it was regathered, back into
+    the original; the result refers to the originals."""
+    from torch.utils._pytree import tree_map
+    swapped = {}
+    for i, a in enumerate(func._schema.arguments):
+        if a.alias_info is None or not a.alias_info.is_write:
+            continue
+        orig = args[i] if i < len(args) else kwargs.get(a.name)
+        new = nargs[i] if i < len(nargs) else nkw.get(a.name)
+        if isinstance(orig, torch.Tensor) and new is not orig:
+            _as_copy(orig, new)
+            swapped[id(new)] = orig
+    return tree_map(lambda t: swapped.get(id(t), t), out)
+
+
+def _as_copy(dst, src):
+    """``src`` into ``dst``'s shard, laid out as ``dst`` (a partial sum
+    taking the whole value)."""
+    from torch.distributed.tensor import Replicate
+    laid = _as(src, dst.device_mesh, [Replicate() if p.is_partial() else p
+                                      for p in dst.placements])
+    dst._local_tensor.copy_(laid._local_tensor)
+
+
+# ---------------------------------------------------------------------------
+# the ops GSPMD partitions and DTensor does not, as GSPMD does
+# ---------------------------------------------------------------------------
+#
+# Each rule runs the op on the rank's shards (only their shapes are
+# real, which is all the count needs) and returns NotImplemented where
+# its layout does not apply, leaving the op to DTensor.
+
+def _row_write(meter, dst, indices, values, accumulate=False):
+    """``dst[i0, i1, ...] = values`` with every index 1-D of ``dst``'s
+    leading length (the decode cache's ``cache[rows, pos] = new``): the
+    rank writes the rows of its own batch block into its shard, as GSPMD
+    partitions a scatter whose indices follow the batch dim."""
+    from torch.distributed.tensor import DTensor
+    b = dst.shape[0]
+    if not isinstance(dst, DTensor) or accumulate or not all(
+            i is not None and i.dim() == 1 and i.shape[0] == b
+            for i in indices):
+        return NotImplemented
+    loc = dst._local_tensor
+    n, k = loc.shape[0], len(indices)
+    with meter:
+        idx = [torch.zeros((n,), dtype=torch.int64, device=loc.device)
+               for _ in indices]
+        vals = torch.empty((n,) + tuple(loc.shape[k:]), dtype=values.dtype,
+                           device=loc.device)
+        loc.index_put_(idx, vals)
+    return dst
+
+
+def _along(x, d, partial_ok=False):
+    """(mesh dims whose parts are summed after the op, the placements of
+    an operand laid out as ``x`` but whole along ``d``) for an op along
+    ``x``'s dim ``d``: the mesh dims that shard ``d`` (and, with
+    ``partial_ok``, those that hold a partial sum of ``x``).  None where
+    no mesh dim shards ``d`` or holds a partial sum, or where one cannot
+    take part (a partial sum without ``partial_ok``, a strided shard)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return None
+    dims = []
+    for i, p in enumerate(x.placements):
+        if p.is_partial() and not partial_ok:
+            return None
+        if p.is_partial() or (p.is_shard(d) and type(p) is Shard):
+            dims.append(i)
+        elif p.is_shard() and type(p) is not Shard:
+            return None
+    if not dims:
+        return None
+    return dims, [Replicate() if i in dims else p
+                  for i, p in enumerate(x.placements)]
+
+
+def _as(t, mesh, pl):
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        return t.redistribute(mesh, pl)
+
+
+def _sharded_gather(meter, x, dim, index, sparse_grad=False):
+    """``gather`` along a dim that is sharded or from a partial sum (the
+    loss's gold logit from vocab-sharded logits): each rank gathers from
+    its shard and an all-reduce over those mesh dims sums the parts, as
+    GSPMD's masked gather does."""
+    from torch.distributed.tensor import DTensor, Partial
+    d = dim % x.dim()
+    lay = _along(x, d, partial_ok=True)
+    if lay is None or not isinstance(index, DTensor):
+        return NotImplemented
+    dims, want = lay
+    mesh = x.device_mesh
+    with meter:
+        idx = _as(index, mesh, want)
+        loc = torch.gather(x._local_tensor, d, idx._local_tensor)
+        part = DTensor.from_local(
+            loc, mesh, [Partial() if i in dims else p
+                        for i, p in enumerate(want)], run_check=False,
+            shape=index.shape, stride=index.stride())
+        return _as(part, mesh, want)
+
+
+def _sharded_scatter_add(meter, x, dim, index, src):
+    """``scatter_add`` (out of place or in place) into a dim that is
+    sharded (the gather's backward): each rank adds into its shard the
+    entries whose index falls there."""
+    from torch.distributed.tensor import DTensor
+    d = dim % x.dim()
+    lay = _along(x, d)
+    if lay is None or not isinstance(index, DTensor) \
+            or not isinstance(src, DTensor):
+        return NotImplemented
+    dims, want = lay
+    mesh = x.device_mesh
+    with meter:
+        idx, sv = _as(index, mesh, want), _as(src, mesh, want)
+        loc = x._local_tensor
+        loc.scatter_add_(d, idx._local_tensor, sv._local_tensor)
+    return x
+
+
+def _sharded_scatter_add_out(meter, x, dim, index, src):
+    from torch.distributed.tensor import DTensor
+    if _along(x, dim % x.dim()) is None:
+        return NotImplemented
+    with meter:
+        y = DTensor.from_local(x._local_tensor.clone(), x.device_mesh,
+                               x.placements, run_check=False,
+                               shape=x.shape, stride=x.stride())
+    return _sharded_scatter_add(meter, y, dim, index, src)
+
+
+def _sharded_index(meter, x, indices):
+    """``x[idx]`` on the leading dim (the embedding lookup): where that
+    dim is sharded or ``x`` a partial sum, each rank looks up its rows
+    (others read as zeros) and an all-reduce sums the parts, as the
+    vocab-parallel embedding does; a dim of ``x`` sharded over a mesh dim
+    that also shards ``idx`` is gathered first (FSDP's gather)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if len(indices) != 1 or indices[0] is None \
+            or not isinstance(indices[0], DTensor):
+        return NotImplemented
+    idx = indices[0]
+    lay = _along(x, 0, partial_ok=True)
+    if lay is None or any(not isinstance(p, (Shard, Replicate))
+                          for p in idx.placements):
+        return NotImplemented
+    dims, _ = lay
+    mesh = x.device_mesh
+    xp, ip = list(x.placements), list(idx.placements)
+    for i, p in enumerate(xp):
+        if i in dims:
+            ip[i] = Replicate()
+        elif p.is_shard() and ip[i].is_shard():
+            xp[i] = Replicate()
+    out_pl = []
+    for i, p in enumerate(xp):
+        if i in dims:
+            out_pl.append(Partial())
+        elif p.is_shard():
+            out_pl.append(Shard(p.dim - 1 + idx.dim()))
+        else:
+            out_pl.append(ip[i])
+    with meter:
+        xs, ids = _as(x, mesh, xp), _as(idx, mesh, ip)
+        loc = xs._local_tensor[ids._local_tensor]
+        shape = tuple(idx.shape) + tuple(x.shape[1:])
+        part = DTensor.from_local(
+            loc, mesh, out_pl, run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride())
+        return _as(part, mesh, [Replicate() if i in dims else p
+                                for i, p in enumerate(out_pl)])
+
+
+def _new_zeros(meter, x, size, **kw):
+    """``x.new_zeros(size)`` laid out as ``x`` on the dims where the
+    sizes agree (the zeros a gather's backward scatters into), not made
+    whole on every rank and cut after."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or len(size) != x.dim():
+        return NotImplemented
+    mesh = x.device_mesh
+    pl = [p if p.is_shard() and type(p).__name__ == "Shard"
+          and size[p.dim] == x.shape[p.dim]
+          and size[p.dim] % mesh.size(i) == 0 else Replicate()
+          for i, p in enumerate(x.placements)]
+    local = list(size)
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    with meter:
+        loc = x._local_tensor.new_zeros(local, **kw)
+    return DTensor.from_local(
+        loc, mesh, pl, run_check=False, shape=torch.Size(size),
+        stride=torch.empty(size, device="meta").stride())
+
+
+def _local_unfold(meter, x, dim, size, step):
+    """``unfold`` (the Mamba conv's windows) of a dim the rank holds
+    whole: on its shard, the other dims' layout kept."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor) or any(
+            not isinstance(p, (Shard, Replicate)) for p in x.placements):
+        return NotImplemented
+    d = dim % x.dim()
+    mesh = x.device_mesh
+    pl = [Replicate() if p.is_shard(d) else p for p in x.placements]
+    with meter:
+        xs = _as(x, mesh, pl)
+        loc = xs._local_tensor.unfold(d, size, step)
+    shape = list(x.shape)
+    shape[d] = (shape[d] - size) // step + 1
+    shape.append(size)
+    return DTensor.from_local(loc, mesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=loc.stride())
+
+
+def _local_unfold_backward(meter, grad, input_sizes, dim, size, step):
+    """``unfold``'s backward on the rank's shard, laid out as the
+    windows' gradient on the dims it keeps."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    d = dim % len(input_sizes)
+    if not isinstance(grad, DTensor) or any(
+            not isinstance(p, (Shard, Replicate)) for p in grad.placements):
+        return NotImplemented
+    mesh = grad.device_mesh
+    pl = [Replicate() if p.is_shard() and p.dim in (d, grad.dim() - 1)
+          else p for p in grad.placements]
+    local = list(input_sizes)
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    with meter:
+        gs = _as(grad, mesh, pl)
+        loc = torch.ops.aten.unfold_backward(gs._local_tensor, local, d,
+                                             size, step)
+    return DTensor.from_local(
+        loc, mesh, pl, run_check=False, shape=torch.Size(input_sizes),
+        stride=torch.empty(input_sizes, device="meta").stride())
+
+
+def _rules() -> dict:
+    aten = torch.ops.aten
+    return {aten.unfold.default: _local_unfold,
+            aten.unfold_backward.default: _local_unfold_backward,
+            aten.index_put_.default: _row_write,
+            aten.gather.default: _sharded_gather,
+            aten.scatter_add_.default: _sharded_scatter_add,
+            aten.scatter_add.default: _sharded_scatter_add_out,
+            aten.index.Tensor: _sharded_index,
+            aten.new_zeros.default: _new_zeros}
+
+
+def _local_bytes(tree) -> int:
+    from torch.distributed.tensor import DTensor
+    seen, total = set(), 0
+    for t in torch.utils._pytree.tree_flatten(tree)[0]:
+        if isinstance(t, DTensor):
+            t = t._local_tensor
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            if id(st) not in seen:
+                seen.add(id(st))
+                total += st.nbytes()
+    return total
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    """Plain tensors taken as replicated DTensors in DTensor ops: the
+    body of ``torch.distributed.tensor.experimental.implicit_replication``,
+    whose package imports context parallelism (and with it the compiler
+    stack, seconds on a host with Triton)."""
+    from torch.distributed.tensor import DTensor
+    DTensor._op_dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        DTensor._op_dispatcher._allow_implicit_replication = False
+
+
+def _alias_bytes(outputs, arguments) -> int:
+    """Bytes of the outputs' storages that are among ``arguments`` (ids
+    of argument storages): the state updated in place."""
+    from torch.distributed.tensor import DTensor
+    seen, total = set(), 0
+    for t in torch.utils._pytree.tree_flatten(outputs)[0]:
+        if isinstance(t, DTensor):
+            t = t._local_tensor
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            if id(st) in arguments and id(st) not in seen:
+                seen.add(id(st))
+                total += st.nbytes()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# cell runner
+# ---------------------------------------------------------------------------
+
+def cell_tag(arch: str, shape: str, multi_pod: bool, overrides=None) -> str:
+    tag = f"{arch}__{shape}__{'multi' if multi_pod else 'single'}"
+    if overrides:
+        tag += "__" + "_".join(o.replace("=", "-").replace(".", "_")
+                               for o in overrides)
+    return tag
+
+
+def _build_step(cfg, cell, model, place, dp, a_cache):
+    """(step, args, extra outputs): the cell's step as a function of its
+    arguments, on the rank's DTensors; ``a_cache`` the meta cache."""
+    from torch.distributed.tensor import DTensor, Replicate
+    a_batch = input_specs(cfg, cell)
+    if cell.kind == "train":
+        tc = TrainConfig(opt_dtype="bfloat16" if cfg.fsdp else "float32",
+                         microbatches=1)
+        odt = _DTYPES[tc.opt_dtype]
+        o_m = place.legal(opt_specs(cfg, model), model)
+        moments = {k: torch.empty(p.shape, dtype=odt, device="meta")
+                   for k, p in model.named_parameters()}
+        with place.fake:
+            step0 = DTensor.from_local(
+                torch.zeros((), dtype=torch.int32, device=place.device),
+                place.mesh, [Replicate()] * place.mesh.ndim,
+                run_check=False)
+        opt = {"m": place.tree(o_m, moments), "v": place.tree(o_m, moments),
+               "step": step0}
+        batch = place.tree(place.legal(batch_specs(a_batch, dp=dp), a_batch),
+                           a_batch)
+        from repro_torch.runtime.train_loop import make_train_step
+        step = make_train_step(model, tc)
+        params = dict(model.named_parameters())
+
+        def train_step(opt, batch):
+            opt, metrics = step(opt, batch)
+            return params, opt, metrics
+        return train_step, (opt, batch), (params,)
+    c_specs = place.legal(cache_specs(cfg, a_cache, place.sizes["model"],
+                                      dp=dp), a_cache)
+    cache = place.tree(c_specs, a_cache)
+    if cell.kind == "prefill":
+        batch = place.tree(place.legal(batch_specs(a_batch, dp=dp), a_batch),
+                           a_batch)
+
+        def prefill_step(batch, cache):
+            extra = {k: v for k, v in batch.items() if k != "tokens"}
+            return model.prefill(batch["tokens"], cache, **extra)
+        return prefill_step, (batch, cache), ()
+    tok = place.dtensor(a_batch["tokens"],
+                        place.legal(Spec(dp, None), a_batch["tokens"]))
+    pos = place.dtensor(a_batch["pos"], place.legal(Spec(dp), a_batch["pos"]))
+
+    def serve_step(cache, tokens, pos):
+        return model.decode_step(cache, tokens, pos)
+    return serve_step, (cache, tok, pos), ()
+
+
+def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
+             overrides=None, profile_top: int = 0, device="cuda", *,
+             reduced: bool = False, cell: ShapeCell | None = None,
+             mesh=None):
+    """Trace one cell and return its JSON (a dict).  For small runs:
+    ``reduced`` takes the architecture's ``REDUCED`` config, ``cell``
+    replaces the shape's cell and ``mesh`` the production mesh."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg = apply_overrides(get_config(arch, reduced=reduced), overrides)
+    cell = cell or SHAPES[shape]
+    if cell.name == "long_500k" and not cfg.supports_long_context:
+        return {"arch": arch, "shape": shape, "skipped":
+                "pure full-attention arch; long_500k not applicable "
+                "(see DESIGN.md)"}
+    mesh = mesh if mesh is not None else make_production_mesh(
+        multi_pod=multi_pod, device=device)
+    dp = dp_axes(mesh)
+    # wall clock measures the host-side trace for the report
+    t0 = time.time()  # fabriclint: allow(FL003)
+    model = Model(cfg, device="meta")
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+    place = _Placer(mesh, fake, torch.device(device))
+    p_specs = place.legal(param_specs(cfg, model), model)
+    # the cache's shapes while the model is still on the meta device
+    a_cache = (None if cell.kind == "train"
+               else model.cache_init(cell.global_batch, cell.seq_len))
+    with torch.no_grad():
+        for name, p in list(model.named_parameters()):
+            owner, _, leaf = name.rpartition(".")
+            model.get_submodule(owner)[leaf] = nn.Parameter(
+                place.dtensor(p, p_specs[name]), requires_grad=False)
+    step, args, extra_outs = _build_step(cfg, cell, model, place, dp,
+                                         a_cache)
+    arguments = (dict(model.named_parameters()), args)
+    replicated: set = set()
+    meter = op_cost.Meter(fake_mode=fake, rules=_rules(),
+                          on_unsharded=_on_unsharded(replicated))
+    meter.track(arguments)
+    with fake, _implicit_replication(), meter:
+        out = step(*args)
+    # an argument the step only overwrites (the prefill's cache) is an
+    # output, as the reference's jit drops an argument it never reads
+    arg_bytes = meter.read_bytes()
+    outputs = (out, extra_outs) if extra_outs else out
+    out_bytes = _local_bytes(outputs)
+    alias = _alias_bytes(outputs, meter.read_storages())
+    peak = max(meter.peak, arg_bytes + out_bytes - alias)
+    records = meter.records
+    trace_s = time.time() - t0  # fabriclint: allow(FL003)
+    del out, outputs
+
+    tag = cell_tag(arch, cell.name, multi_pod, overrides)
+    if reduced:
+        tag += "__reduced"
+    oplog_dir = os.path.join(os.path.dirname(RESULTS_DIR), "oplog")
+    os.makedirs(oplog_dir, exist_ok=True)
+    with gzip.open(os.path.join(oplog_dir, tag + ".json.gz"), "wt") as f:
+        json.dump({"arch": arch, "shape": cell.name, "multi_pod": multi_pod,
+                   "overrides": list(overrides or []), "reduced": reduced,
+                   "cell": dataclasses.asdict(cell),
+                   "mesh": "x".join(str(n) for n in mesh.shape),
+                   "chips": mesh.size(), "records": records}, f)
+    if profile_top:
+        for by, unit, scale in (("bytes", "GB", 1e9), ("flops", "GF", 1e9)):
+            print(f"--- top {profile_top} {by} contributors ---")
+            for c_, op_, shapes_, n_ in op_cost.top_contributors(
+                    records, profile_top, by=by):
+                print(f"  {c_ / scale:10.2f} {unit}  {op_:36s} x{n_:<6d} "
+                      f"{shapes_[:60]}")
+    result = {
+        "arch": arch, "shape": cell.name,
+        "mesh": "x".join(str(n) for n in mesh.shape),
+        "chips": mesh.size(),
+        "trace_s": round(trace_s, 1),
+        "memory": {
+            "argument_bytes": arg_bytes,
+            "output_bytes": out_bytes,
+            "temp_bytes": max(0, peak - (arg_bytes + out_bytes - alias)),
+            "alias_bytes": alias,
+            "peak_live_bytes": peak,
+        },
+        **derive(cfg, cell, mesh.size(), records),
+        "replicated_ops": sorted(replicated),
+        "params_total": cfg.param_count(),
+        "params_active": cfg.param_count(active_only=True),
+    }
+    if verbose:
+        print(json.dumps(result, indent=2, default=str))
+    return result
+
+
+def derive(cfg: ModelConfig, cell: ShapeCell, chips: int, records) -> dict:
+    """The counted terms of a cell from its op records: per-device FLOPs,
+    bytes and collectives, the roofline terms on ``config.HW`` (one H100
+    SXM), the dominant term and the useful share of ``model_flops``.
+    The reference's ``raw_*`` and ``collectives_uncorrected`` (XLA's
+    counts before loop correction) equal the counted ones here: an
+    eager run needs no correction."""
+    c = op_cost.totals(records)
+    flops_dev, bytes_dev = c["flops"], c["bytes"]
+    coll_dev = c["collective_bytes"]
+    mf = model_flops(cfg, cell)
+    terms = {
+        "compute_s": flops_dev / HW.peak_flops_bf16,
+        "memory_s": bytes_dev / HW.hbm_bw,
+        "collective_s": coll_dev / HW.ici_bw_per_link,
+    }
+    return {
+        "flops_per_device": flops_dev,
+        "bytes_per_device": bytes_dev,
+        "raw_flops_per_device": flops_dev,
+        "raw_bytes_per_device": bytes_dev,
+        "collectives": c["collectives"],
+        "collectives_uncorrected": c["collectives"],
+        "collective_bytes_per_device": coll_dev,
+        "roofline": terms,
+        "dominant": max(terms, key=terms.get),
+        "model_flops_global": mf,
+        "useful_ratio": mf / max(flops_dev * chips, 1.0),
+    }
+
+
+# ---------------------------------------------------------------------------
+# orchestrator
+# ---------------------------------------------------------------------------
+
+def run_all(meshes=("single", "multi"), archs=None, shapes=None,
+            timeout: int = 1800, device="cuda", jobs: int = 1):
+    """Every (mesh, arch, shape) cell without a JSON yet, a subprocess
+    each, ``jobs`` at a time; returns the failures [(arch, shape, mesh,
+    the end of stderr)]."""
+    import subprocess
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    archs = archs or all_arch_names()
+    shapes = shapes or list(SHAPES)
+    todo = []
+    for mesh_kind in meshes:
+        for arch in archs:
+            for shape in shapes:
+                out = os.path.join(
+                    RESULTS_DIR,
+                    f"{arch}__{shape}__{mesh_kind}.json".replace("/", "_"))
+                if os.path.exists(out):
+                    print(f"[skip] {out}")
+                    continue
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--out", out,
+                       "--device", str(device), "--results-dir",
+                       RESULTS_DIR]
+                if mesh_kind == "multi":
+                    cmd.append("--multi-pod")
+                todo.append(((arch, shape, mesh_kind), cmd))
+    failures, running = [], []
+    logs = os.path.join(os.path.dirname(RESULTS_DIR), "logs")
+    os.makedirs(logs, exist_ok=True)
+
+    def finish(cell, proc, t0, log):
+        try:
+            # a cell's time limit, on the host clock
+            left = timeout - (time.time() - t0)  # fabriclint: allow(FL003)
+            proc.wait(timeout=max(1, left))
+            rc = proc.returncode
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = -1
+        log.close()
+        if rc != 0:
+            with open(log.name) as f:
+                err = f.read()[-2000:]
+            if rc == -1:
+                err += f"\ntimeout after {timeout}s"
+            failures.append((*cell, err))
+            print(f"[FAIL] {' '.join(cell)}\n{err}", flush=True)
+
+    while todo or running:
+        while todo and len(running) < jobs:
+            cell, cmd = todo.pop(0)
+            print("[run]", " ".join(cmd), flush=True)
+            log = open(os.path.join(logs, "__".join(cell) + ".err"), "w")
+            running.append((cell, subprocess.Popen(
+                cmd, stdout=subprocess.DEVNULL, stderr=log),
+                time.time(), log))  # fabriclint: allow(FL003)
+        finish(*running.pop(0))
+    return failures
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--meshes", default="single,multi",
+                    help="with --all: the meshes to run (single, multi)")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="with --all: cells traced at once")
+    ap.add_argument("--timeout", type=int, default=1800,
+                    help="with --all: seconds a cell may take")
+    ap.add_argument("--out")
+    ap.add_argument("--override", action="append", default=[],
+                    help="cfg override key=value (repeatable; dotted keys "
+                         "for nested configs, e.g. moe.decode_mode=gather)")
+    ap.add_argument("--profile-top", type=int, default=0,
+                    help="print the N heaviest op groups (the dry-run "
+                         "profiler)")
+    ap.add_argument("--device", default="cuda",
+                    help="device of the fake tensors (nothing runs there)")
+    ap.add_argument("--results-dir", default=None,
+                    help="where the cell JSONs go (the op logs beside it "
+                         "in oplog/); default results/torch/dryrun")
+    args = ap.parse_args(argv)
+    if args.results_dir:
+        global RESULTS_DIR
+        RESULTS_DIR = args.results_dir
+    if args.all:
+        failures = run_all(meshes=tuple(args.meshes.split(",")),
+                           device=args.device, jobs=args.jobs,
+                           timeout=args.timeout)
+        if failures:
+            sys.exit(1)
+        return
+    result = run_cell(args.arch, args.shape, args.multi_pod,
+                      overrides=args.override,
+                      profile_top=args.profile_top, device=args.device)
+    result["overrides"] = args.override
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=2, default=str)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,12 @@
       --reduced --steps 20 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt \\
       --device cpu
 
-``--device`` defaults to ``cuda``.  ``--distributed`` initializes
+``--device`` defaults to ``cuda``.  ``--mesh`` (``local`` or
+``production``) is parsed and has no effect, as in the reference's
+launcher, which never reads it: the production mesh
+(``launch.mesh.make_production_mesh``) is the dry run's
+(``launch.dryrun``), which can be traced but not run.
+``--distributed`` initializes
 ``torch.distributed`` from the environment (``MASTER_ADDR``,
 ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``) for the run and destroys
 the group after it.  Checkpoints shard by
@@ -56,10 +61,6 @@ def make_trainer(args: argparse.Namespace) -> Trainer:
 def main(argv=None) -> Trainer:
     """Run the driver; returns the trainer after its last save."""
     args = parse_args(argv)
-    if args.mesh == "production":
-        raise NotImplementedError(
-            "--mesh production needs make_production_mesh, which is not "
-            "ported (ROADMAP queue 1 item 5)")
     if not args.distributed:
         return _train(args)
     import torch.distributed as dist

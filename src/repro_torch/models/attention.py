@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.device import has_values
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (dense_init, dtype_of, mm, norm_apply,
                                        norm_init, param)
@@ -248,8 +249,10 @@ def pos_vec(pos, b, device):
 
 def _check_positions(pv, s: int):
     """Decode positions must lie in the cache's [0, s) rows: checked on
-    CPU tensors; on the card an index past the end is a device fault."""
-    if pv.device.type == "cpu" and not bool(((pv >= 0) & (pv < s)).all()):
+    CPU tensors with values; on the card an index past the end is a
+    device fault."""
+    if pv.device.type == "cpu" and has_values(pv) \
+            and not bool(((pv >= 0) & (pv < s)).all()):
         raise ValueError(f"decode position outside the cache of {s} rows: "
                          f"{pv.tolist()}")
 

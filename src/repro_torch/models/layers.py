@@ -38,8 +38,18 @@ def mm(x, w):
     return x.to(dt) @ w.to(dt)
 
 
+class NoDraw:
+    """The generator of a model built on the meta device
+    (``Model(cfg, device="meta")``): shapes and dtypes with no values, as
+    the reference's ``jax.eval_shape(model.init)`` gives."""
+    device = torch.device("meta")
+
+
 def dense_init(gen, shape, dtype, scale: float | None = None):
-    """Truncated-normal fan-in init, on ``gen``'s device."""
+    """Truncated-normal fan-in init, on ``gen``'s device (no draw on the
+    meta device)."""
+    if gen.device.type == "meta":
+        return param(torch.empty(shape, dtype=dtype, device="meta"))
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)

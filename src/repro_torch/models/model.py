@@ -57,10 +57,10 @@ from torch import nn
 from repro_torch.config import ATTN_GLOBAL, ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import (dense_init, dtype_of, embed_apply,
-                                       embed_init, frontend_apply,
-                                       norm_apply, norm_init, param,
-                                       unembed_apply)
+from repro_torch.models.layers import (NoDraw, dense_init, dtype_of,
+                                       embed_apply, embed_init,
+                                       frontend_apply, norm_apply, norm_init,
+                                       param, unembed_apply)
 from repro_torch.parallel.sharding import (legalize_specs, param_specs,
                                            shard_tree)
 
@@ -121,7 +121,9 @@ class Model(nn.Module):
         _refuse_unserved(cfg)
         _check_model_mesh(cfg, model_mesh)
         dev = resolve(device)
-        if generator is None:
+        if generator is None and dev.type == "meta":
+            generator = NoDraw()
+        elif generator is None:
             generator = torch.Generator(device=dev)
             generator.manual_seed(seed)
         if generator.device.type != dev.type:

@@ -14,7 +14,7 @@ level (``ModelConfig._layer_kinds``).
 Nothing here syncs with the host: every size comes from shapes (the
 capacity included), the drops are a spare buffer row that takes the
 out-of-capacity writes and is cut away, the dropped reads are a zero row
-gathered, and the expert counts are a ``scatter_add_`` into [E] zeros.
+gathered, and the expert counts are a ``scatter_add`` into [E] zeros.
 
 ``groups`` lets one call compute what G calls on equal slices of the
 batch compute: the tenant runners fold T pools into one decode batch,
@@ -112,7 +112,7 @@ def moe_apply(cfg: ModelConfig, p, x, decode: bool = False,
     # into [E] zeros, not a one-hot
     me = probs.mean(dim=1)                                 # [G,E]
     top1 = torch.zeros((g, e), dtype=torch.float32, device=dev) \
-        .scatter_add_(1, eidx[..., 0],
+        .scatter_add(1, eidx[..., 0],
                       torch.ones((g, t), dtype=torch.float32, device=dev))
     aux = e * (me * (top1 / t)).sum(dim=-1)
     if groups == 1:
@@ -135,7 +135,7 @@ def moe_apply(cfg: ModelConfig, p, x, decode: bool = False,
     sg = torch.gather(flat_g, 1, order)
     st = flat_t[order]                                     # [G,T*k]
     counts = torch.zeros((g, e), dtype=torch.int64, device=dev) \
-        .scatter_add_(1, flat_e, torch.ones_like(flat_e))
+        .scatter_add(1, flat_e, torch.ones_like(flat_e))
     seg_start = torch.cumsum(counts, dim=1) - counts
     rank = torch.arange(t * k, device=dev) - torch.gather(seg_start, 1, se)
     rank_c = torch.where(rank >= cap, cap, rank)   # row cap: the drops
@@ -151,7 +151,7 @@ def moe_apply(cfg: ModelConfig, p, x, decode: bool = False,
     ye = F.pad(ye.reshape(e, g, cap, d).transpose(0, 1), (0, 0, 0, 1))
     y_tok = ye[gi, se, rank_c]                             # [G,T*k,d]
     y_tok = y_tok * sg[..., None].to(y_tok.dtype)
-    y = torch.zeros((g * t, d), dtype=y_tok.dtype, device=dev).index_add_(
+    y = torch.zeros((g * t, d), dtype=y_tok.dtype, device=dev).index_add(
         0, (gi * t + st).reshape(-1), y_tok.reshape(-1, d))
 
     if mo.n_shared:
@@ -179,4 +179,4 @@ def _combine_gather(cfg: ModelConfig, p, xf, gate, eidx):
     y_a = mm(h, p["w_out"][flat_e])[:, 0]                  # [T*k,d]
     y_a = y_a * gate.reshape(-1)[:, None].to(y_a.dtype)
     return torch.zeros((t, d), dtype=y_a.dtype, device=xf.device) \
-        .index_add_(0, flat_t, y_a)
+        .index_add(0, flat_t, y_a)

@@ -539,10 +539,19 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
+    """A device with no kernel and no plain route is refused; a meta
+    tensor (no values: a dry run) gets empty outputs of the kernel's
+    shape and launches nothing."""
+    from types import SimpleNamespace
+    odd = SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.ring_gather(odd, odd)
+    ops.reset_launch_counts()
     table = torch.zeros((4, 8), dtype=torch.int32, device="meta")
     refs = torch.zeros((2, 2), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.ring_gather(table, refs)
+    out = ops.ring_gather(table, refs)
+    assert out.device.type == "meta" and tuple(out.shape) == (2, 2, 8)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
 def test_kernel_launchers_check_shapes_before_launch():

@@ -199,7 +199,8 @@ def _args(tmp_path, *more):
 
 def test_launcher_trains_and_resumes(tmp_path, capsys):
     """3 steps with a checkpoint every 2 and a save at the end, then a
-    resumed run to step 5; ``--mesh production`` is refused."""
+    resumed run to step 5; ``--mesh production`` has no effect, as in
+    the reference's launcher: a run with it equals one without."""
     t = launch_train.main(_args(tmp_path, "--steps", "3"))
     assert t.step == 3 and len(t.history) == 3
     assert t.ckpt._steps() == [2, 3]
@@ -210,8 +211,14 @@ def test_launcher_trains_and_resumes(tmp_path, capsys):
     assert "resumed from step 3" in capsys.readouterr().out
     assert t.step == 5 and [h["step"] for h in t.history] == [4, 5]
     assert t.tc.microbatches == 2 and t.ckpt.latest_step() == 5
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        launch_train.main(_args(tmp_path, "--mesh", "production"))
+    plain = launch_train.main(_args(tmp_path / "a", "--steps", "2"))
+    prod = launch_train.main(_args(tmp_path / "b", "--steps", "2",
+                                   "--mesh", "production"))
+    assert [h["loss"] for h in prod.history] == \
+        [h["loss"] for h in plain.history]
+    for (name, p), (_, q) in zip(plain.model.named_parameters(),
+                                 prod.model.named_parameters()):
+        assert torch.equal(p, q), name
 
 
 def test_launcher_distributed_from_environment(tmp_path, monkeypatch):
