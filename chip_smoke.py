@@ -291,11 +291,14 @@ exit, no result line) on any mismatch:
    ``FABRIC_SANITIZE=strict`` a clean window raises the out-of-bounds
    check of a sentinel drop; (f) ms a step of (a)-(c), sanitized and not;
 20. the dry run (``launch.dryrun``, no kernel runs in it): (a)
-   ``run_cell("qwen2-1.5b", "decode_32k")`` at ``DRYRUN_LAYERS`` of its
-   28 layers traced on the 256-rank fake production mesh with fake
-   tensors on ``cuda`` and on ``cpu``, whose
-   ``argument_bytes``, ``flops_per_device`` and ``bytes_per_device``
-   must be equal; (b) ``launch.op_cost.analyze`` of one real step of
+   ``run_cell("qwen2-1.5b", "decode_32k")`` and ``run_cell("xlstm-350m",
+   "train_4k")`` (its sLSTM's 4,096 tokens through ``op_cost.scan``'s
+   one traced body: ``loop_bodies`` must name them) at
+   ``DRYRUN_LAYERS`` of their layers traced on the 256-rank fake
+   production mesh with fake tensors on ``cuda`` and on ``cpu``, whose
+   ``argument_bytes``, ``flops_per_device``, ``bytes_per_device`` and
+   collective bytes must be equal (each cell's collective bytes and
+   dominant term printed); (b) ``launch.op_cost.analyze`` of one real step of
    phase 3's fused loopback pair on the card and on the CPU from one
    state (its counted bytes equal: the kernels report ``bytes_moved``
    on the card, their plain twins are not counted on the CPU) and of
@@ -307,7 +310,9 @@ exit, no result line) on any mismatch:
    on the main paths (phases 3, 5-17) and, at the shape with the most
    launches, its device time per call (CUDA graph replay), the plain
    version's, its bound and, for decode attention, the time of
-   ``F.scaled_dot_product_attention`` on the same inputs.  Every kernel
+   ``F.scaled_dot_product_attention`` on the same inputs (for
+   ``ring_gather``, alone on the staged emit's inputs, of
+   ``table.index_select(0, refs.reshape(-1))``).  Every kernel
    is timed at every shape its main paths give it (``by_shape`` in the
    details: launches by path, ms, call ms, bound, device activities a
    call), on inputs captured at that shape in one more step of phases
@@ -376,7 +381,7 @@ KVS_BATCH = 16
 # 0.065 requests/step: by Little's law about 0.065 x 385 steps of mean
 # lifetime = 25 of the 32 slots busy.  8 flows x B 4 let 32 tokens a step
 # leave the server.
-DRYRUN_LAYERS = 2                   # of 28: phase 20's trace, cut for 10 s
+DRYRUN_LAYERS = 2                   # of 28 and 24: phase 20's traces
 LM_ARCH = "qwen2-1.5b"
 LM_POOL = dict(n_slots=32, max_seq=1024, max_prompt=512, max_new_cap=256)
 LM_FLOWS = 8
@@ -5644,46 +5649,60 @@ def phase_sanitize(torch, dev, card):
     return report
 
 
+DRYRUN_CELLS = (("qwen2-1.5b", "decode_32k"), ("xlstm-350m", "train_4k"))
+
+
 def dryrun_traces(torch):
-    """Phase 20 (a): the qwen2-1.5b decode_32k cell (at ``DRYRUN_LAYERS``
-    of its 28 layers) traced with fake tensors on the card's device and
-    on the CPU: {device: result}."""
+    """Phase 20 (a): each of ``DRYRUN_CELLS`` (at ``DRYRUN_LAYERS`` of its
+    layers) traced with fake tensors on the card's device and on the
+    CPU: {"arch shape": {device: result}}."""
     import torch.distributed as dist
     from repro_torch.launch import dryrun
     check(not dist.is_initialized(), "dryrun: a process group is left")
     out = {}
     try:
-        for device in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            r = dryrun.run_cell("qwen2-1.5b", "decode_32k", False,
-                                verbose=False, device=device,
-                                overrides=[f"n_layers={DRYRUN_LAYERS}"])
-            r["wall_s"] = time.perf_counter() - t0
-            out[device] = r
+        for arch, shape in DRYRUN_CELLS:
+            cell = out.setdefault(f"{arch} {shape}", {})
+            for device in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                r = dryrun.run_cell(arch, shape, False, verbose=False,
+                                    device=device,
+                                    overrides=[f"n_layers={DRYRUN_LAYERS}"])
+                r["wall_s"] = time.perf_counter() - t0
+                cell[device] = r
     finally:
         dist.destroy_process_group()
-    for device, r in out.items():
-        say(f"dryrun {device}: qwen2-1.5b decode_32k on {r['chips']} "
-            f"ranks, argument_bytes {r['memory']['argument_bytes']}, "
-            f"peak_live_bytes {r['memory']['peak_live_bytes']}, "
-            f"flops_per_device {r['flops_per_device']:.6g}, "
-            f"bytes_per_device {r['bytes_per_device']:.6g}, collective "
-            f"bytes {r['collective_bytes_per_device']:.6g}, dominant "
-            f"{r['dominant']}, useful_ratio {r['useful_ratio']:.4f}, "
-            f"replicated {r['replicated_ops']}, {r['wall_s']:.1f} s")
-    c, p = out["cuda"], out["cpu"]
-    for key in ("flops_per_device", "bytes_per_device"):
-        check(c[key] == p[key], f"dryrun: {key} cuda {c[key]} != cpu "
-              f"{p[key]}")
-    check(c["memory"]["argument_bytes"] == p["memory"]["argument_bytes"],
-          f"dryrun: argument_bytes cuda {c['memory']['argument_bytes']} "
-          f"!= cpu {p['memory']['argument_bytes']}")
-    return {d: {k: r[k] for k in ("memory", "flops_per_device",
-                                  "bytes_per_device",
-                                  "collective_bytes_per_device", "dominant",
-                                  "useful_ratio", "replicated_ops",
-                                  "trace_s", "wall_s")}
-            for d, r in out.items()}
+    for name, cell in out.items():
+        for device, r in cell.items():
+            say(f"dryrun {device}: {name} on {r['chips']} ranks, "
+                f"argument_bytes {r['memory']['argument_bytes']}, "
+                f"peak_live_bytes {r['memory']['peak_live_bytes']}, "
+                f"flops_per_device {r['flops_per_device']:.6g}, "
+                f"bytes_per_device {r['bytes_per_device']:.6g}, collective "
+                f"bytes {r['collective_bytes_per_device']:.6g}, dominant "
+                f"{r['dominant']}, useful_ratio {r['useful_ratio']:.4f}, "
+                f"loop_bodies {r['loop_bodies']}, replicated "
+                f"{r['replicated_ops']}, {r['wall_s']:.1f} s")
+        c, p = cell["cuda"], cell["cpu"]
+        for key in ("flops_per_device", "bytes_per_device",
+                    "collective_bytes_per_device"):
+            check(c[key] == p[key], f"dryrun {name}: {key} cuda {c[key]} "
+                  f"!= cpu {p[key]}")
+        check(c["memory"]["argument_bytes"] == p["memory"]["argument_bytes"],
+              f"dryrun {name}: argument_bytes cuda "
+              f"{c['memory']['argument_bytes']} != cpu "
+              f"{p['memory']['argument_bytes']}")
+        check(c["loop_bodies"] == p["loop_bodies"],
+              f"dryrun {name}: loop_bodies {c['loop_bodies']} != "
+              f"{p['loop_bodies']}")
+    xl = out["xlstm-350m train_4k"]["cuda"]
+    check(xl["loop_bodies"] == {"ssm.slstm_tokens": 4096},
+          f"dryrun xlstm: loop_bodies {xl['loop_bodies']}")
+    return {name: {d: {k: r[k] for k in (
+        "memory", "flops_per_device", "bytes_per_device",
+        "collective_bytes_per_device", "collectives", "dominant",
+        "useful_ratio", "loop_bodies", "replicated_ops", "trace_s",
+        "wall_s")} for d, r in cell.items()} for name, cell in out.items()}
 
 
 def counted_step(torch, name, make):
@@ -5880,6 +5899,9 @@ def time_shape(torch, name, impl, args, kw):
                      "ops_bound_ms": da.flops(*args)
                      / PEAK_FLOPS[dname] * 1e3,
                      "lengths_mean": float(args[3].float().mean())}
+        elif name == "ring_gather":
+            err = same(torch, got, want)
+            extra = gather_library(torch, *args, want)
         else:
             err = same(torch, got, want)
     except SmokeFailure as exc:
@@ -5909,6 +5931,27 @@ def time_shape(torch, name, impl, args, kw):
             "library_ms": extra.pop("library_ms", None), "bytes": moved,
             "call_ms": call_ms, "plain_call_ms": plain_call_ms,
             "shape": signature(args, kw), **extra}
+
+
+def gather_library(torch, table, refs, want):
+    """``table.index_select(0, refs.reshape(-1))``, the one PyTorch call
+    that computes ``ring_gather``'s rows, timed as a yardstick only (the
+    port never calls it).  A reference outside the table reads row 0
+    there (clamped outside the timed call; the kernel writes zeros), so
+    the comparison holds the in-range rows."""
+    r = table.shape[0]
+    inside = (refs >= 0) & (refs < r)
+    every = bool(inside.all())
+    idx = (refs if every else refs.clamp(0, r - 1)).reshape(-1)
+
+    def lib():
+        return table.index_select(0, idx)
+    out = torch.where(inside[..., None], lib().reshape(want.shape), 0)
+    return {"library": "Tensor.index_select",
+            "library_max_abs_err": same(torch, out, want),
+            "library_ms": graph_ms(torch, lib),
+            "library_call_ms": time_ms(torch, lib),
+            "library_refs_in_range": every}
 
 
 def gathered_slots(table, refs):

@@ -22,9 +22,10 @@ counted, as GSPMD inserts one; each such op is listed
 its collectives and its live bytes.
 
 Each cell writes results/torch/dryrun/<arch>__<shape>__<mesh>.json with
-the reference's keys (``trace_s`` in place of ``compile_s``; no
-``loop_bodies``: eager code runs every iteration), and its op records
-to results/torch/oplog/<tag>.json.gz, from which ``launch.reanalyze``
+the reference's keys (``trace_s`` in place of ``compile_s``;
+``loop_bodies`` names each recurrence ``op_cost.scan`` traced once,
+with its trip count), and its op records to
+results/torch/oplog/<tag>.json.gz, from which ``launch.reanalyze``
 re-derives the numbers without tracing again.
 """
 from __future__ import annotations
@@ -115,6 +116,16 @@ def apply_overrides(cfg: ModelConfig, overrides) -> ModelConfig:
 # DTensors on the mesh
 # ---------------------------------------------------------------------------
 
+def _stride(shape) -> tuple:
+    """The contiguous stride of ``shape`` (no tensor made: a meta tensor
+    made under the meter would count as live bytes)."""
+    out, step = [], 1
+    for n in reversed(list(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
 def _axes(entry) -> tuple:
     """The mesh axes of a spec entry (None, a name or a tuple of names,
     the first major)."""
@@ -152,7 +163,7 @@ class _Placer:
             return DTensor.from_local(
                 t, self.mesh, self.placements(spec), run_check=False,
                 shape=meta.shape,
-                stride=torch.empty(meta.shape, device="meta").stride())
+                stride=_stride(meta.shape))
 
     def tree(self, specs, tree):
         return _map_specs(lambda s, x: self.dtensor(x, s), specs, tree)
@@ -169,11 +180,16 @@ def _on_unsharded(names: set):
 
     1. a single sharded input moves its shard on the last mesh dim (the
        model axis) to another of its dims that splits evenly (an
-       all-to-all: a head split that does not divide moves to the
-       sequence);
+       all-to-all);
     2. every input is all-gathered over the last mesh dim;
     3. every input is all-gathered over every mesh dim, and the op runs
        on the whole tensors.
+
+    An attention projection's head split (``_head_split`` inside
+    ``_q``/``_qkv``, ``meter.heads_whole``) takes step 2 first: GSPMD
+    gathers the query's heads for the reshape, and the partitioned
+    attention (``_partitioned_sdpa``) takes Q, K and V whole on the
+    model axis.
 
     A mutated input is written back to its own layout."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -197,12 +213,17 @@ def _on_unsharded(names: set):
                if isinstance(a, DTensor)]
         mesh = dts[0].device_mesh
         last = mesh.ndim - 1
-        layouts = [] if len(dts) != 1 else [
+        moved = [] if len(dts) != 1 else [
             (lambda x, pl=pl: pl) for pl in moves(dts[0], mesh)]
-        layouts.append(lambda x: [Replicate() if i == last else p
-                                  for i, p in enumerate(x.placements)])
-        layouts.append(None)
-        how = ["moved"] * (len(layouts) - 2) + ["model whole", "whole"]
+        model_whole = [lambda x: [Replicate() if i == last else p
+                                  for i, p in enumerate(x.placements)]]
+        if getattr(meter, "heads_whole", False) \
+                and _head_split(func, dts, args, last):
+            layouts = model_whole + moved + [None]
+            how = ["model whole"] + ["moved"] * len(moved) + ["whole"]
+        else:
+            layouts = moved + model_whole + [None]
+            how = ["moved"] * len(moved) + ["model whole", "whole"]
         for layout, note in zip(layouts, how):
             def laid(x):
                 if not isinstance(x, DTensor):
@@ -228,6 +249,23 @@ def _on_unsharded(names: set):
             finally:
                 meter.on_unsharded = handler
     return handle
+
+
+def _head_split(func, dts, args, last) -> bool:
+    """Whether ``func`` is a ``view`` that splits the dim its one input
+    shards over the last mesh dim into two (``[.., h * d]`` into ``[..,
+    h, d]``, h not a multiple of that mesh dim)."""
+    if str(func) not in ("aten.view.default", "aten._unsafe_view.default") \
+            or len(dts) != 1 or dts[0] is not args[0]:
+        return False
+    x, size = dts[0], list(args[1])
+    p = x.placements[last]
+    if not p.is_shard() or len(size) != x.dim() + 1:
+        return False
+    d = p.dim
+    return (list(x.shape[:d]) == size[:d]
+            and list(x.shape[d + 1:]) == size[d + 2:]
+            and size[d] * size[d + 1] == x.shape[d])
 
 
 def _run_whole(func, args, kwargs, mesh):
@@ -285,26 +323,116 @@ def _as_copy(dst, src):
 # real, which is all the count needs) and returns NotImplemented where
 # its layout does not apply, leaving the op to DTensor.
 
-def _row_write(meter, dst, indices, values, accumulate=False):
-    """``dst[i0, i1, ...] = values`` with every index 1-D of ``dst``'s
-    leading length (the decode cache's ``cache[rows, pos] = new``): the
-    rank writes the rows of its own batch block into its shard, as GSPMD
-    partitions a scatter whose indices follow the batch dim."""
-    from torch.distributed.tensor import DTensor
-    b = dst.shape[0]
-    if not isinstance(dst, DTensor) or accumulate or not all(
-            i is not None and i.dim() == 1 and i.shape[0] == b
-            for i in indices):
-        return NotImplemented
-    loc = dst._local_tensor
-    n, k = loc.shape[0], len(indices)
+def _indexed_layout(x, indices):
+    """The broadcast shape of ``indices`` where ``x`` is a DTensor with a
+    mesh dim sharding one of the dims they index (and no partial sum or
+    strided shard), else None."""
+    from torch.distributed.tensor import DTensor, Shard
+    k = len(indices)
+    if not isinstance(x, DTensor) or any(i is None for i in indices) \
+            or any(p.is_partial() or (p.is_shard() and type(p) is not Shard)
+                   for p in x.placements) \
+            or not any(p.is_shard() and p.dim < k for p in x.placements):
+        return None
+    return torch.broadcast_shapes(*(i.shape for i in indices))
+
+
+def _whole_indices(meter, mesh, indices) -> None:
+    """All-gather the DTensor indices to every rank (counted)."""
+    from torch.distributed.tensor import DTensor, Replicate
     with meter:
-        idx = [torch.zeros((n,), dtype=torch.int64, device=loc.device)
+        for i in indices:
+            if isinstance(i, DTensor):
+                _as(i, mesh, [Replicate()] * mesh.ndim)
+
+
+def _masked_scatter(meter, dst, indices, values, accumulate=False,
+                    unsafe=False):
+    """``dst[i0, i1, ...] = values`` (or ``+=``) into a dim that is
+    sharded (the decode cache's ``cache[rows, pos] = new``, the MoE
+    dispatch into its expert-sharded buffer), as GSPMD partitions such a
+    scatter: the indices and the updates are all-gathered to whole rows
+    (an update keeps the layout of ``dst``'s trailing dims), and each
+    rank scatters every update into its block, the writes outside it
+    masked."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    shape = _indexed_layout(dst, indices)
+    if shape is None:
+        return NotImplemented
+    k = len(indices)
+    mesh, loc = dst.device_mesh, dst._local_tensor
+    _whole_indices(meter, mesh, indices)
+    with meter:
+        vals = values
+        if isinstance(vals, DTensor):
+            # dst's trailing dim j is the update's dim j - dst.dim() +
+            # vals.dim() (an update may broadcast from the left)
+            off = vals.dim() - dst.dim()
+            want = [Shard(p.dim + off) if p.is_shard() and p.dim >= k
+                    and p.dim + off >= 0 else Replicate()
+                    for p in dst.placements]
+            vals = _as(vals, mesh, want)._local_tensor
+        idx = [torch.zeros(shape, dtype=torch.int64, device=loc.device)
                for _ in indices]
-        vals = torch.empty((n,) + tuple(loc.shape[k:]), dtype=values.dtype,
-                           device=loc.device)
-        loc.index_put_(idx, vals)
+        loc.index_put_(idx, vals.to(loc.dtype), accumulate)
     return dst
+
+
+def _masked_scatter_out(meter, dst, indices, values, accumulate=False):
+    """``index_put`` (out of place) as ``_masked_scatter`` on a copy."""
+    from torch.distributed.tensor import DTensor
+    if _indexed_layout(dst, indices) is None:
+        return NotImplemented
+    with meter:
+        out = DTensor.from_local(dst._local_tensor.clone(), dst.device_mesh,
+                                 dst.placements, run_check=False,
+                                 shape=dst.shape, stride=dst.stride())
+    return _masked_scatter(meter, out, indices, values, accumulate)
+
+
+def _masked_gather(meter, x, indices):
+    """``x[i0, i1, ...]`` from a dim that is sharded (the MoE combine
+    reading the expert-sharded outputs): the indices are gathered whole,
+    each rank reads the rows in its block (zeros elsewhere) and the
+    result is a partial sum over the mesh dims that shard the indexed
+    dims (the settle step all-reduces it)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    shape = _indexed_layout(x, indices)
+    if shape is None:
+        return NotImplemented
+    k = len(indices)
+    mesh, loc = x.device_mesh, x._local_tensor
+    pl = [Partial() if p.is_shard() and p.dim < k
+          else Shard(p.dim - k + len(shape)) if p.is_shard()
+          else Replicate() for p in x.placements]
+    _whole_indices(meter, mesh, indices)
+    with meter:
+        idx = [torch.zeros(shape, dtype=torch.int64, device=loc.device)
+               for _ in indices]
+        out = loc[tuple(idx)]
+    full = torch.Size(tuple(shape) + tuple(x.shape[k:]))
+    return DTensor.from_local(
+        out, mesh, pl, run_check=False, shape=full,
+        stride=_stride(full))
+
+
+def _local_pad(meter, x, pad, value=None):
+    """``constant_pad_nd`` of dims the rank holds whole (the MoE
+    combine's spare row): on its shard, the layout kept."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor) or any(
+            not isinstance(p, (Shard, Replicate)) for p in x.placements):
+        return NotImplemented
+    padded = {x.dim() - 1 - j for j in range(len(pad) // 2)}
+    if any(p.is_shard() and p.dim in padded for p in x.placements):
+        return NotImplemented
+    with meter:
+        loc = torch.ops.aten.constant_pad_nd(x._local_tensor, pad,
+                                             0 if value is None else value)
+    shape = list(x.shape)
+    for j in range(len(pad) // 2):
+        shape[x.dim() - 1 - j] += pad[2 * j] + pad[2 * j + 1]
+    return _wrap(loc, x, shape)
 
 
 def _along(x, d, partial_ok=False):
@@ -333,6 +461,8 @@ def _along(x, d, partial_ok=False):
 
 def _as(t, mesh, pl):
     from torch._subclasses.fake_tensor import unset_fake_temporarily
+    if tuple(t.placements) == tuple(pl) and t.device_mesh == mesh:
+        return t
     with unset_fake_temporarily():
         return t.redistribute(mesh, pl)
 
@@ -349,6 +479,9 @@ def _sharded_gather(meter, x, dim, index, sparse_grad=False):
         return NotImplemented
     dims, want = lay
     mesh = x.device_mesh
+    # the backward's zeros of x's shape take x's layout (``_new_zeros``)
+    meter.layouts = getattr(meter, "layouts", {})
+    meter.layouts[(tuple(x.shape), x.dtype)] = x.placements
     with meter:
         idx = _as(index, mesh, want)
         loc = torch.gather(x._local_tensor, d, idx._local_tensor)
@@ -426,32 +559,50 @@ def _sharded_index(meter, x, indices):
         shape = tuple(idx.shape) + tuple(x.shape[1:])
         part = DTensor.from_local(
             loc, mesh, out_pl, run_check=False, shape=shape,
-            stride=torch.empty(shape, device="meta").stride())
+            stride=_stride(shape))
         return _as(part, mesh, [Replicate() if i in dims else p
                                 for i, p in enumerate(out_pl)])
 
 
-def _new_zeros(meter, x, size, **kw):
+def _new_zeros(experts):
     """``x.new_zeros(size)`` laid out as ``x`` on the dims where the
-    sizes agree (the zeros a gather's backward scatters into), not made
-    whole on every rank and cut after."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if not isinstance(x, DTensor) or len(size) != x.dim():
-        return NotImplemented
-    mesh = x.device_mesh
-    pl = [p if p.is_shard() and type(p).__name__ == "Shard"
-          and size[p.dim] == x.shape[p.dim]
-          and size[p.dim] % mesh.size(i) == 0 else Replicate()
-          for i, p in enumerate(x.placements)]
-    local = list(size)
-    for i, p in enumerate(pl):
-        if p.is_shard():
-            local[p.dim] //= mesh.size(i)
-    with meter:
-        loc = x._local_tensor.new_zeros(local, **kw)
-    return DTensor.from_local(
-        loc, mesh, pl, run_check=False, shape=torch.Size(size),
-        stride=torch.empty(size, device="meta").stride())
+    sizes agree, not made whole on every rank and cut after; the zeros a
+    gather's backward scatters into laid out as the gather's source
+    (``_sharded_gather`` notes it: the loss's vocab-sharded logits); the
+    MoE dispatch buffer [G, E, C + 1, d] laid out as the experts
+    ``experts`` ([E, d, f] placements: E and d sharded as theirs, the
+    capacity whole), as GSPMD lays it out for the expert products."""
+    def rule(meter, x, size, **kw):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(x, DTensor) or len(size) not in (x.dim(),
+                                                           x.dim() + 1):
+            return NotImplemented
+        mesh = x.device_mesh
+        hint = getattr(meter, "layouts", {}).get(
+            (tuple(size), kw.get("dtype") or x.dtype))
+        if hint is not None:
+            pl = [Replicate() if p.is_partial() else p for p in hint]
+        elif experts is not None and len(size) == 4 \
+                and size[1] == experts[0] and size[3] == experts[1]:
+            pl = [Shard(1) if p.is_shard(0) else Shard(3) if p.is_shard(1)
+                  else Replicate() for p in experts[2]]
+        elif len(size) != x.dim():
+            return NotImplemented
+        else:
+            pl = [p if p.is_shard() and type(p).__name__ == "Shard"
+                  and size[p.dim] == x.shape[p.dim]
+                  and size[p.dim] % mesh.size(i) == 0 else Replicate()
+                  for i, p in enumerate(x.placements)]
+        local = list(size)
+        for i, p in enumerate(pl):
+            if p.is_shard():
+                local[p.dim] //= mesh.size(i)
+        with meter:
+            loc = x._local_tensor.new_zeros(local, **kw)
+        return DTensor.from_local(
+            loc, mesh, pl, run_check=False, shape=torch.Size(size),
+            stride=_stride(size))
+    return rule
 
 
 def _local_unfold(meter, x, dim, size, step):
@@ -495,19 +646,461 @@ def _local_unfold_backward(meter, grad, input_sizes, dim, size, step):
                                              size, step)
     return DTensor.from_local(
         loc, mesh, pl, run_check=False, shape=torch.Size(input_sizes),
-        stride=torch.empty(input_sizes, device="meta").stride())
+        stride=_stride(input_sizes))
 
 
-def _rules() -> dict:
+def _model_dim(mesh) -> int:
+    return mesh.mesh_dim_names.index("model")
+
+
+def _reduced_over(meter, loc, mesh, placements, dims, op: str):
+    """``loc`` (a rank's part of a reduction) all-reduced with ``op``
+    over the mesh ``dims``; the other dims laid out as ``placements``.
+    Returns the local tensor of the result."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    pl = [Partial(op) if i in dims else p for i, p in enumerate(placements)]
+    with meter:
+        part = DTensor.from_local(loc, mesh, pl, run_check=False)
+        return _as(part, mesh, [Replicate() if i in dims else p
+                                for i, p in enumerate(pl)])._local_tensor
+
+
+def _split_dims(x, d):
+    """(mesh dims that shard ``x``'s dim ``d``, placements of a size-1
+    reduction of it) or None where none does, or where a partial sum or
+    a strided shard takes part."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor) or any(
+            p.is_partial() or (p.is_shard() and type(p) is not Shard)
+            for p in x.placements):
+        return None
+    dims = [i for i, p in enumerate(x.placements) if p.is_shard(d)]
+    return dims or None
+
+
+def _wrap(loc, like, shape=None):
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape if shape is not None else like.shape)
+    return DTensor.from_local(
+        loc, like.device_mesh, like.placements, run_check=False,
+        shape=shape, stride=_stride(shape))
+
+
+def _sharded_softmax(meter, x, dim, half_to_float=False):
+    """``softmax`` along a sharded dim (the decode scores over a
+    sequence-parallel cache): the rank's max and sum all-reduced, as
+    GSPMD partitions ``reduce_max`` and ``reduce_sum``."""
+    d = dim % x.dim()
+    dims = _split_dims(x, d)
+    if dims is None:
+        return NotImplemented
+    mesh = x.device_mesh
+    with meter:
+        loc = x._local_tensor
+        if half_to_float:
+            loc = loc.to(torch.float32)
+        mx = _reduced_over(meter, loc.amax(d, keepdim=True), mesh,
+                           x.placements, dims, "max")
+        e = torch.exp(loc - mx)
+        tot = _reduced_over(meter, e.sum(d, keepdim=True), mesh,
+                            x.placements, dims, "sum")
+        return _wrap(e / tot, x)
+
+
+def _sharded_softmax_backward(meter, grad, out, dim, input_dtype):
+    """``softmax``'s backward along a sharded dim: ``y * (g - sum(g *
+    y))`` with the sum all-reduced."""
+    d = dim % out.dim()
+    dims = _split_dims(out, d)
+    if dims is None or _split_dims(grad, d) != dims \
+            or grad.placements != out.placements:
+        return NotImplemented
+    with meter:
+        g, y = grad._local_tensor, out._local_tensor
+        tot = _reduced_over(meter, (g * y).sum(d, keepdim=True),
+                            out.device_mesh, out.placements, dims, "sum")
+        return _wrap((y * (g - tot)).to(input_dtype), out)
+
+
+def _sharded_logsumexp(meter, x, dim, keepdim=False):
+    """``logsumexp`` along a sharded dim (the loss over vocab-sharded
+    logits): max and sum all-reduced, as GSPMD does."""
+    dims_in = dim if isinstance(dim, (list, tuple)) else [dim]
+    if len(dims_in) != 1:
+        return NotImplemented
+    d = dims_in[0] % x.dim()
+    dims = _split_dims(x, d)
+    if dims is None:
+        return NotImplemented
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    pl = [Replicate() if i in dims else p for i, p in enumerate(x.placements)]
+    shape = list(x.shape)
+    shape[d] = 1
+    with meter:
+        loc = x._local_tensor
+        mx = _reduced_over(meter, loc.amax(d, keepdim=True), mesh,
+                           x.placements, dims, "max")
+        tot = _reduced_over(meter, torch.exp(loc - mx).sum(d, keepdim=True),
+                            mesh, x.placements, dims, "sum")
+        res = torch.log(tot) + mx
+        if not keepdim:
+            res = res.squeeze(d)
+            del shape[d]
+            pl = [Shard(p.dim - 1) if p.is_shard() and p.dim > d else p
+                  for p in pl]
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    return DTensor.from_local(
+        res, mesh, pl, run_check=False, shape=shape,
+        stride=_stride(shape))
+
+
+def _settle_partial(meter, func, args, out):
+    """A DTensor result that is a partial sum (a row-parallel product,
+    a reduction over a sharded dim, a masked gather) is all-reduced at
+    once, as GSPMD all-reduces a partitioned dot's output, and not left
+    for the next op to reduce-scatter.  In the backward (grad off) only
+    over the model axis: a gradient's partial sum over the data axes is
+    left for DTensor to reduce-scatter into its parameter's shards.  A
+    strided shard (a split dim some DTensor builds lay out so) is
+    gathered, as a head split is elsewhere.  A mutated argument is left
+    as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.utils._pytree import tree_flatten, tree_map
+    ids = {id(a) for a in tree_flatten(args)[0]}
+    forward = torch.is_grad_enabled()
+
+    def fix(t):
+        if not isinstance(t, DTensor) or id(t) in ids:
+            return t
+        im = _model_dim(t.device_mesh)
+        dims = [i for i, p in enumerate(t.placements) if (
+            p.is_partial() and (forward or i == im))
+            or (p.is_shard() and type(p) is not Shard)]
+        if not dims:
+            return t
+        with meter:
+            return _as(t, t.device_mesh,
+                       [Replicate() if i in dims else p
+                        for i, p in enumerate(t.placements)])
+    return tree_map(fix, out)
+
+
+# ---------------------------------------------------------------------------
+# attention as GSPMD partitions it
+# ---------------------------------------------------------------------------
+
+def _collective(kind: str, payload) -> None:
+    """Count one collective of ``kind`` whose payload (the result of an
+    all-gather, the operand of an all-reduce) is ``payload``."""
+    m = op_cost.active()
+    if m is None or m.paused:
+        return
+    name = {"all-reduce": "all_reduce",
+            "all-gather": "all_gather_into_tensor"}[kind]
+    spec = op_cost._spec(payload)
+    m.add({"op": f"_c10d_functional.{name}.default", "args": [spec],
+           "out": spec})
+
+
+class _AllReduced(torch.autograd.Function):
+    """``x``, all-reduced over a group of ranks (counted, shapes kept);
+    the gradient passes as it is (each rank's part of a partial sum
+    takes the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        _collective("all-reduce", x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _Gathered(torch.autograd.Function):
+    """The rank's block ``x`` all-gathered into a tensor of ``shape``
+    (counted); the gradient of the block is the rank's part of the
+    whole one (a slice: nothing moves)."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = x.shape
+        with op_cost.paused():
+            out = x.new_empty(shape)
+        _collective("all-gather", out)
+        m = op_cost.active()
+        if m is not None:
+            m._alloc(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        with op_cost.paused():
+            return g.new_empty(ctx.shape), None
+
+
+class _DenseGrad(torch.autograd.Function):
+    """``x``, whose gradient is made contiguous: a DTensor's local
+    gradient must be laid out as its global stride says."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _softcap(scores, c: float):
+    return torch.tanh(scores / c) * c if c > 0 else scores
+
+
+def _partitioned_sdpa(plain):
+    """``models.attention._sdpa`` on DTensors laid out as GSPMD lays out
+    the reference's attention on the production mesh (``plain`` on
+    other tensors).
+
+    * K/V sequence-parallel over the model axis (a cache whose kv heads
+      do not divide it): each rank scores the query against its rows;
+      the max, the sum and the weighted values are all-reduced over the
+      model axis (the reference's ``reduce_max``, ``reduce_sum`` and
+      P·V all-reduces).
+    * Otherwise the model axis splits into a factor ``fk`` = gcd(kv
+      heads, model) over the kv heads and ``r`` = model / fk: where the
+      query heads take the same factor (gcd(q heads, model) = fk) the
+      head dim is split r ways and the scores, a partial sum, are
+      all-reduced over r ranks; else the query heads split gcd(q heads,
+      model) ways with the head dim whole (the rest of the axis computes
+      the same).  The output is all-gathered over the model axis for the
+      row-parallel output projection.  Q, K and V arrive whole on the
+      model axis (``view`` of a head split that does not divide it)
+      or heads-sharded where the heads divide it."""
+    import math as _math
+
+    def sdpa(cfg, q, k, v, mask):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(q, DTensor):
+            return plain(cfg, q, k, v, mask)
+        meter = op_cost.active()
+        mesh = q.device_mesh
+        im = _model_dim(mesh)
+        m = mesh.size(im)
+        b, s, nq, hd = q.shape
+        t, nkv, vd = k.shape[1], k.shape[2], v.shape[-1]
+        g = nq // nkv
+        f32 = torch.float32
+
+        # the batch stays sharded where the query's or the keys' is
+        batch = {i for i in range(mesh.ndim) if i != im and any(
+            isinstance(x, DTensor) and x.placements[i] == Shard(0)
+            for x in (q, k))}
+
+        def lay(x, model):
+            pl = [Shard(0) if i in batch and x.shape[0] == b
+                  else Replicate() for i in range(mesh.ndim)]
+            pl[im] = model
+            return pl
+
+        def local(x, model):
+            if not isinstance(x, DTensor):
+                return x
+            with meter:
+                return _DenseGrad.apply(_as(x, mesh, lay(x, model))
+                                        .to_local())
+
+        def out_tensor(loc, model):
+            shape = torch.Size((b, s, nq, vd))
+            return DTensor.from_local(
+                loc, mesh, lay(q, model), run_check=False, shape=shape,
+                stride=_stride(shape))
+
+        seq = (k.placements[im] == Shard(1) and t % m == 0)
+        if seq:
+            ql, kl, vl = (local(q, Replicate()), local(k, Shard(1)),
+                          local(v, Shard(1)))
+            ml = local(mask, Replicate()) if mask is not None else None
+            if ml is not None and ml.shape[-1] == t:
+                ml = ml.narrow(-1, 0, t // m)
+            bl = ql.shape[0]
+            qg = ql.reshape(bl, s, nkv, g, hd).to(f32)
+            sc = torch.einsum("bskgd,btkd->bkgst", qg,
+                              kl.to(f32)) * (hd ** -0.5)
+            sc = _softcap(sc, cfg.logit_softcap)
+            if ml is not None:
+                sc = torch.where(ml, sc, -1e30)
+            mx = _AllReduced.apply(sc.amax(dim=-1, keepdim=True))
+            e = torch.exp(sc - mx)
+            w = e / _AllReduced.apply(e.sum(dim=-1, keepdim=True))
+            if cfg.fast_attn:
+                w = w.to(v.dtype).to(f32)
+            out = _AllReduced.apply(torch.einsum("bkgst,btkd->bskgd", w,
+                                                 vl.to(f32)))
+            return out_tensor(out.reshape(bl, s, nq, vd).to(q.dtype)
+                              .contiguous(), Replicate())
+        fk, fq = _math.gcd(nkv, m), _math.gcd(nq, m)
+        r = m // fk
+        partial = fq == fk and r > 1 and hd % r == 0 and vd % r == 0
+        if fk == m:                     # heads divide the axis
+            ql, kl, vl = (local(q, Shard(2)), local(k, Shard(2)),
+                          local(v, Shard(2)))
+            kv_l, g_l = nkv // m, g
+        else:
+            ql, kl, vl = (local(q, Replicate()), local(k, Replicate()),
+                          local(v, Replicate()))
+            kv_l, g_l = nkv // fk, g if partial else g // (fq // fk)
+        hd_l, vd_l = (hd // r, vd // r) if partial else (hd, vd)
+        ml = local(mask, Replicate()) if isinstance(mask, DTensor) \
+            else mask
+        bl = ql.shape[0]
+        qg = ql.reshape(bl, s, ql.shape[2] // g, g, hd)[
+            :, :, :kv_l, :g_l, :hd_l].to(f32)
+        kl, vl = kl[:, :, :kv_l, :hd_l], vl[:, :, :kv_l, :vd_l]
+        sc = torch.einsum("bskgd,btkd->bkgst", qg, kl.to(f32)) * (hd ** -0.5)
+        if partial:
+            sc = _AllReduced.apply(sc)
+        sc = _softcap(sc, cfg.logit_softcap)
+        if ml is not None:
+            sc = torch.where(ml, sc, -1e30)
+        w = torch.softmax(sc, dim=-1)
+        if cfg.fast_attn:
+            w = w.to(v.dtype).to(f32)
+        out = torch.einsum("bkgst,btkd->bskgd", w, vl.to(f32))
+        out = out.reshape(bl, s, kv_l * g_l, vd_l).to(q.dtype)
+        if fk == m:
+            return out_tensor(out.contiguous(), Shard(2))
+        return out_tensor(_Gathered.apply(out, (bl, s, nq, vd)),
+                          Replicate())
+    return sdpa
+
+
+def _heads_whole(fn):
+    """``fn`` (an attention projection) with its head splits gathered
+    on the model axis (``_on_unsharded``)."""
+    def run(*args, **kw):
+        meter = op_cost.active()
+        if meter is None:
+            return fn(*args, **kw)
+        old = getattr(meter, "heads_whole", False)
+        meter.heads_whole = True
+        try:
+            return fn(*args, **kw)
+        finally:
+            meter.heads_whole = old
+    return run
+
+
+def _alltoall(plain):
+    """DTensor's ``shard_dim_alltoall`` as one all-to-all on every mesh
+    (``plain`` gathers and cuts on a CPU mesh, which the card's mesh
+    does not: the traces on both devices count the same op)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def group_of(mesh, mesh_dim):
+        if hasattr(funcol, "_resolve_group_name"):       # torch 2.11
+            return funcol._resolve_group_name((mesh, mesh_dim))
+        return funcol._group_or_group_name(
+            funcol._resolve_group((mesh, mesh_dim)))
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, group_of(mesh, mesh_dim))
+    if not (hasattr(funcol, "_resolve_group_name") or (
+            hasattr(funcol, "_resolve_group")
+            and hasattr(funcol, "_group_or_group_name"))):
+        return plain
+    return alltoall
+
+
+@contextlib.contextmanager
+def _gspmd_layouts():
+    """While a cell is traced: ``models.attention._sdpa`` partitioned as
+    GSPMD partitions it, the Q/K/V projections' head splits gathered on
+    the model axis, and DTensor's all-to-all one op on every mesh."""
+    from torch.distributed.tensor import _collective_utils, placement_types
+    from repro_torch.models import attention
+    plain = {k: getattr(attention, k) for k in ("_sdpa", "_q", "_qkv")}
+    a2a = {m: getattr(m, "shard_dim_alltoall", None)
+           for m in (_collective_utils, placement_types)}
+    attention._sdpa = _partitioned_sdpa(plain["_sdpa"])
+    attention._q = _heads_whole(plain["_q"])
+    attention._qkv = _heads_whole(plain["_qkv"])
+    for m, fn in a2a.items():
+        if fn is not None:
+            m.shard_dim_alltoall = _alltoall(fn)
+    try:
+        yield
+    finally:
+        for k, fn in plain.items():
+            setattr(attention, k, fn)
+        for m, fn in a2a.items():
+            if fn is not None:
+                m.shard_dim_alltoall = fn
+
+
+def _local_detach_(meter, x):
+    """``detach_`` of a DTensor (autograd's own, on the tensors it
+    saves; some DTensor builds register no strategy for it): on the
+    local shard."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return NotImplemented
+    x._local_tensor.detach_()
+    return x
+
+
+def _local_log_sigmoid_backward(meter, grad, x, buffer):
+    """``log_sigmoid``'s backward, elementwise, on the rank's shards, the
+    gradient laid out as the input (its scratch buffer is the input's
+    size on the CPU and empty on the card, so DTensor's gathers of it
+    would differ by device)."""
+    from torch.distributed.tensor import DTensor
+    if not (isinstance(grad, DTensor) and isinstance(x, DTensor)) \
+            or any(p.is_partial() for p in x.placements):
+        return NotImplemented
+    with meter:
+        g = _as(grad, x.device_mesh, x.placements)._local_tensor
+        loc = torch.ops.aten.log_sigmoid_backward(
+            g, x._local_tensor, getattr(buffer, "_local_tensor", buffer))
+    return _wrap(loc, x)
+
+
+def _experts_layout(model):
+    """(E, d, placements) of the first MoE layer's stacked ``w_in`` [E,
+    d, f], or None."""
+    for name, p in model.named_parameters():
+        if name.endswith("moe.w_in") and p.dim() == 3:
+            return p.shape[0], p.shape[1], p.placements
+    return None
+
+
+def _rules(model=None) -> dict:
     aten = torch.ops.aten
-    return {aten.unfold.default: _local_unfold,
+    experts = None if model is None else _experts_layout(model)
+    return {aten.detach_.default: _local_detach_,
+            aten.log_sigmoid_backward.default: _local_log_sigmoid_backward,
+            aten._softmax.default: _sharded_softmax,
+            aten._softmax_backward_data.default: _sharded_softmax_backward,
+            aten.logsumexp.default: _sharded_logsumexp,
+            aten.unfold.default: _local_unfold,
             aten.unfold_backward.default: _local_unfold_backward,
-            aten.index_put_.default: _row_write,
+            aten.index_put_.default: _masked_scatter,
+            aten._index_put_impl_.default: _masked_scatter,
+            aten.index_put.default: _masked_scatter_out,
             aten.gather.default: _sharded_gather,
             aten.scatter_add_.default: _sharded_scatter_add,
             aten.scatter_add.default: _sharded_scatter_add_out,
-            aten.index.Tensor: _sharded_index,
-            aten.new_zeros.default: _new_zeros}
+            aten.index.Tensor: _index,
+            aten.constant_pad_nd.default: _local_pad,
+            aten.new_zeros.default: _new_zeros(experts)}
+
+
+def _index(meter, x, indices):
+    out = _sharded_index(meter, x, indices)
+    return _masked_gather(meter, x, indices) if out is NotImplemented \
+        else out
 
 
 def _local_bytes(tree) -> int:
@@ -651,10 +1244,12 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
                                          a_cache)
     arguments = (dict(model.named_parameters()), args)
     replicated: set = set()
-    meter = op_cost.Meter(fake_mode=fake, rules=_rules(),
-                          on_unsharded=_on_unsharded(replicated))
+    meter = op_cost.Meter(fake_mode=fake, rules=_rules(model),
+                          on_unsharded=_on_unsharded(replicated),
+                          settle=_settle_partial,
+                          owners=bool(profile_top))
     meter.track(arguments)
-    with fake, _implicit_replication(), meter:
+    with fake, _implicit_replication(), _gspmd_layouts(), meter:
         out = step(*args)
     # an argument the step only overwrites (the prefill's cache) is an
     # output, as the reference's jit drops an argument it never reads
@@ -677,7 +1272,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
                    "overrides": list(overrides or []), "reduced": reduced,
                    "cell": dataclasses.asdict(cell),
                    "mesh": "x".join(str(n) for n in mesh.shape),
-                   "chips": mesh.size(), "records": records}, f)
+                   "chips": mesh.size(), "loop_bodies": meter.loops,
+                   "records": records}, f)
     if profile_top:
         for by, unit, scale in (("bytes", "GB", 1e9), ("flops", "GF", 1e9)):
             print(f"--- top {profile_top} {by} contributors ---")
@@ -685,6 +1281,10 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
                     records, profile_top, by=by):
                 print(f"  {c_ / scale:10.2f} {unit}  {op_:36s} x{n_:<6d} "
                       f"{shapes_[:60]}")
+        print(f"--- top {profile_top} live at the peak "
+              f"({peak / 1e9:.2f} GB) ---")
+        for b_, what_ in meter.peak_owners[:profile_top]:
+            print(f"  {b_ / 1e9:10.3f} GB  {what_[:100]}")
     result = {
         "arch": arch, "shape": cell.name,
         "mesh": "x".join(str(n) for n in mesh.shape),
@@ -698,6 +1298,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
             "peak_live_bytes": peak,
         },
         **derive(cfg, cell, mesh.size(), records),
+        "loop_bodies": dict(meter.loops),
         "replicated_ops": sorted(replicated),
         "params_total": cfg.param_count(),
         "params_active": cfg.param_count(active_only=True),

@@ -5,9 +5,15 @@ The reference reads its costs from the optimized HLO text of a compiled
 step, and has to scale the body of every ``while`` loop by its trip
 count, since XLA's cost analysis visits a scanned layer stack once.
 Here the step runs eagerly, once, under a ``TorchDispatchMode`` that
-sees every aten op the step dispatches: a Python loop over layers,
-chunks or blocks runs every iteration, so every iteration is counted
-and nothing needs loop correction (there is no ``loop_bodies``).
+sees every aten op the step dispatches: a Python loop over layers runs
+every iteration and is counted as it runs.  A recurrence (the sLSTM's
+tokens, the selective scan's chunks and row blocks) iterates through
+``scan``: with values it runs every iteration; in a dry-run trace (a
+meter counting tensors without values) it runs two, and counts the
+second, its backward and the residuals it keeps for the backward
+``n - 1`` times, as ``hlo_cost`` scales a ``while`` body by its trip
+count.  The loops so counted are ``Meter.loops`` (the dry run's
+``loop_bodies``: name -> trip count).
 
 Per op (``analyze``; the rules are ``record_cost``):
 
@@ -20,8 +26,9 @@ Per op (``analyze``; the rules are ``record_cost``):
   reference's; a gather counts twice its output and a scatter twice its
   update, as ``hlo_cost`` charges dynamic-slice and dynamic-update-slice.
   Views, copy-free reshapes and metadata ops count nothing.
-* Collectives: the ``c10d`` and ``_c10d_functional`` ops, by kind
-  (``all-gather``, ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+* Collectives: the ``c10d`` and ``_c10d_functional`` ops and DTensor's
+  ``_dtensor.shard_dim_alltoall``, by kind (``all-gather``,
+  ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
   ``collective-permute`` for send/recv), with their payload bytes on
   this rank; they count no FLOPs and no HBM bytes.
 * DTensors: an op on DTensors is not counted itself; the ops DTensor
@@ -75,6 +82,7 @@ _COLL = {
     "all_to_all_single": ("all-to-all", "out"),
     "alltoall_base_": ("all-to-all", 0),
     "alltoall_": ("all-to-all", 0),
+    "shard_dim_alltoall": ("all-to-all", "out"),
     "send": ("collective-permute", 0),
     "recv_": ("collective-permute", 0),
     "recv_any_source_": ("collective-permute", 0),
@@ -112,6 +120,12 @@ _SCATTER = {"index_put": 2, "index_put_": 2, "_index_put_impl_": 2,
             "index_add_": 3, "slice_scatter": 1, "select_scatter": 1,
             "masked_scatter": 2, "masked_scatter_": 2,
             "index_fill": 3, "index_fill_": 3}
+
+# ops whose second output is a scratch buffer whose size depends on the
+# device (empty on the card): counted by their first
+_FIRST_OUT = {"log_sigmoid_forward"}
+# ... and the argument that takes that buffer back (not counted)
+_SCRATCH_ARG = {"log_sigmoid_backward": 2}
 
 _meters: list = []
 
@@ -247,7 +261,7 @@ def record_cost(rec: dict) -> dict:
     args, out = rec.get("args", []), rec.get("out")
     zero = {"flops": 0, "bytes": 0, "kind": None, "coll_bytes": 0}
     if name in _COLL and ns in ("c10d", "_c10d_functional",
-                                "_c10d_functional_autograd"):
+                                "_c10d_functional_autograd", "_dtensor"):
         kind, where = _COLL[name]
         payload = out if where == "out" else (
             args[where] if where < len(args) else [])
@@ -266,6 +280,10 @@ def record_cost(rec: dict) -> dict:
         return {**zero, "bytes": _bytes(args[1:2]) + _bytes(out)}
     if name in _CREATE:
         return {**zero, "bytes": _bytes(out)}
+    if name in _FIRST_OUT and isinstance(out, list) and out:
+        out = out[0]
+    if name in _SCRATCH_ARG:
+        args = args[:_SCRATCH_ARG[name]] + args[_SCRATCH_ARG[name] + 1:]
     ins = _bytes(args) + _bytes(list(rec.get("kwargs", {}).values()))
     nbytes = ins + _bytes(out)
     if name in _MOVE:
@@ -344,13 +362,19 @@ class Meter(TorchDispatchMode):
     the ops they name before DTensor does: ``handler(meter, *args,
     **kwargs)`` returns the op's result or ``NotImplemented``; and
     ``on_unsharded(meter, func, args, kwargs)`` is called for an op that
-    DTensor cannot shard; its result is the op's."""
+    DTensor cannot shard; its result is the op's.  ``settle(meter, func,
+    args, out)`` returns a DTensor op's result, laid out again where the
+    caller wants (the dry run sums a partial sum over the model axis at
+    once, as GSPMD does).  ``owners``: keep what made each live storage,
+    and at the peak ``peak_owners`` (the dry run's ``--profile-top``)."""
 
-    def __init__(self, fake_mode=None, on_unsharded=None, rules=None):
+    def __init__(self, fake_mode=None, on_unsharded=None, rules=None,
+                 settle=None, owners=False):
         super().__init__()
         self.fake_mode = fake_mode
         self.on_unsharded = on_unsharded
         self.rules = rules or {}
+        self.settle = settle
         self._dtensor = _dtensor_type()
         self._records: dict = {}
         self.paused = 0
@@ -360,14 +384,50 @@ class Meter(TorchDispatchMode):
         self._seen = weakref.WeakSet()
         self._args: dict = {}
         self._read: set = set()
+        # ``scan``'s counting: the forward's multiplier, the autograd
+        # nodes a traced body made (sequence numbers [lo, hi), times k),
+        # the storages allocated while ``_allocs`` is a list, and the
+        # loops counted (name -> trip count)
+        self.scale = 1
+        self._ranges: list = []
+        self._node_scale: dict = {}
+        self._allocs = None
+        self.loops: dict = {}
+        # with ``owners``: what made each live storage, and at the peak
+        # (``peak_owners``, [(bytes, op shape dtype)], largest first)
+        self.owners = owners
+        self._owner: dict = {}
+        self._owned: dict = {}
+        self._snapped = 0
+        self.peak_owners: list = []
 
     # -- records ----------------------------------------------------------
+    def _backward_scale(self) -> int:
+        """The multiplier of the autograd node running now: the product
+        of the trip counts of the traced bodies that made it.  Only in the
+        engine's backward (grad off): a checkpoint's recomputation runs
+        with grad on and is counted by ``scale``."""
+        if not self._ranges or torch.is_grad_enabled():
+            return 1
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return 1
+        seq = node._sequence_nr()
+        if seq not in self._node_scale:
+            k = 1
+            for lo, hi, n in self._ranges:
+                if lo <= seq < hi:
+                    k *= n
+            self._node_scale[seq] = k
+        return self._node_scale[seq]
+
     def add(self, rec: dict) -> None:
         key = repr(sorted(rec.items()))
+        inc = self.scale * self._backward_scale()
         if key in self._records:
-            self._records[key]["n"] += 1
+            self._records[key]["n"] += inc
         else:
-            self._records[key] = {**rec, "n": 1}
+            self._records[key] = {**rec, "n": inc}
 
     @property
     def records(self) -> list:
@@ -418,7 +478,7 @@ class Meter(TorchDispatchMode):
                         t.untyped_storage()) in self._args:
                     self._read.add(id(t.untyped_storage()))
 
-    def _alloc(self, t) -> int:
+    def _alloc(self, t, op: str = "argument") -> int:
         try:
             st = t.untyped_storage()
         except (RuntimeError, NotImplementedError):
@@ -427,13 +487,45 @@ class Meter(TorchDispatchMode):
             return 0
         n = st.nbytes()
         self._seen.add(st)
-        weakref.finalize(st, self._free, n)
-        self.live += n
-        self.peak = max(self.peak, self.live)
+        self._grow(st, n, f"{op} {list(t.shape)} {t.dtype}".replace(
+            "torch.", ""))
+        if self._allocs is not None:
+            self._allocs.append(weakref.ref(st))
         return n
 
-    def _free(self, n: int) -> None:
+    def weigh(self, st, k: int) -> None:
+        """Count a live storage ``k`` more times until it is freed (the
+        residuals of a traced body's skipped iterations)."""
+        extra = k * st.nbytes()
+        if extra:
+            self._grow(st, extra, self._owner.get(id(st), (None, "?"))[1]
+                       + " (traced body, skipped iterations)"
+                       if self.owners else "")
+
+    def _grow(self, st, n: int, what: str) -> None:
+        key = object()
+        weakref.finalize(st, self._free, n, key)
+        self.live += n
+        if self.owners:
+            self._owner.setdefault(id(st), (n, what))
+            self._owned[key] = (n, what)
+        if self.live > self.peak:
+            self.peak = self.live
+            if self.owners and self.peak > 1.005 * self._snapped:
+                self._snapped = self.peak
+                self.peak_owners = self._by_owner()
+
+    def _free(self, n: int, key=None) -> None:
         self.live -= n
+        self._owned.pop(key, None)
+
+    def _by_owner(self) -> list:
+        """[(bytes, what)] of the live storages, grouped by the op,
+        shape and dtype that made them, largest first."""
+        acc: dict = {}
+        for n, what in self._owned.values():
+            acc[what] = acc.get(what, 0) + n
+        return sorted(((b, w) for w, b in acc.items()), reverse=True)
 
     # -- dispatch ---------------------------------------------------------
     def _foreign(self, outs) -> bool:
@@ -463,19 +555,24 @@ class Meter(TorchDispatchMode):
             if func in self.rules:
                 out = self.rules[func](self, *args, **kwargs)
                 if out is not NotImplemented:
-                    return out
+                    return out if self.settle is None else self.settle(
+                        self, func, args, out)
             self._in_dtensor = True
             try:
                 # DTensor's layout arithmetic runs on real tensors; the
                 # shards it dispatches on carry their own fake mode
                 with _unfaked(self.fake_mode), self:
-                    return func(*args, **kwargs)
+                    out = func(*args, **kwargs)
             except Exception as e:          # noqa: BLE001 - rethrown
                 if self.on_unsharded is None or not _unshardable(e):
                     raise
+                out = NotImplemented
             finally:
                 self._in_dtensor = False
-            return self.on_unsharded(self, func, args, kwargs)
+            if out is NotImplemented:
+                return self.on_unsharded(self, func, args, kwargs)
+            return out if self.settle is None else self.settle(self, func,
+                                                                 args, out)
         out = func(*args, **kwargs)
         if self.paused:
             return out
@@ -488,12 +585,27 @@ class Meter(TorchDispatchMode):
         rec = {"op": str(func), "args": _spec(list(args)), "out": _spec(out)}
         if kwargs:
             rec["kwargs"] = {k: _spec(v) for k, v in kwargs.items()}
-        if _is_view(func):
+        if _is_view(func) or self._regathered(func, args):
             rec["view"] = True
         self.add(rec)
         for t in outs:
-            self._alloc(t)
+            self._alloc(t, rec["op"])
         return out
+
+    @staticmethod
+    def _regathered(func, args) -> bool:
+        """Whether ``func`` is a ``cat`` of parts of one storage (the
+        chunks of an all-gather's result put in the gathered dim's order,
+        which DTensor does on a CPU mesh and the card's collectives hand
+        over as a view): it moves nothing more."""
+        if _short(str(func))[1] != "cat" or not args \
+                or not isinstance(args[0], (list, tuple)) \
+                or len(args[0]) < 2:
+            return False
+        try:
+            return len({t.untyped_storage()._cdata for t in args[0]}) == 1
+        except (AttributeError, RuntimeError, NotImplementedError):
+            return False
 
 
 def _unfaked(fake_mode):
@@ -506,13 +618,19 @@ def _unfaked(fake_mode):
 def _unshardable(e: BaseException) -> bool:
     """Whether ``e`` is DTensor's refusal to shard an op: no strategy, a
     propagation that cannot keep the input's layout, a redistribution
-    its strategy needs and DTensor cannot make (to a partial sum), or an
-    error DTensor's own layout code raised (an index or assertion error
-    inside ``torch.distributed.tensor``)."""
+    its strategy needs and DTensor cannot make (to a partial sum), a
+    local shape its shard cannot take, or an error DTensor's own layout
+    code raised (an index or assertion error inside
+    ``torch.distributed.tensor``)."""
     msg = str(e)
     if any(m in msg for m in ("Sharding propagation failed",
                               "sharding strategy", "redistribute from",
                               "redistributing to Partial")):
+        return True
+    if isinstance(e, RuntimeError) and "is invalid for input of size" in msg:
+        # a view whose split dim DTensor shards over more ranks than the
+        # first part divides (the folded batch x heads of a 512-rank
+        # mesh): the local shard cannot take the shape it works out
         return True
     if not isinstance(e, (IndexError, AssertionError, KeyError)):
         return False
@@ -535,3 +653,189 @@ def analyze(fn, *args, fake_mode=None, **kw) -> dict:
     out["records"] = m.records
     out["result"] = result
     return out
+
+
+# ---------------------------------------------------------------------------
+# recurrences: one traced body
+# ---------------------------------------------------------------------------
+
+# a dry-run trace counts two iterations of a ``scan`` (False: every one,
+# as with values; the tests compare the two)
+TRACE_ONE_BODY = True
+
+
+def _sequence_nr() -> int:
+    """The sequence number the next autograd node will take."""
+    return torch._C._autograd._get_sequence_nr()
+
+
+def _part(x, t: int, dim: int, step):
+    """Part ``t`` of ``x`` along ``dim`` (a view, as ``unbind`` or
+    ``split`` gives it, without making the other parts)."""
+    return x.select(dim, t) if step is None else x.narrow(dim, t * step,
+                                                          step)
+
+
+def _local(t):
+    return getattr(t, "_local_tensor", t)
+
+
+def _joined(three, n: int, dim: int, stack: bool):
+    """The ``stack`` (or ``cat``) along ``dim`` of n parts, parts 1..n-2
+    given by ``three[1]``: the one op of n parts (the same tensor n - 2
+    times), so it is laid out and counted as the loop's own."""
+    join = torch.stack if stack else torch.cat
+    return join([three[0]] + [three[1]] * (n - 2) + [three[2]], dim)
+
+
+class _Parts(torch.autograd.Function):
+    """Parts 0, 1 and n - 1 of ``x`` (``unbind`` or ``split``); the
+    gradient is what the parts' backward builds when every part is used:
+    one stack (or cat) of n parts, part 1's gradient standing for parts
+    1..n-2."""
+
+    @staticmethod
+    def forward(ctx, x, n, dim, step):
+        ctx.n, ctx.dim, ctx.step = n, dim, step
+        return tuple(_part(x, t, dim, step) for t in (0, 1, n - 1))
+
+    @staticmethod
+    def backward(ctx, g0, g1, g2):
+        m = active()
+        if m is not None and g1 is not None:
+            # the n - 2 parts' gradients, alive together until the stack
+            m.weigh(_local(g1).untyped_storage(), ctx.n - 3)
+        g = _joined((g0, g1, g2), ctx.n, ctx.dim, ctx.step is None)
+        return g, None, None, None
+
+
+class _Join(torch.autograd.Function):
+    """The outputs of iterations 0, 1 and n - 1 joined as n iterations'
+    (``_joined``); the backward takes each part's gradient as the join's
+    backward does (views of the whole one), without the n - 3 others."""
+
+    @staticmethod
+    def forward(ctx, y0, y1, y2, n, dim, stack):
+        ctx.n, ctx.dim, ctx.stack, ctx.step = n, dim, stack, (
+            None if stack else y1.shape[dim])
+        return _joined((y0, y1, y2), n, dim, stack)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = [_part(g, t, ctx.dim, ctx.step) for t in (0, 1, ctx.n - 1)]
+        return (*parts, None, None, None)
+
+
+class _Fan(torch.autograd.Function):
+    """``x`` as the input of ``k`` iterations: its backward counts k - 1
+    additions of the gradient, the sums autograd makes where k
+    iterations read one tensor."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.k = k
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.k < 2:
+            return g, None
+        m = active()
+        scale = m.scale if m is not None else 1
+        if m is not None:
+            m.scale = scale * (ctx.k - 1)
+        try:
+            acc = g + g                     # counted k - 1 times
+        finally:
+            if m is not None:
+                m.scale = scale
+        return acc, None
+
+
+def _one_body(m, n, xs, step, dim) -> bool:
+    """Whether a ``scan`` traces one body: under a meter, on tensors
+    without values, with more than three equal parts."""
+    if m is None or m.paused or not TRACE_ONE_BODY or n <= 3 or not xs:
+        return False
+    from repro_torch.device import has_values
+    if has_values(xs[0]):
+        return False
+    return step is None or all(x.shape[dim] == n * step for x in xs)
+
+
+def scan(body, carry, n: int, xs=(), *, step=None, dim: int = 0,
+         shared=(), join: str = "stack", join_dim: int = 0,
+         name: str = "loop"):
+    """``for t in range(n): carry, y = body(carry, *x_t, *shared)``, then
+    ``(carry, ys)``: ``x_t`` is the t-th part of each of ``xs`` along
+    ``dim`` (``unbind``, or ``split(step)``), ``shared`` the other
+    tensors the body reads, passed to it as arguments, and ``ys`` each
+    output of the body (a tensor or a tuple of them) joined over the
+    iterations along ``join_dim`` (``join`` "stack" or "cat"), as
+    ``lax.scan`` stacks its outputs.
+
+    With values (and outside a meter) every iteration runs.  In a
+    dry-run trace (``_one_body``) iterations 0, 1 and n - 1 run, and
+    iteration 1 stands for iterations 1..n-2: its ops, the backward of
+    the autograd nodes it made, and the storages it leaves alive (the
+    residuals kept for the backward, or with no graph its outputs) count
+    n - 2 times.  The parts, the gradients that n iterations sum into a
+    shared tensor and the joined outputs are counted as n iterations
+    make them, so the trace counts what the loop run in full counts (the
+    joined outputs' rows of iterations 2..n-2 hold no values)."""
+    stack = {"stack": True, "cat": False}[join]
+    m = active()
+    if not _one_body(m, n, xs, step, dim):
+        parts = [x.unbind(dim) if step is None else x.split(step, dim)
+                 for x in xs]
+        ys = []
+        for t in range(n):
+            carry, y = body(carry, *(p[t] for p in parts), *shared)
+            ys.append(y)
+        fn = torch.stack if stack else torch.cat
+        if isinstance(ys[0], tuple):
+            return carry, tuple(fn([y[i] for y in ys], join_dim)
+                                for i in range(len(ys[0])))
+        return carry, fn(ys, join_dim)
+    graph = torch.is_grad_enabled()
+    parts = []
+    for x in xs:
+        if graph and x.requires_grad:
+            parts.append(_Parts.apply(x, n, dim, step))
+        else:
+            parts.append(tuple(_part(x, t, dim, step)
+                               for t in (0, 1, n - 1)))
+    carry, y0 = body(carry, *(p[0] for p in parts), *shared)
+    mid = [_Fan.apply(s, n - 2) if graph and isinstance(
+        s, torch.Tensor) and s.requires_grad else s for s in shared]
+    scale, allocs = m.scale, m._allocs
+    m.scale, m._allocs = scale * (n - 2), []
+    lo = _sequence_nr()
+    try:
+        carry, y1 = body(carry, *(p[1] for p in parts), *mid)
+    finally:
+        made, m.scale, m._allocs = m._allocs, scale, allocs
+        if allocs is not None:
+            allocs.extend(made)
+    if torch._C._current_autograd_node() is None:
+        # the nodes the backward will run; a checkpoint's recomputation
+        # (inside a node's backward, with its own thread's numbers on a
+        # device's autograd thread) makes none of those
+        m._ranges.append((lo, _sequence_nr(), n - 2))
+        m._node_scale.clear()
+    # what iteration 1 left alive, n - 3 more times: with a graph every
+    # storage it made and still holds; without, only its outputs (each
+    # iteration's carry replaces the last)
+    keep = None if graph else {
+        id(_local(t).untyped_storage())
+        for t in tree_flatten(y1)[0] if isinstance(t, torch.Tensor)}
+    for ref in made:
+        st = ref()
+        if st is not None and (keep is None or id(st) in keep):
+            m.weigh(st, n - 3)
+    carry, y2 = body(carry, *(p[2] for p in parts), *shared)
+    m.loops[name] = n
+    if isinstance(y0, tuple):
+        return carry, tuple(_Join.apply(a, b, c, n, join_dim, stack)
+                            for a, b, c in zip(y0, y1, y2))
+    return carry, _Join.apply(y0, y1, y2, n, join_dim, stack)

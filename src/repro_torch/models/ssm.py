@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.launch import op_cost
 from repro_torch.models.layers import dense_init, dtype_of, mm, param
 
 F32 = torch.float32
@@ -112,32 +113,39 @@ def _doubling_scan(a, b):
 
 def _selective_scan_chunked(u, dt, B, C, A, h0, chunk: int = 256):
     """u, dt: [b, s, di]; B, C: [b, s, n]; A: [di, n] (``A_log``); h0:
-    [b, di, n] -> (y [b, s, di], hT [b, di, n]), in the inputs' dtype."""
+    [b, di, n] -> (y [b, s, di], hT [b, di, n]), in the inputs' dtype.
+    The row blocks and the chunks iterate through ``op_cost.scan`` (one
+    traced body each in a dry run)."""
     b, s, di = u.shape
     n = B.shape[-1]
     nch, ch = _chunks(s, chunk)
     neg_a = -torch.exp(A)
     rows = max(1, SCAN_BLOCK_ELEMENTS // (ch * di * n))
-    ys, hs = [], []
-    for r0 in range(0, b, rows):
-        r = slice(r0, r0 + rows)
-        h, yr = h0[r], []
-        for c0 in range(0, s, ch):
-            t = slice(c0, c0 + ch)
-            dtc = dt[r, t, :, None]                        # [R, ch, di, 1]
-            da = torch.exp(dtc * neg_a)                    # [R, ch, di, n]
-            db = dtc * B[r, t, None, :] * u[r, t, :, None]
-            da, db = _doubling_scan(da, db)
-            carry = torch.addcmul if _records_grad(da, db, h) \
-                else torch.Tensor.addcmul_
-            h_all = carry(db, da, h[:, None])              # with the carry
-            del da
-            yr.append(torch.einsum("bcdn,bcn->bcd", h_all, C[r, t]))
-            h = h_all[:, -1].clone()
-            del h_all, db
-        ys.append(torch.cat(yr, dim=1))
-        hs.append(h)
-    return torch.cat(ys), torch.cat(hs)
+
+    def chunk_step(h, uc, dtc, Bc, Cc, neg_a):
+        dtc = dtc[..., None]                               # [R, ch, di, 1]
+        da = torch.exp(dtc * neg_a)                        # [R, ch, di, n]
+        db = dtc * Bc[:, :, None, :] * uc[..., None]
+        da, db = _doubling_scan(da, db)
+        carry = torch.addcmul if _records_grad(da, db, h) \
+            else torch.Tensor.addcmul_
+        h_all = carry(db, da, h[:, None])                  # with the carry
+        del da
+        y = torch.einsum("bcdn,bcn->bcd", h_all, Cc)
+        h = h_all[:, -1].clone()
+        del h_all, db
+        return h, y
+
+    def row_block(_, ur, dtr, Br, Cr, hr, neg_a):
+        h, y = op_cost.scan(chunk_step, hr, nch, (ur, dtr, Br, Cr),
+                            step=ch, dim=1, shared=(neg_a,), join="cat",
+                            join_dim=1, name="ssm.scan_chunks")
+        return None, (y, h)
+
+    _, (y, hT) = op_cost.scan(row_block, None, -(-b // rows),
+                              (u, dt, B, C, h0), step=rows, shared=(neg_a,),
+                              join="cat", name="ssm.scan_rows")
+    return y, hT
 
 
 def mamba_apply(cfg: ModelConfig, p, x, state=None):
@@ -247,11 +255,15 @@ def slstm_apply(cfg: ModelConfig, p, x, state=None):
         state = (z, z, z, torch.zeros((b, nh, hd),
                                       dtype=dtype_of(cfg.compute_dtype),
                                       device=x.device))
-    hs = []
-    for t in range(s):
-        state = slstm_step(cfg, p, gates_x[:, t], state)
-        hs.append(state[3])
-    y = torch.stack(hs, dim=1).reshape(b, s, d)
+    def step(state, gx, r_gates, b_gates):
+        state = slstm_step(cfg, {"r_gates": r_gates, "b_gates": b_gates},
+                           gx, state)
+        return state, state[3]
+
+    state, hs = op_cost.scan(step, state, s, (gates_x,), dim=1,
+                             shared=(p["r_gates"], p["b_gates"]),
+                             join_dim=1, name="ssm.slstm_tokens")
+    y = hs.reshape(b, s, d)
     return mm(y, p["w_out"]), state
 
 
