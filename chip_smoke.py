@@ -290,15 +290,23 @@ exit, no result line) on any mismatch:
    running on after each; (e) under
    ``FABRIC_SANITIZE=strict`` a clean window raises the out-of-bounds
    check of a sentinel drop; (f) ms a step of (a)-(c), sanitized and not;
-20. the dry run (``launch.dryrun``, no kernel runs in it): (a)
-   ``run_cell("qwen2-1.5b", "decode_32k")`` and ``run_cell("xlstm-350m",
-   "train_4k")`` (its sLSTM's 4,096 tokens through ``op_cost.scan``'s
-   one traced body: ``loop_bodies`` must name them) at
-   ``DRYRUN_LAYERS`` of their layers traced on the 256-rank fake
-   production mesh with fake tensors on ``cuda`` and on ``cpu``, whose
-   ``argument_bytes``, ``flops_per_device``, ``bytes_per_device`` and
-   collective bytes must be equal (each cell's collective bytes and
-   dominant term printed); (b) ``launch.op_cost.analyze`` of one real step of
+20. the dry run (``launch.dryrun``, no kernel runs in it): (a) the
+   ``DRYRUN_CELLS`` of ``tests/torch_dryrun_parity_counts.json`` —
+   qwen2-1.5b ``decode_32k`` (float32), xlstm-350m ``train_4k`` (its
+   sLSTM's 4,096 tokens through ``op_cost.scan``'s one traced body:
+   ``loop_bodies`` must name them), deepseek-v3-671b ``decode_32k``,
+   gemma3-1b ``prefill_32k`` and nemotron-4-15b ``train_4k`` (square
+   FSDP projections laid out transposed) — at ``DRYRUN_LAYERS`` of their
+   layers
+   traced on the 256-rank fake production mesh with fake tensors on
+   ``cuda`` (the first on ``cpu`` too, its ``argument_bytes``,
+   ``flops_per_device``, ``bytes_per_device`` and collective bytes
+   equal), each held to the record's port counts within 1e-6 (one count
+   under the card's torch and under the one that recorded them) and to
+   its reference counts within ``launch.parity``'s bounds, the relative
+   difference from the
+   record and ``torch_version`` printed;
+   (b) ``launch.op_cost.analyze`` of one real step of
    phase 3's fused loopback pair on the card and on the CPU from one
    state (its counted bytes equal: the kernels report ``bytes_moved``
    on the card, their plain twins are not counted on the CPU) and of
@@ -5649,32 +5657,50 @@ def phase_sanitize(torch, dev, card):
     return report
 
 
-DRYRUN_CELLS = (("qwen2-1.5b", "decode_32k"), ("xlstm-350m", "train_4k"))
+# phase 20's traces: cells of ``tests/torch_dryrun_parity_counts.json``
+# (all at DRYRUN_LAYERS of their layers) traced on the card's device; the
+# first also on the CPU
+DRYRUN_CELLS = ("qwen2_decode_32k", "xlstm_train_4k", "deepseek_decode_32k",
+                "gemma3_prefill_32k", "nemotron_train_4k")
+DRYRUN_COUNTS = ROOT / "tests" / "torch_dryrun_parity_counts.json"
 
 
 def dryrun_traces(torch):
-    """Phase 20 (a): each of ``DRYRUN_CELLS`` (at ``DRYRUN_LAYERS`` of its
-    layers) traced with fake tensors on the card's device and on the
-    CPU: {"arch shape": {device: result}}."""
+    """Phase 20 (a): each of ``DRYRUN_CELLS`` traced with fake tensors on
+    the card's device (the first on the CPU too, its counts equal),
+    its counts held to the record's port counts within 1e-6 (the same
+    counts under the card's torch as under the one that recorded them)
+    and to the record's reference counts within the parity tests'
+    bounds: {name: {device: result}}."""
     import torch.distributed as dist
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, parity
+    with open(DRYRUN_COUNTS) as f:
+        record = json.load(f)["cells"]
     check(not dist.is_initialized(), "dryrun: a process group is left")
     out = {}
     try:
-        for arch, shape in DRYRUN_CELLS:
-            cell = out.setdefault(f"{arch} {shape}", {})
-            for device in ("cuda", "cpu"):
+        for i, name in enumerate(DRYRUN_CELLS):
+            arch, shape, overrides = parity.CELLS[name]
+            check([record[name][k] for k in ("arch", "shape", "overrides")]
+                  == [arch, shape, overrides],
+                  f"dryrun {name}: the record's cell is not the parity's")
+            check(f"n_layers={DRYRUN_LAYERS}" in overrides,
+                  f"dryrun {name}: {overrides}")
+            cell = out.setdefault(name, {})
+            for device in ("cuda", "cpu") if i == 0 else ("cuda",):
                 t0 = time.perf_counter()
                 r = dryrun.run_cell(arch, shape, False, verbose=False,
-                                    device=device,
-                                    overrides=[f"n_layers={DRYRUN_LAYERS}"])
+                                    device=device, overrides=overrides)
                 r["wall_s"] = time.perf_counter() - t0
                 cell[device] = r
     finally:
         dist.destroy_process_group()
     for name, cell in out.items():
+        rec = record[name]
         for device, r in cell.items():
-            say(f"dryrun {device}: {name} on {r['chips']} ranks, "
+            say(f"dryrun {device}: {name} ({' '.join(parity.CELLS[name][2])}) "
+                f"on {r['chips']} ranks, torch {r['torch_version']} "
+                f"(recorded under {rec['port']['torch_version']}), "
                 f"argument_bytes {r['memory']['argument_bytes']}, "
                 f"peak_live_bytes {r['memory']['peak_live_bytes']}, "
                 f"flops_per_device {r['flops_per_device']:.6g}, "
@@ -5683,26 +5709,36 @@ def dryrun_traces(torch):
                 f"{r['dominant']}, useful_ratio {r['useful_ratio']:.4f}, "
                 f"loop_bodies {r['loop_bodies']}, replicated "
                 f"{r['replicated_ops']}, {r['wall_s']:.1f} s")
-        c, p = cell["cuda"], cell["cpu"]
-        for key in ("flops_per_device", "bytes_per_device",
-                    "collective_bytes_per_device"):
-            check(c[key] == p[key], f"dryrun {name}: {key} cuda {c[key]} "
-                  f"!= cpu {p[key]}")
-        check(c["memory"]["argument_bytes"] == p["memory"]["argument_bytes"],
-              f"dryrun {name}: argument_bytes cuda "
-              f"{c['memory']['argument_bytes']} != cpu "
-              f"{p['memory']['argument_bytes']}")
-        check(c["loop_bodies"] == p["loop_bodies"],
-              f"dryrun {name}: loop_bodies {c['loop_bodies']} != "
-              f"{p['loop_bodies']}")
-    xl = out["xlstm-350m train_4k"]["cuda"]
+            counts = parity.counts(r)
+            off = parity.off_record(counts, rec["port"])
+            say(f"dryrun {device}: {name} against the record (torch "
+                f"{rec['port']['torch_version']}): relative differences "
+                + ", ".join(f"{k} {v:.3g}" for k, v in off.items()))
+            check(max(off.values()) <= 1e-6, f"dryrun {name} {device}: "
+                  f"counts off the record's by {off}")
+            broken = parity.broken(name, rec["reference"], counts)
+            check(not broken, f"dryrun {name} {device}: against the "
+                  f"reference {broken}")
+        if "cpu" in cell:
+            c, p = cell["cuda"], cell["cpu"]
+            for key in ("flops_per_device", "bytes_per_device",
+                        "collective_bytes_per_device"):
+                check(c[key] == p[key], f"dryrun {name}: {key} cuda "
+                      f"{c[key]} != cpu {p[key]}")
+            check(c["memory"]["argument_bytes"]
+                  == p["memory"]["argument_bytes"],
+                  f"dryrun {name}: argument_bytes cuda "
+                  f"{c['memory']['argument_bytes']} != cpu "
+                  f"{p['memory']['argument_bytes']}")
+    xl = out["xlstm_train_4k"]["cuda"]
     check(xl["loop_bodies"] == {"ssm.slstm_tokens": 4096},
           f"dryrun xlstm: loop_bodies {xl['loop_bodies']}")
     return {name: {d: {k: r[k] for k in (
         "memory", "flops_per_device", "bytes_per_device",
         "collective_bytes_per_device", "collectives", "dominant",
         "useful_ratio", "loop_bodies", "replicated_ops", "trace_s",
-        "wall_s")} for d, r in cell.items()} for name, cell in out.items()}
+        "torch_version", "wall_s")} for d, r in cell.items()}
+        for name, cell in out.items()}
 
 
 def counted_step(torch, name, make):

@@ -7,6 +7,18 @@
       (default ``n_layers=2``); prints a markdown table of collective
       bytes by kind, HBM bytes, FLOPs and peak live bytes a rank, and
       the dominant term of each on the port's ``config.HW``.
+  python dryrun_report.py parity --record FILE [NAME ...]
+      the parity cells of ``repro_torch.launch.parity`` (all, or
+      those NAMEd), both sides traced as the parity tests trace them;
+      writes each side's counts with ``torch_version`` and
+      ``jax_version`` to FILE (``tests/torch_dryrun_parity_counts.json``,
+      which the parity tests and ``chip_smoke.py`` phase 20 hold the
+      port's counts to).
+  python dryrun_report.py check FILE [NAME ...]
+      the port's side only (no JAX: runs where the reference cannot, as
+      on the card's host): each recorded cell (all, or those NAMEd)
+      traced again under this torch; prints its relative difference
+      from FILE's port counts and exits 1 if any exceeds 1e-6.
   python dryrun_report.py table DIR
       the per-cell JSONs of ``dryrun --all --results-dir DIR`` as a
       markdown table: peak live GB a rank, dominant term and
@@ -94,6 +106,65 @@ def parity(cells, overrides) -> None:
     print("\n".join(rows))
 
 
+# the counts the record keeps of each side's JSON
+def record(path: str, names) -> None:
+    import pathlib
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    sys.path.insert(0, SRC)
+    import torch_dryrun_parity_cells as pc
+    from repro_torch.launch.parity import CELLS, counts
+    names = list(names) or list(CELLS)
+    with tempfile.TemporaryDirectory() as tmp:
+        got = pc.run_cells(pathlib.Path(tmp), names, timeout=3600)
+    jax_version = subprocess.run(
+        [sys.executable, "-c", "import jax; print(jax.__version__)"],
+        capture_output=True, text=True, env=dict(
+            os.environ, JAX_PLATFORMS="cpu")).stdout.strip()
+    old = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            old = json.load(f).get("cells", {})
+    cells = {**old, **{n: {"arch": CELLS[n][0], "shape": CELLS[n][1],
+                           "overrides": CELLS[n][2],
+                           "reference": counts(ref), "port": counts(port)}
+                       for n, (ref, port) in got.items()}}
+    torch_version = {c["port"]["torch_version"] for c in cells.values()}
+    with open(path, "w") as f:
+        json.dump({"mesh": "16x16", "torch_version": sorted(torch_version),
+                   "jax_version": jax_version,
+                   "cells": {n: cells[n] for n in CELLS if n in cells}},
+                  f, indent=1, sort_keys=False)
+        f.write("\n")
+    for n, (ref, port) in got.items():
+        print(f"{n}: port {port['flops_per_device']:.6g} FLOP, "
+              f"{port['collective_bytes_per_device']:.6g} collective bytes; "
+              f"reference {ref['flops_per_device']:.6g}, "
+              f"{ref['collective_bytes_per_device']:.6g}")
+
+
+def check(path: str, names) -> bool:
+    sys.path.insert(0, SRC)
+    import torch
+    import repro_torch.launch.dryrun as d
+    from repro_torch.launch.parity import counts, off_record
+    with open(path) as f:
+        cells = json.load(f)["cells"]
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        d.RESULTS_DIR = os.path.join(tmp, "dryrun")
+        for name in names or list(cells):
+            c = cells[name]
+            r = counts(d.run_cell(c["arch"], c["shape"], False,
+                                  verbose=False, overrides=c["overrides"],
+                                  device="cpu"))
+            off = off_record(r, c["port"])
+            ok &= max(off.values()) <= 1e-6
+            print(f"{name}: torch {torch.__version__} against "
+                  f"{c['port']['torch_version']}: " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in off.items()), flush=True)
+    return ok
+
+
 def table(results: str) -> None:
     sys.path.insert(0, SRC)
     from repro_torch.config import SHAPES
@@ -130,15 +201,26 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("parity")
-    p.add_argument("cells", nargs="*", default=[
-        "qwen2-1.5b:decode_32k", "qwen2-1.5b:prefill_32k",
-        "qwen2-1.5b:train_4k", "xlstm-350m:train_4k"])
+    p.add_argument("cells", nargs="*", default=None)
     p.add_argument("--override", action="append", default=None)
+    p.add_argument("--record", default=None,
+                   help="write both sides' counts of the parity cells "
+                        "(the positional names, default all) to this file")
+    c = sub.add_parser("check")
+    c.add_argument("file")
+    c.add_argument("names", nargs="*")
     t = sub.add_parser("table")
     t.add_argument("dir")
     args = ap.parse_args(argv)
-    if args.cmd == "parity":
-        parity(args.cells, args.override or ["n_layers=2"])
+    if args.cmd == "parity" and args.record:
+        record(args.record, args.cells or [])
+    elif args.cmd == "parity":
+        parity(args.cells or [
+            "qwen2-1.5b:decode_32k", "qwen2-1.5b:prefill_32k",
+            "qwen2-1.5b:train_4k", "xlstm-350m:train_4k"],
+            args.override or ["n_layers=2"])
+    elif args.cmd == "check":
+        sys.exit(0 if check(args.file, args.names) else 1)
     else:
         table(args.dir)
 

@@ -18,11 +18,16 @@ rules after ``legalize_specs`` (a multi-axis entry shards its dim over
 each of its mesh dims, the first name major).  An op DTensor cannot
 shard runs replicated after an all-gather of its inputs, which is
 counted, as GSPMD inserts one; each such op is listed
-(``replicated_ops``).  ``launch.op_cost`` counts the rank's local ops,
-its collectives and its live bytes.
+(``replicated_ops``).  The ops GSPMD partitions otherwise have rules
+(``_rules``), so a count does not hang on the torch build's own
+strategies, and the model's attention and recurrent cores are swapped
+while a cell traces for versions partitioned as GSPMD partitions the
+reference's (``_seams``).  ``launch.op_cost`` counts the rank's local
+ops, its collectives and its live bytes.
 
 Each cell writes results/torch/dryrun/<arch>__<shape>__<mesh>.json with
-the reference's keys (``trace_s`` in place of ``compile_s``;
+the reference's keys (``trace_s`` in place of ``compile_s``, and
+``torch_version``, the version that traced it;
 ``loop_bodies`` names each recurrence ``op_cost.scan`` traced once,
 with its trip count), and its op records to
 results/torch/oplog/<tag>.json.gz, from which ``launch.reanalyze``
@@ -35,6 +40,7 @@ import contextlib
 import dataclasses
 import gzip
 import json
+import math
 import os
 import sys
 import time
@@ -186,10 +192,10 @@ def _on_unsharded(names: set):
        on the whole tensors.
 
     An attention projection's head split (``_head_split`` inside
-    ``_q``/``_qkv``, ``meter.heads_whole``) takes step 2 first: GSPMD
-    gathers the query's heads for the reshape, and the partitioned
-    attention (``_partitioned_sdpa``) takes Q, K and V whole on the
-    model axis.
+    ``_q``/``_qkv`` or ``_mlstm_qkv``, ``meter.heads_whole``) takes step
+    2 first, its gather not counted (``_heads_gathered``): the
+    partitioned attention (``_Heads``) counts the part of it GSPMD
+    makes.
 
     A mutated input is written back to its own layout."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -217,8 +223,9 @@ def _on_unsharded(names: set):
             (lambda x, pl=pl: pl) for pl in moves(dts[0], mesh)]
         model_whole = [lambda x: [Replicate() if i == last else p
                                   for i, p in enumerate(x.placements)]]
-        if getattr(meter, "heads_whole", False) \
-                and _head_split(func, dts, args, last):
+        split = getattr(meter, "heads_whole", False) \
+            and _head_split(func, dts, args, last)
+        if split:
             layouts = model_whole + moved + [None]
             how = ["model whole"] + ["moved"] * len(moved) + ["whole"]
         else:
@@ -234,7 +241,11 @@ def _on_unsharded(names: set):
             handler, meter.on_unsharded = meter.on_unsharded, None
             try:
                 with meter:
-                    nargs, nkw = tree_map(laid, (args, kwargs))
+                    if split and note == "model whole":
+                        nargs, nkw = _heads_gathered(meter, laid, args,
+                                                     kwargs)
+                    else:
+                        nargs, nkw = tree_map(laid, (args, kwargs))
                     if layout is None:
                         out = _run_whole(func, nargs, nkw, mesh)
                     else:
@@ -249,6 +260,21 @@ def _on_unsharded(names: set):
             finally:
                 meter.on_unsharded = handler
     return handle
+
+
+def _heads_gathered(meter, laid, args, kwargs):
+    """The input of a head split ``[.., h * d]`` -> ``[.., h, d]`` laid
+    out whole on the model axis by ``laid``, nothing counted: GSPMD
+    keeps it tiled (h split gcd(h, m) ways, d the rest of the m ranks)
+    and the attention gathers what it needs of it (``_Heads.take``),
+    which finds the split's shape and dtype in ``meter.head_tiles``."""
+    from torch.utils._pytree import tree_map
+    with op_cost.paused():
+        nargs, nkw = tree_map(laid, (args, kwargs))
+    meter._alloc(nargs[0]._local_tensor, "all-gather")
+    meter.head_tiles = getattr(meter, "head_tiles", set())
+    meter.head_tiles.add((tuple(int(n) for n in args[1]), args[0].dtype))
+    return nargs, nkw
 
 
 def _head_split(func, dts, args, last) -> bool:
@@ -418,12 +444,14 @@ def _masked_gather(meter, x, indices):
 
 def _local_pad(meter, x, pad, value=None):
     """``constant_pad_nd`` of dims the rank holds whole (the MoE
-    combine's spare row): on its shard, the layout kept."""
+    combine's spare row, Mamba's causal conv pad; a dim padded by 0 on
+    both sides may be sharded): on its shard, the layout kept."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(x, DTensor) or any(
             not isinstance(p, (Shard, Replicate)) for p in x.placements):
         return NotImplemented
-    padded = {x.dim() - 1 - j for j in range(len(pad) // 2)}
+    padded = {x.dim() - 1 - j for j in range(len(pad) // 2)
+              if pad[2 * j] or pad[2 * j + 1]}
     if any(p.is_shard() and p.dim in padded for p in x.placements):
         return NotImplemented
     with meter:
@@ -605,6 +633,248 @@ def _new_zeros(experts):
     return rule
 
 
+def _local_along(op):
+    """``op(x, ..., dims)`` (``flip``, ``roll``) along dims the rank
+    holds whole: on its shard, the layout kept; where a mesh dim shards
+    one of them, NotImplemented (DTensor lays it out)."""
+    def rule(meter, x, *args):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        dims = args[-1] if args else ()
+        dims = [dims] if isinstance(dims, int) else list(dims)
+        if not isinstance(x, DTensor) or not dims or any(
+                not isinstance(p, (Shard, Replicate)) for p in x.placements) \
+                or any(p.is_shard() and p.dim in {d % x.dim() for d in dims}
+                       for p in x.placements):
+            return NotImplemented
+        with meter:
+            loc = op(x._local_tensor, *args)
+        return DTensor.from_local(loc, x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+    return rule
+
+
+def _split_sharded(meter, x, sizes, dim=0):
+    """``split`` (``split_with_sizes``) of a dim some mesh dims shard,
+    into parts that each split evenly over them (the fused QKV and gate
+    projections' outputs): each part keeps the layout, as GSPMD retiles
+    the parts with collective-permutes (counted: the rank's block moves
+    once, into a buffer a part)."""
+    from torch.distributed.tensor import DTensor
+    d = dim % x.dim() if isinstance(x, DTensor) else dim
+    dims = _split_dims(x, d)
+    if dims is None:
+        return NotImplemented
+    k = math.prod(x.device_mesh.size(i) for i in dims)
+    parts = [sizes] * (x.shape[d] // sizes) if isinstance(sizes, int) \
+        else list(sizes)
+    if sum(parts) != x.shape[d] or any(n % k for n in parts):
+        return NotImplemented
+    with meter:
+        if k > 1:
+            _collective("collective-permute", x._local_tensor)
+        locs = [t.contiguous() for t in
+                x._local_tensor.split([n // k for n in parts], d)]
+    out = []
+    for n, loc in zip(parts, locs):
+        shape = list(x.shape)
+        shape[d] = n
+        out.append(DTensor.from_local(loc, x.device_mesh, x.placements,
+                                      run_check=False,
+                                      shape=torch.Size(shape),
+                                      stride=_stride(shape)))
+    return out
+
+
+def _cat_sharded(meter, tensors, dim=0):
+    """``cat`` along a dim some mesh dims shard, of parts laid out alike
+    that each split evenly over them (``split``'s backward): the layout
+    kept, the parts retiled into the rank's block by collective-permutes
+    (counted: the block moves once)."""
+    from torch.distributed.tensor import DTensor
+    x = tensors[0] if tensors else None
+    if not isinstance(x, DTensor) or any(
+            not isinstance(t, DTensor) or t.placements != x.placements
+            or t.dim() != x.dim() for t in tensors):
+        return NotImplemented
+    d = dim % x.dim()
+    dims = _split_dims(x, d)
+    if dims is None:
+        return NotImplemented
+    k = math.prod(x.device_mesh.size(i) for i in dims)
+    if any(t.shape[d] % k for t in tensors):
+        return NotImplemented
+    with meter:
+        loc = torch.cat([t._local_tensor for t in tensors], d)
+        if k > 1:
+            _collective("collective-permute", loc)
+    shape = list(x.shape)
+    shape[d] = sum(t.shape[d] for t in tensors)
+    return DTensor.from_local(loc, x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_stride(shape))
+
+
+def _fsdp_mm(meter, a, b):
+    """``mm`` where a mesh dim shards ``a``'s rows and one of ``b``'s dims
+    (FSDP's weight against the data-sharded batch, or the weight's
+    transpose in the backward): ``b`` all-gathered over that mesh dim
+    first, as GSPMD gathers an FSDP weight, and the product left to
+    DTensor (whose own choice here differs between torch builds)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
+        return NotImplemented
+    clash = [i for i, (p, q) in enumerate(zip(a.placements, b.placements))
+             if p.is_shard(0) and q.is_shard() and a.device_mesh.size(i) > 1]
+    if not clash:
+        return NotImplemented
+    with meter:
+        whole = _as(b, b.device_mesh, [Replicate() if i in clash else q
+                                       for i, q in enumerate(b.placements)])
+        return torch.mm(a, whole)
+
+
+def _merged_view(meter, x, size):
+    """``view`` merging dims where a mesh dim shards a dim other than the
+    first of the merged ones (``[b, s, h, d]`` with d split into ``[b, s,
+    h * d]``): the result sharded on the merged dim, the rank's block
+    retiled by one all-to-all (counted), as GSPMD retiles it; some torch
+    builds lay such a view out as a strided shard, others refuse it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor) or any(
+            not isinstance(p, (Shard, Replicate)) for p in x.placements):
+        return NotImplemented
+    size = [int(n) for n in size]
+    if -1 in size:
+        known = math.prod(n for n in size if n != -1)
+        size[size.index(-1)] = x.numel() // max(known, 1)
+    shape = list(x.shape)
+    # the merged group [i, j) of x's dims making size's dim k
+    groups, i = [], 0
+    for n in size:
+        j, acc = i, 1
+        while j < len(shape) and acc * shape[j] <= n and (
+                acc < n or shape[j] == 1):
+            acc *= shape[j]
+            j += 1
+            if acc == n:
+                break
+        if acc != n or j == i:
+            return NotImplemented
+        groups.append((i, j))
+        i = j
+    if i != len(shape):
+        return NotImplemented
+    pl, inner = [], False
+    for m, p in enumerate(x.placements):
+        if not p.is_shard():
+            pl.append(p)
+            continue
+        k = next(k for k, (lo, hi) in enumerate(groups) if lo <= p.dim < hi)
+        lo, hi = groups[k]
+        if p.dim != lo and x.device_mesh.size(m) > 1:
+            if hi - lo < 2 or size[k] % x.device_mesh.size(m):
+                return NotImplemented
+            inner = True
+        pl.append(Shard(k))
+    if not inner:
+        return NotImplemented
+    mesh = x.device_mesh
+    local = list(size)
+    for m, p in enumerate(pl):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(m)
+    with meter:
+        _collective("all-to-all", x._local_tensor)
+        loc = x._local_tensor.reshape(local)
+    return DTensor.from_local(loc, mesh, pl, run_check=False,
+                              shape=torch.Size(size), stride=_stride(size))
+
+
+def _unsafe_view(meter, x, size):
+    """``_unsafe_view`` (the reshape of a product's result) laid out as
+    ``view``: some DTensor builds have no strategy of its own for it
+    (a shard that cannot be viewed so is left to DTensor)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor) or not x._local_tensor.is_contiguous():
+        return NotImplemented
+    out = _merged_view(meter, x, size)
+    if out is not NotImplemented:
+        return out
+    with meter:
+        return torch.ops.aten.view.default(x, size)
+
+
+def _scatter_add_rows(meter, dst, indices, values, accumulate=False):
+    """``index_put`` with ``accumulate`` (the embedding's gradient) into
+    a ``dst`` whose indexed dims no mesh dim shards, from indices and
+    updates sharded on their leading dims (the batch): each rank adds
+    its rows into its copy, and the sum over the mesh dims that shard
+    the indices is a partial sum (settled as any other)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    k = len(indices)
+    if not accumulate or not isinstance(dst, DTensor) \
+            or not isinstance(values, DTensor) \
+            or any(i is None or not isinstance(i, DTensor) for i in indices) \
+            or any(not isinstance(p, (Shard, Replicate))
+                   for x in (dst, values, *indices) for p in x.placements) \
+            or any(p.is_shard() and p.dim < k for p in dst.placements):
+        return NotImplemented
+    mesh = dst.device_mesh
+    rows = [i for i, p in enumerate(indices[0].placements) if p.is_shard()]
+    if any(p.is_shard() and p.dim != 0 for p in indices[0].placements):
+        return NotImplemented
+    ip = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    off = values.dim() - dst.dim()
+    vp = [Shard(0) if i in rows else Shard(p.dim + off) if p.is_shard()
+          else Replicate() for i, p in enumerate(dst.placements)]
+    with meter:
+        idx = [_as(i, mesh, ip)._local_tensor for i in indices]
+        vals = _as(values, mesh, vp)._local_tensor
+        loc = torch.ops.aten.index_put(dst._local_tensor, idx,
+                                       vals.to(dst.dtype), True)
+    return DTensor.from_local(
+        loc, mesh, [Partial() if i in rows else p
+                    for i, p in enumerate(dst.placements)],
+        run_check=False, shape=dst.shape, stride=dst.stride())
+
+
+def _index_add_rows(meter, x, dim, index, source, alpha=1):
+    """``index_add`` along a dim no mesh dim shards in ``source`` (the MoE
+    combine into its token rows), the index whole on every rank: on each
+    rank's block, ``x`` laid out as ``source`` (some DTensor builds'
+    strategy for it takes the wrong block of the index)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(source, DTensor) or x.dim() != source.dim():
+        return NotImplemented
+    d = dim % source.dim()
+    pl = source.placements
+    if any(not p.is_replicate() for p in getattr(index, "placements", ())) \
+            or any(not isinstance(p, (Shard, Replicate))
+                   or (p.is_shard() and p.dim == d) for p in pl):
+        return NotImplemented
+    mesh = source.device_mesh
+    with meter:
+        if isinstance(x, DTensor):
+            xl = _as(x, mesh, pl)._local_tensor
+        else:
+            xl = x
+            for i, p in enumerate(pl):
+                if p.is_shard():
+                    xl = xl.narrow(p.dim, 0, xl.shape[p.dim] // mesh.size(i))
+        il = index._local_tensor if isinstance(index, DTensor) else index
+        loc = torch.ops.aten.index_add(xl, d, il, source._local_tensor,
+                                       alpha=alpha)
+    return DTensor.from_local(loc, mesh, pl, run_check=False,
+                              shape=x.shape, stride=_stride(x.shape))
+
+
+def _index_put_out(meter, dst, indices, values, accumulate=False):
+    out = _masked_scatter_out(meter, dst, indices, values, accumulate)
+    return _scatter_add_rows(meter, dst, indices, values, accumulate) \
+        if out is NotImplemented else out
+
+
 def _local_unfold(meter, x, dim, size, step):
     """``unfold`` (the Mamba conv's windows) of a dim the rank holds
     whole: on its shard, the other dims' layout kept."""
@@ -760,10 +1030,12 @@ def _settle_partial(meter, func, args, out):
     """A DTensor result that is a partial sum (a row-parallel product,
     a reduction over a sharded dim, a masked gather) is all-reduced at
     once, as GSPMD all-reduces a partitioned dot's output, and not left
-    for the next op to reduce-scatter.  In the backward (grad off) only
-    over the model axis: a gradient's partial sum over the data axes is
-    left for DTensor to reduce-scatter into its parameter's shards.  A
-    strided shard (a split dim some DTensor builds lay out so) is
+    for the next op to reduce-scatter.  In the backward (grad off) a
+    parameter's gradient (``_grad_param``) is summed into that
+    parameter's own layout: reduce-scattered where the parameter is
+    sharded, all-reduced where it is not, as GSPMD reduces a gradient
+    (and not as each torch build's DTensor would choose at its next
+    use).  A strided shard (a split dim some DTensor builds lay out so) is
     gathered, as a head split is elsewhere.  A mutated argument is left
     as it is."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -774,17 +1046,40 @@ def _settle_partial(meter, func, args, out):
     def fix(t):
         if not isinstance(t, DTensor) or id(t) in ids:
             return t
-        im = _model_dim(t.device_mesh)
-        dims = [i for i, p in enumerate(t.placements) if (
-            p.is_partial() and (forward or i == im))
-            or (p.is_shard() and type(p) is not Shard)]
+        dims = [i for i, p in enumerate(t.placements) if p.is_partial()
+                or (p.is_shard() and type(p) is not Shard)]
         if not dims:
             return t
+        param = None if forward else getattr(_grad_param(t), "placements",
+                                             None)
         with meter:
             return _as(t, t.device_mesh,
-                       [Replicate() if i in dims else p
+                       [(param[i] if param is not None and p.is_partial()
+                         else Replicate()) if i in dims else p
                         for i, p in enumerate(t.placements)])
     return tree_map(fix, out)
+
+
+def _grad_param(t, depth: int = 4):
+    """The parameter whose gradient ``t`` is, or None: a parameter of
+    ``t``'s shape that the running backward node hands its gradient to,
+    directly or through nodes of one input each (a cast, a scalar
+    add)."""
+    node = torch._C._current_autograd_node()
+    todo = [(f, 0) for f, _ in (node.next_functions if node else ())]
+    while todo:
+        f, d = todo.pop(0)
+        if f is None or d > depth:
+            continue
+        var = getattr(f, "variable", None)
+        if var is not None:
+            if tuple(var.shape) == tuple(t.shape):
+                return var
+            continue
+        nxt = [g for g, _ in f.next_functions if g is not None]
+        if len(nxt) == 1:
+            todo.append((nxt[0], d + 1))
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -798,10 +1093,20 @@ def _collective(kind: str, payload) -> None:
     if m is None or m.paused:
         return
     name = {"all-reduce": "all_reduce",
-            "all-gather": "all_gather_into_tensor"}[kind]
+            "all-gather": "all_gather_into_tensor",
+            "all-to-all": "all_to_all_single",
+            "collective-permute": "send"}[kind]
     spec = op_cost._spec(payload)
     m.add({"op": f"_c10d_functional.{name}.default", "args": [spec],
            "out": spec})
+
+
+def _count_collective(kind: str, like, shape, dtype=None) -> None:
+    """Count a collective of ``kind`` on a payload of ``shape`` (in
+    ``like``'s dtype and device, or ``dtype``) without making one."""
+    with op_cost.paused():
+        payload = like.new_empty(shape, dtype=dtype or like.dtype)
+    _collective(kind, payload)
 
 
 class _AllReduced(torch.autograd.Function):
@@ -820,16 +1125,19 @@ class _AllReduced(torch.autograd.Function):
 
 
 class _Gathered(torch.autograd.Function):
-    """The rank's block ``x`` all-gathered into a tensor of ``shape``
-    (counted); the gradient of the block is the rank's part of the
-    whole one (a slice: nothing moves)."""
+    """The rank's block ``x`` made into a tensor of ``shape`` by an
+    all-gather whose result on the rank is ``payload`` (a shape; counted)
+    or, with ``payload`` None, from the parts GSPMD leaves tiled on the
+    ranks (nothing moves); the gradient of the block is the rank's part
+    of the whole one (a slice: nothing moves)."""
 
     @staticmethod
-    def forward(ctx, x, shape):
+    def forward(ctx, x, shape, payload=None):
         ctx.shape = x.shape
         with op_cost.paused():
             out = x.new_empty(shape)
-        _collective("all-gather", out)
+        if payload is not None:
+            _count_collective("all-gather", out, payload)
         m = op_cost.active()
         if m is not None:
             m._alloc(out)
@@ -838,7 +1146,7 @@ class _Gathered(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         with op_cost.paused():
-            return g.new_empty(ctx.shape), None
+            return g.new_empty(ctx.shape), None, None
 
 
 class _DenseGrad(torch.autograd.Function):
@@ -858,70 +1166,191 @@ def _softcap(scores, c: float):
     return torch.tanh(scores / c) * c if c > 0 else scores
 
 
+class _Layout:
+    """The layout of an attention's operands on the mesh: the model
+    axis (``im``, of ``m`` ranks) and the mesh dims (``batch``) that
+    shard the batch of ``q`` or ``k`` (DTensors or plain tensors)."""
+
+    def __init__(self, q, k):
+        from torch.distributed.tensor import DTensor, Shard
+        self.meter = op_cost.active()
+        self.mesh = mesh = q.device_mesh
+        self.im = im = _model_dim(mesh)
+        self.m = mesh.size(im)
+        self.b = q.shape[0]
+        self.batch = {i for i in range(mesh.ndim) if i != im and any(
+            isinstance(x, DTensor) and x.placements[i] == Shard(0)
+            for x in (q, k))}
+
+    def lay(self, x, model, batch: bool = True):
+        """Placements of ``x`` batch-sharded as the operands (where its
+        first dim is the batch and ``batch``), ``model`` on the model
+        axis."""
+        from torch.distributed.tensor import Replicate, Shard
+        pl = [Shard(0) if batch and i in self.batch and (
+            x is None or x.shape[0] == self.b)
+              else Replicate() for i in range(self.mesh.ndim)]
+        pl[self.im] = model
+        return pl
+
+    def local(self, x, model, batch: bool = True):
+        """The rank's block of ``x`` laid out by ``lay`` (a plain tensor
+        as it is)."""
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            return x
+        with self.meter:
+            return _DenseGrad.apply(_as(x, self.mesh,
+                                        self.lay(x, model, batch))
+                                    .to_local())
+
+    def wrap(self, loc, shape, model):
+        """A DTensor of ``shape`` (batch first) from the rank's block."""
+        from torch.distributed.tensor import DTensor
+        shape = torch.Size(shape)
+        return DTensor.from_local(loc, self.mesh, self.lay(None, model),
+                                  run_check=False, shape=shape,
+                                  stride=_stride(shape))
+
+
+class _Heads(_Layout):
+    """GSPMD's split of an attention over the model axis of m ranks, for
+    q [B, S, nq, hd] (a DTensor), k [B, T, nkv, hd] and v [B, T, nkv,
+    vd]: the batch stays sharded where q's or k's is, and
+
+    * ``seq``: K/V sequence-parallel over the model axis (a cache whose
+      kv heads do not divide it);
+    * ``heads``: the kv heads divide the axis; Q, K, V and the output
+      are heads-sharded;
+    * ``partial``: the axis splits into fk = gcd(kv heads, m) over the
+      kv heads and r = m / fk over the head dim, where the query heads
+      take the same factor (gcd(q heads, m) = fk): the scores, a partial
+      sum, are all-reduced over r ranks and each rank's heads gathered
+      whole (``tiled``: r = m / gcd(q heads, m), the query heads split
+      that many ways, as GSPMD tiles the band's chunked product and
+      mLSTM's, and the output left tiled);
+    * ``split``: the query heads split gcd(q heads, m) ways with the
+      head dim whole (the rest of the axis computes the same) and each
+      rank's output feeds the row-parallel output projection as GSPMD
+      leaves it tiled.
+
+    Q, K and V arrive whole on the model axis (a head split that does
+    not divide it, ``_on_unsharded``) or heads-sharded."""
+
+    def __init__(self, q, k, v, tiled: bool = False):
+        import math as _math
+        from torch.distributed.tensor import DTensor, Shard
+        _Layout.__init__(self, q, k)
+        im, m = self.im, self.m
+        self.b, self.s, self.nq, self.hd = q.shape
+        self.t, self.nkv, self.vd = k.shape[1], k.shape[2], v.shape[-1]
+        self.g = g = self.nq // self.nkv
+        self.shape = (self.b, self.s, self.nq, self.vd)
+        fk, fq = _math.gcd(self.nkv, m), _math.gcd(self.nq, m)
+        r = m // fq if tiled else m // fk
+        partial = (tiled or fq == fk) and r > 1 and self.hd % r == 0 \
+            and self.vd % r == 0
+        if isinstance(k, DTensor) and k.placements[im] == Shard(1) \
+                and self.t % m == 0:
+            self.mode = "seq"
+        elif fk == m:
+            self.mode = "heads"
+        else:
+            self.mode = "partial" if partial else "split"
+        self.tiled = tiled
+        self.r = r if self.mode == "partial" else 1
+        if self.mode == "heads":
+            self.kv_l, self.g_l = self.nkv // m, g
+        else:
+            self.kv_l = self.nkv // fk
+            self.g_l = g if self.mode == "partial" and not tiled \
+                else g // (fq // fk)
+
+    def take(self, x, model, heads: int, width: int):
+        """The rank's block of ``x`` [B, T, h, d] laid out with ``model``
+        on the model axis, the all-gather counted as GSPMD's: where x
+        lies tiled on the model axis (sharded there, or a head split's
+        result, ``_heads_gathered``: h split f = gcd(h, m) ways, d the
+        other m / f) and its tile is less than the ``heads`` x ``width``
+        block the rank computes with, that block is the payload."""
+        import math as _math
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            return x
+        own = x.placements[self.im]
+        tiled = own.is_shard() or (tuple(x.shape), x.dtype) in getattr(
+            self.meter, "head_tiles", ())
+        with self.meter:
+            with op_cost.paused():
+                loc = _as(x, self.mesh, self.lay(x, model)).to_local()
+            self.meter._alloc(loc, "all-gather")
+            h, d = x.shape[2], x.shape[3]
+            f = _math.gcd(h, self.m)
+            tile = (h // f) * (d * f // self.m)
+            if tiled and not (own == model and own.is_shard()) \
+                    and heads * width > tile:
+                shape = list(loc.shape)
+                shape[2:4] = [heads, width]
+                _count_collective("all-gather", loc, shape)
+            return _DenseGrad.apply(loc)
+
+    def parts(self, q, k, v, mask=None):
+        """The rank's (q [b, S, kv_l, g_l, hd_l], k [b, T, kv_l, hd_l], v
+        [b, T, kv_l, vd_l], mask) local blocks (not ``seq``): Q, K and V
+        heads-sharded where their heads divide the model axis and the
+        mode keeps them so, else whole there."""
+        import math as _math
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        r, kv_l, g_l = self.r, self.kv_l, self.g_l
+        hd_l, vd_l = self.hd // r, self.vd // r
+        whole_q = self.mode == "heads" or (
+            self.mode == "split" and _math.gcd(self.nq, self.m) == self.m)
+        ql = self.take(q, Shard(2) if whole_q else Replicate(),
+                       kv_l * g_l, hd_l)
+        kv = Shard(2) if self.mode == "heads" else Replicate()
+        kl = self.take(k, kv, kv_l, hd_l)
+        vl = self.take(v, kv, kv_l, vd_l)
+        ml = self.local(mask, Replicate()) if isinstance(mask, DTensor) \
+            else mask
+        bl = ql.shape[0]
+        qg = ql[:, :, :kv_l * g_l, :hd_l].reshape(bl, self.s, kv_l, g_l,
+                                                  hd_l)
+        return qg, kl[:, :, :kv_l, :hd_l], vl[:, :, :kv_l, :vd_l], ml
+
+    def finish(self, out):
+        """The output DTensor [B, S, nq, vd] from the rank's block ``out``
+        [b, S, kv_l * g_l, vd_l]."""
+        from torch.distributed.tensor import Replicate, Shard
+        if self.mode == "heads":
+            return self.wrap(out.contiguous(), self.shape, Shard(2))
+        bl = out.shape[0]
+        payload = (bl, self.s, self.kv_l * self.g_l, self.vd) \
+            if self.mode == "partial" and not self.tiled else None
+        return self.wrap(_Gathered.apply(out, (bl, self.s, self.nq,
+                                               self.vd), payload),
+                         self.shape, Replicate())
+
+
 def _partitioned_sdpa(plain):
     """``models.attention._sdpa`` on DTensors laid out as GSPMD lays out
-    the reference's attention on the production mesh (``plain`` on
-    other tensors).
-
-    * K/V sequence-parallel over the model axis (a cache whose kv heads
-      do not divide it): each rank scores the query against its rows;
-      the max, the sum and the weighted values are all-reduced over the
-      model axis (the reference's ``reduce_max``, ``reduce_sum`` and
-      P·V all-reduces).
-    * Otherwise the model axis splits into a factor ``fk`` = gcd(kv
-      heads, model) over the kv heads and ``r`` = model / fk: where the
-      query heads take the same factor (gcd(q heads, model) = fk) the
-      head dim is split r ways and the scores, a partial sum, are
-      all-reduced over r ranks; else the query heads split gcd(q heads,
-      model) ways with the head dim whole (the rest of the axis computes
-      the same).  The output is all-gathered over the model axis for the
-      row-parallel output projection.  Q, K and V arrive whole on the
-      model axis (``view`` of a head split that does not divide it)
-      or heads-sharded where the heads divide it."""
-    import math as _math
+    the reference's attention on the production mesh (``_Heads``;
+    ``plain`` on other tensors).  ``seq``: each rank scores the query
+    against its rows; the max, the sum and the weighted values are
+    all-reduced over the model axis (the reference's ``reduce_max``,
+    ``reduce_sum`` and P·V all-reduces)."""
 
     def sdpa(cfg, q, k, v, mask):
         from torch.distributed.tensor import DTensor, Replicate, Shard
         if not isinstance(q, DTensor):
             return plain(cfg, q, k, v, mask)
-        meter = op_cost.active()
-        mesh = q.device_mesh
-        im = _model_dim(mesh)
-        m = mesh.size(im)
-        b, s, nq, hd = q.shape
-        t, nkv, vd = k.shape[1], k.shape[2], v.shape[-1]
-        g = nq // nkv
+        h = _Heads(q, k, v)
+        s, nq, hd, vd, g = h.s, h.nq, h.hd, h.vd, h.g
         f32 = torch.float32
-
-        # the batch stays sharded where the query's or the keys' is
-        batch = {i for i in range(mesh.ndim) if i != im and any(
-            isinstance(x, DTensor) and x.placements[i] == Shard(0)
-            for x in (q, k))}
-
-        def lay(x, model):
-            pl = [Shard(0) if i in batch and x.shape[0] == b
-                  else Replicate() for i in range(mesh.ndim)]
-            pl[im] = model
-            return pl
-
-        def local(x, model):
-            if not isinstance(x, DTensor):
-                return x
-            with meter:
-                return _DenseGrad.apply(_as(x, mesh, lay(x, model))
-                                        .to_local())
-
-        def out_tensor(loc, model):
-            shape = torch.Size((b, s, nq, vd))
-            return DTensor.from_local(
-                loc, mesh, lay(q, model), run_check=False, shape=shape,
-                stride=_stride(shape))
-
-        seq = (k.placements[im] == Shard(1) and t % m == 0)
-        if seq:
-            ql, kl, vl = (local(q, Replicate()), local(k, Shard(1)),
-                          local(v, Shard(1)))
-            ml = local(mask, Replicate()) if mask is not None else None
+        if h.mode == "seq":
+            t, m, nkv = h.t, h.m, h.nkv
+            ql, kl, vl = (h.take(q, Replicate(), nq, hd),
+                          h.local(k, Shard(1)), h.local(v, Shard(1)))
+            ml = h.local(mask, Replicate()) if mask is not None else None
             if ml is not None and ml.shape[-1] == t:
                 ml = ml.narrow(-1, 0, t // m)
             bl = ql.shape[0]
@@ -938,28 +1367,12 @@ def _partitioned_sdpa(plain):
                 w = w.to(v.dtype).to(f32)
             out = _AllReduced.apply(torch.einsum("bkgst,btkd->bskgd", w,
                                                  vl.to(f32)))
-            return out_tensor(out.reshape(bl, s, nq, vd).to(q.dtype)
-                              .contiguous(), Replicate())
-        fk, fq = _math.gcd(nkv, m), _math.gcd(nq, m)
-        r = m // fk
-        partial = fq == fk and r > 1 and hd % r == 0 and vd % r == 0
-        if fk == m:                     # heads divide the axis
-            ql, kl, vl = (local(q, Shard(2)), local(k, Shard(2)),
-                          local(v, Shard(2)))
-            kv_l, g_l = nkv // m, g
-        else:
-            ql, kl, vl = (local(q, Replicate()), local(k, Replicate()),
-                          local(v, Replicate()))
-            kv_l, g_l = nkv // fk, g if partial else g // (fq // fk)
-        hd_l, vd_l = (hd // r, vd // r) if partial else (hd, vd)
-        ml = local(mask, Replicate()) if isinstance(mask, DTensor) \
-            else mask
-        bl = ql.shape[0]
-        qg = ql.reshape(bl, s, ql.shape[2] // g, g, hd)[
-            :, :, :kv_l, :g_l, :hd_l].to(f32)
-        kl, vl = kl[:, :, :kv_l, :hd_l], vl[:, :, :kv_l, :vd_l]
-        sc = torch.einsum("bskgd,btkd->bkgst", qg, kl.to(f32)) * (hd ** -0.5)
-        if partial:
+            return h.wrap(out.reshape(bl, s, nq, vd).to(q.dtype)
+                          .contiguous(), h.shape, Replicate())
+        qg, kl, vl, ml = h.parts(q, k, v, mask)
+        sc = torch.einsum("bskgd,btkd->bkgst", qg.to(f32),
+                          kl.to(f32)) * (hd ** -0.5)
+        if h.mode == "partial":
             sc = _AllReduced.apply(sc)
         sc = _softcap(sc, cfg.logit_softcap)
         if ml is not None:
@@ -968,12 +1381,248 @@ def _partitioned_sdpa(plain):
         if cfg.fast_attn:
             w = w.to(v.dtype).to(f32)
         out = torch.einsum("bkgst,btkd->bskgd", w, vl.to(f32))
-        out = out.reshape(bl, s, kv_l * g_l, vd_l).to(q.dtype)
-        if fk == m:
-            return out_tensor(out.contiguous(), Shard(2))
-        return out_tensor(_Gathered.apply(out, (bl, s, nq, vd)),
-                          Replicate())
+        out = out.reshape(qg.shape[0], s, h.kv_l * h.g_l, vl.shape[-1])
+        return h.finish(out.to(q.dtype))
     return sdpa
+
+
+def _partitioned_mla(plain):
+    """``models.attention._mla_attend`` (MLA's attention below
+    ``flash_block``) on DTensors, its heads split over the model axis as
+    ``_Heads`` splits GQA's (one query head a kv head; the value width
+    is not the qk width): ``plain`` on the rank's blocks, the scores'
+    partial sums all-reduced where the head dim is split."""
+
+    def attend(q, k, v, mask):
+        from torch.distributed.tensor import DTensor
+        if not isinstance(q, DTensor):
+            return plain(q, k, v, mask)
+        h = _Heads(q, k, v)
+        qg, kl, vl, ml = h.parts(q, k, v, mask)
+        bl = qg.shape[0]
+        nl = h.kv_l * h.g_l
+        if h.mode == "partial":
+            _count_collective("all-reduce", qg, (bl, nl, h.s, h.t),
+                              torch.float32)
+        out = plain(qg.reshape(bl, h.s, nl, qg.shape[-1]), kl, vl,
+                    ml.to_local() if isinstance(ml, DTensor) else ml)
+        return h.finish(out)
+    return attend
+
+
+def _partitioned_band(plain):
+    """``models.attention._band_attend`` (``gqa_local``'s band) on
+    DTensors, as GSPMD tiles the chunked product: the query heads split
+    gcd(q heads, m) ways and the head dim the rest of the model axis,
+    the scores' partial sums all-reduced over those ranks (``_Heads``
+    with ``tiled``): ``plain`` on the rank's blocks."""
+
+    def attend(cfg, q, k, v):
+        from torch.distributed.tensor import DTensor
+        if not isinstance(q, DTensor):
+            return plain(cfg, q, k, v)
+        h = _Heads(q, k, v, tiled=True)
+        qg, kl, vl, _ = h.parts(q, k, v)
+        bl = qg.shape[0]
+        nl = h.kv_l * h.g_l
+        if h.mode == "partial":
+            w = cfg.local_window
+            _count_collective("all-reduce", qg, (
+                bl, h.s // w, h.kv_l, h.g_l, w, 2 * w), torch.float32)
+        out = plain(cfg, qg.reshape(bl, h.s, nl, qg.shape[-1]), kl, vl)
+        return h.finish(out)
+    return attend
+
+
+class _GradAllReduced(torch.autograd.Function):
+    """``x`` as it is; in the backward an all-reduce of a payload of
+    ``shape`` (float32) is counted: the partial sum of a product's
+    gradient over a split head dim."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = shape
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count_collective("all-reduce", g, ctx.shape, torch.float32)
+        return g, None
+
+
+def _partitioned_mlstm(plain):
+    """``models.ssm._mlstm_parallel`` (mLSTM's parallel form) on
+    DTensors as GSPMD tiles it: the heads split gcd(nh, m) ways and the
+    head dim the rest of the model axis (``_Heads`` with ``tiled``), the
+    [b, s, t, h] products' partial sums all-reduced over those ranks in
+    the forward (the scores) and in the backward (the weights'
+    gradient); ``plain`` on the rank's blocks."""
+
+    def parallel(q, k, v, gi, logf):
+        from torch.distributed.tensor import DTensor, Replicate
+        if not isinstance(q, DTensor):
+            return plain(q, k, v, gi, logf)
+        h = _Heads(q, k, v, tiled=True)
+        qg, kl, vl, _ = h.parts(q, k, v)
+        bl, s = qg.shape[0], h.s
+        nl = h.kv_l * h.g_l
+        gl, fl = (h.local(x, Replicate())[..., :nl] for x in (gi, logf))
+        scores = (bl, s, s, nl)
+        if h.mode == "partial":
+            _count_collective("all-reduce", qg, scores, torch.float32)
+        y, (C, n, m) = plain(qg.reshape(bl, s, nl, qg.shape[-1]), kl, vl,
+                             gl, fl)
+        if h.mode == "partial":
+            y = _GradAllReduced.apply(y, scores)
+        hd = h.hd
+
+        def whole(loc, shape):
+            return h.wrap(_Gathered.apply(loc, (bl,) + shape[1:]), shape,
+                          Replicate())
+        return h.finish(y), (whole(C, (h.b, h.nq, hd, hd)),
+                             whole(n, (h.b, h.nq, hd)),
+                             whole(m, (h.b, h.nq)))
+    return parallel
+
+
+def _partitioned_slstm(plain):
+    """``models.ssm.slstm_step`` (one token of the sLSTM) on DTensors as
+    GSPMD tiles it: the state [b, nh, hd] split over the model axis on
+    the head dim; the hidden state all-gathered for the recurrent
+    product, whose gate columns the model axis splits as ``r_gates``'s;
+    the gates (input part and recurrent part) retiled to the state's
+    split with an all-to-all; the rest elementwise on the rank's block.
+    ``plain`` where the head dim does not split over the axis."""
+
+    def step(cfg, p, gates_x, state):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        nh, hd = cfg.ssm.xlstm_heads, cfg.d_model // cfg.ssm.xlstm_heads
+        if not isinstance(gates_x, DTensor) \
+                or hd % gates_x.device_mesh.size(
+                    _model_dim(gates_x.device_mesh)):
+            return plain(cfg, p, gates_x, state)
+        lay = _Layout(gates_x, gates_x)
+        b, m = gates_x.shape[0], lay.m
+        hd_l = hd // m
+        gx = lay.local(gates_x, Shard(1))
+        bl = gx.shape[0]
+
+        def block(x):
+            if isinstance(x, DTensor):
+                return lay.local(x, Shard(2))
+            return x[:bl, :, :hd_l]
+        c, n, mx, h = (block(x) for x in state)
+        hw = _Gathered.apply(h, (bl, nh, hd), (bl, nh, hd) if m > 1 else None)
+        rg = lay.local(p["r_gates"], Shard(2), batch=False)
+        rec = torch.einsum("bkh,khg->bkg", *_promoted(hw, rg))
+        if m > 1:
+            _collective("all-to-all", gx)
+        bg = lay.local(p["b_gates"], Replicate(), batch=False)[
+            :4 * nh * hd_l]
+        g = (gx.reshape(bl, 4, nh, hd_l) + rec.reshape(bl, 4, nh, hd_l)) \
+            .to(torch.float32) + bg.reshape(4, nh, hd_l)
+        gi, gf, gz, go = g.unbind(1)
+        m_new = torch.maximum(gf + mx, gi)
+        i = torch.exp(gi - m_new)
+        f = torch.exp(gf + mx - m_new)
+        c_new = f * c + i * torch.tanh(gz)
+        n_new = f * n + i
+        h_new = torch.sigmoid(go) * c_new / torch.clamp(n_new, min=1.0)
+        h_new = h_new.to(_DTYPES[cfg.compute_dtype])
+        return tuple(lay.wrap(t.contiguous(), (b, nh, hd), Shard(2))
+                     for t in (c_new, n_new, m_new, h_new))
+    return step
+
+
+def _partitioned_scan(plain):
+    """``models.ssm._selective_scan_chunked`` (Mamba's scan) on DTensors:
+    each rank scans its block, the batch rows its data axes hold and
+    the channels its model rank holds (the recurrence is elementwise in
+    the channels), as GSPMD partitions the reference's scan; the row
+    blocks are the rank's own, never a cut of the sharded batch."""
+
+    def scan(u, dt, B, C, A, h0, chunk: int = 256):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(u, DTensor):
+            return plain(u, dt, B, C, A, h0, chunk=chunk)
+        lay = _Layout(u, u)
+        b, s, di = u.shape
+        n = B.shape[-1]
+        ch = Shard(2) if di % lay.m == 0 else Replicate()
+        ul, dtl = lay.local(u, ch), lay.local(dt, ch)
+        Bl, Cl = lay.local(B, Replicate()), lay.local(C, Replicate())
+        with lay.meter:
+            Al = _as(A, lay.mesh, [Shard(0) if i == lay.im and ch.is_shard()
+                                   else Replicate()
+                                   for i in range(lay.mesh.ndim)]
+                     ).to_local() if isinstance(A, DTensor) else A
+        bl, dl = ul.shape[0], ul.shape[2]
+        hl = lay.local(h0, Shard(1) if ch.is_shard() else Replicate()) \
+            if isinstance(h0, DTensor) else h0[:bl, :dl]
+        y, hT = plain(ul, dtl, Bl, Cl, Al[:dl], hl, chunk=chunk)
+        model = Shard(1) if ch.is_shard() else Replicate()
+        return (lay.wrap(y, (b, s, di), ch),
+                lay.wrap(hT.contiguous(), (b, di, n), model))
+    return scan
+
+
+def _promoted(a, b):
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def _partitioned_latent(plain):
+    """``models.attention._mla_latent`` (MLA decode in latent space) on
+    DTensors as GSPMD lays it out over the sequence-parallel latent
+    cache: the latent and rope queries whole on the model axis, each
+    rank scores them against its rows of the cache, and the max, the sum
+    and the weighted latents are all-reduced over the model axis."""
+
+    def latent(cfg, q_c, q_pe, ckv, kpe, mask, scale):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(q_c, DTensor) or not isinstance(ckv, DTensor) \
+                or ckv.placements[_model_dim(ckv.device_mesh)] != Shard(1):
+            return plain(cfg, q_c, q_pe, ckv, kpe, mask, scale)
+        lay = _Layout(q_c, ckv)
+        t, m = ckv.shape[1], lay.m
+        f32 = torch.float32
+        qc, qp = lay.local(q_c, Replicate()), lay.local(q_pe, Replicate())
+        cl, kl = lay.local(ckv, Shard(1)), lay.local(kpe, Shard(1))
+        ml = lay.local(mask, Shard(1)) if isinstance(mask, DTensor) \
+            else mask.narrow(-1, 0, t // m)
+        sc = torch.einsum("bsnr,btr->bnst", qc, cl.to(f32)) + torch.einsum(
+            "bsnd,btd->bnst", qp.to(f32), kl.to(f32))
+        sc = sc * scale
+        sc = torch.where(ml[:, None, None, :], sc, -1e30)
+        mx = _AllReduced.apply(sc.amax(dim=-1, keepdim=True))
+        e = torch.exp(sc - mx)
+        w = e / _AllReduced.apply(e.sum(dim=-1, keepdim=True))
+        if cfg.fast_attn:
+            w = w.to(ckv.dtype).to(f32)
+        ctx = _AllReduced.apply(torch.einsum("bnst,btr->bsnr", w,
+                                             cl.to(f32)))
+        return lay.wrap(ctx.contiguous(), q_c.shape, Replicate())
+    return latent
+
+
+def _laid_positions(plain):
+    """``models.model._positions`` of a DTensor ``x``: the positions laid
+    out as ``x``'s batch (GSPMD shards the broadcast ``arange`` as the
+    activations it meets), each rank making its rows."""
+
+    def positions(x):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(x, DTensor):
+            return plain(x)
+        pl = [Shard(0) if p == Shard(0) else Replicate()
+              for p in x.placements]
+        b, s = x.shape[0], x.shape[1]
+        bl = x._local_tensor.shape[0] if Shard(0) in pl else b
+        loc = plain(x._local_tensor.new_empty((bl, s, 0)))
+        shape = torch.Size((b, s))
+        return DTensor.from_local(loc, x.device_mesh, pl, run_check=False,
+                                  shape=shape, stride=_stride(shape))
+    return positions
 
 
 def _heads_whole(fn):
@@ -1014,27 +1663,43 @@ def _alltoall(plain):
     return alltoall
 
 
+# (module, name, the dry run's version of it) swapped in while a cell is
+# traced
+def _seams():
+    from repro_torch.models import attention, model, ssm
+    return [(attention, "_sdpa", _partitioned_sdpa),
+            (attention, "_mla_attend", _partitioned_mla),
+            (attention, "_band_attend", _partitioned_band),
+            (attention, "_mla_latent", _partitioned_latent),
+            (ssm, "_mlstm_parallel", _partitioned_mlstm),
+            (ssm, "_mlstm_qkv", _heads_whole),
+            (ssm, "slstm_step", _partitioned_slstm),
+            (ssm, "_selective_scan_chunked", _partitioned_scan),
+            (attention, "_q", _heads_whole),
+            (attention, "_qkv", _heads_whole),
+            (model, "_positions", _laid_positions)]
+
+
 @contextlib.contextmanager
 def _gspmd_layouts():
-    """While a cell is traced: ``models.attention._sdpa`` partitioned as
-    GSPMD partitions it, the Q/K/V projections' head splits gathered on
-    the model axis, and DTensor's all-to-all one op on every mesh."""
+    """While a cell is traced: the model's seams (``_seams``: attention
+    partitioned as GSPMD partitions it, the Q/K/V projections' head
+    splits gathered on the model axis, positions laid out as the
+    batch), and DTensor's all-to-all one op on every mesh."""
     from torch.distributed.tensor import _collective_utils, placement_types
-    from repro_torch.models import attention
-    plain = {k: getattr(attention, k) for k in ("_sdpa", "_q", "_qkv")}
+    plain = [(mod, name, getattr(mod, name)) for mod, name, _ in _seams()]
     a2a = {m: getattr(m, "shard_dim_alltoall", None)
            for m in (_collective_utils, placement_types)}
-    attention._sdpa = _partitioned_sdpa(plain["_sdpa"])
-    attention._q = _heads_whole(plain["_q"])
-    attention._qkv = _heads_whole(plain["_qkv"])
+    for (mod, name, fn), (_, _, swap) in zip(plain, _seams()):
+        setattr(mod, name, swap(fn))
     for m, fn in a2a.items():
         if fn is not None:
             m.shard_dim_alltoall = _alltoall(fn)
     try:
         yield
     finally:
-        for k, fn in plain.items():
-            setattr(attention, k, fn)
+        for mod, name, fn in plain:
+            setattr(mod, name, fn)
         for m, fn in a2a.items():
             if fn is not None:
                 m.shard_dim_alltoall = fn
@@ -1088,7 +1753,16 @@ def _rules(model=None) -> dict:
             aten.unfold_backward.default: _local_unfold_backward,
             aten.index_put_.default: _masked_scatter,
             aten._index_put_impl_.default: _masked_scatter,
-            aten.index_put.default: _masked_scatter_out,
+            aten.index_put.default: _index_put_out,
+            aten.flip.default: _local_along(torch.ops.aten.flip.default),
+            aten.roll.default: _local_along(torch.ops.aten.roll.default),
+            aten._unsafe_view.default: _unsafe_view,
+            aten.view.default: _merged_view,
+            aten.mm.default: _fsdp_mm,
+            aten.cat.default: _cat_sharded,
+            aten.split.Tensor: _split_sharded,
+            aten.split_with_sizes.default: _split_sharded,
+            aten.index_add.default: _index_add_rows,
             aten.gather.default: _sharded_gather,
             aten.scatter_add_.default: _sharded_scatter_add,
             aten.scatter_add.default: _sharded_scatter_add_out,
@@ -1290,6 +1964,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
         "mesh": "x".join(str(n) for n in mesh.shape),
         "chips": mesh.size(),
         "trace_s": round(trace_s, 1),
+        "torch_version": torch.__version__,
         "memory": {
             "argument_bytes": arg_bytes,
             "output_bytes": out_bytes,

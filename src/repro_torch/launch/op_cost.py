@@ -122,7 +122,7 @@ _SCATTER = {"index_put": 2, "index_put_": 2, "_index_put_impl_": 2,
             "index_fill": 3, "index_fill_": 3}
 
 # ops whose second output is a scratch buffer whose size depends on the
-# device (empty on the card): counted by their first
+# device (empty on the card): counted, bytes and live bytes, by their first
 _FIRST_OUT = {"log_sigmoid_forward"}
 # ... and the argument that takes that buffer back (not counted)
 _SCRATCH_ARG = {"log_sigmoid_backward": 2}
@@ -588,6 +588,8 @@ class Meter(TorchDispatchMode):
         if _is_view(func) or self._regathered(func, args):
             rec["view"] = True
         self.add(rec)
+        if _short(rec["op"])[1] in _FIRST_OUT:
+            outs = outs[:1]             # a scratch buffer is not live data
         for t in outs:
             self._alloc(t, rec["op"])
         return out

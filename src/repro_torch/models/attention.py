@@ -19,7 +19,10 @@ and no mask; and ``gqa_cross_decode``, the query against K/V already in
 the cache, through the plain ``_sdpa`` with no mask, as the reference's
 stack computes it.  All but ``gqa_decode``'s kernel route are plain
 PyTorch, as the reference computes them outside any Pallas kernel (MLA
-decode and cross attention have no kernel there).
+decode and cross attention have no kernel there).  The attention cores
+``_sdpa``, ``_band_attend`` (the local band), ``_mla_attend`` and
+``_mla_latent`` (MLA's decode in latent space) are module-level seams
+the dry run swaps for versions partitioned over the model axis.
 """
 from __future__ import annotations
 
@@ -192,6 +195,38 @@ def gqa_cross_decode(cfg: ModelConfig, p, x, cross_k, cross_v):
     return mm(out.reshape(*x.shape[:-1], -1), p["wo"])
 
 
+def _band_attend(cfg: ModelConfig, q, k, v):
+    """``gqa_local``'s band past one window W = ``cfg.local_window``: q
+    [B, S, nq, hd], k, v [B, S, nkv, hd], S a multiple of W.  Chunk c of
+    W queries attends chunks c - 1 and c under a band mask (the first
+    chunk has no predecessor); scores and weights float32 whatever
+    ``fast_attn`` says.  Returns [B, S, nq, hd] float32.  A seam of its
+    own: the dry run splits its heads over the model axis."""
+    w = cfg.local_window
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    nc = s // w
+    g = nq // nkv
+    kc = k.reshape(b, nc, w, nkv, hd).to(torch.float32)
+    vc = v.reshape(b, nc, w, nkv, hd).to(torch.float32)
+    # keys and values of chunk c: chunks c - 1 and c, [b, nc, 2w, nkv, hd]
+    k2 = torch.cat([F.pad(kc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], kc], dim=2)
+    v2 = torch.cat([F.pad(vc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], vc], dim=2)
+    qpos = torch.arange(w, device=q.device)[:, None] + w   # in [w, 2w)
+    kpos = torch.arange(2 * w, device=q.device)[None, :]
+    band = (kpos <= qpos) & (kpos > qpos - w)
+    first = (torch.arange(nc, device=q.device) == 0)[:, None, None]
+    mask = torch.where(first, band & (kpos >= w), band)
+    mask = mask.reshape(1, nc, 1, 1, w, 2 * w)            # [b,c,k,g,s,t]
+    qg = q.reshape(b, nc, w, nkv, g, hd).to(torch.float32)
+    scores = torch.einsum("bcskgd,bctkd->bckgst", qg, k2) * (hd ** -0.5)
+    scores = _softcap(scores, cfg.logit_softcap)
+    scores = torch.where(mask, scores, NEG_INF)
+    wts = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bckgst,bctkd->bcskgd", wts, v2)
+    return out.reshape(b, s, nq, hd)
+
+
 def gqa_local(cfg: ModelConfig, p, x, positions):
     """Sliding-window causal attention (window ``cfg.local_window``):
     query i sees keys (i - W, i].  x: [B, S, d]; positions: [B, S].
@@ -217,27 +252,7 @@ def gqa_local(cfg: ModelConfig, p, x, positions):
     if s <= w:
         out = _sdpa(cfg, q, k, v, _causal_mask(s, s, x.device))
         return mm(out.reshape(b, s, -1), p["wo"]), (k, v)
-    nc = s // w
-    nq, nkv, hd = q.shape[2], k.shape[2], q.shape[3]
-    g = nq // nkv
-    kc = k.reshape(b, nc, w, nkv, hd).to(torch.float32)
-    vc = v.reshape(b, nc, w, nkv, hd).to(torch.float32)
-    # keys and values of chunk c: chunks c - 1 and c, [b, nc, 2w, nkv, hd]
-    k2 = torch.cat([F.pad(kc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], kc], dim=2)
-    v2 = torch.cat([F.pad(vc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], vc], dim=2)
-    qpos = torch.arange(w, device=x.device)[:, None] + w   # in [w, 2w)
-    kpos = torch.arange(2 * w, device=x.device)[None, :]
-    band = (kpos <= qpos) & (kpos > qpos - w)
-    first = (torch.arange(nc, device=x.device) == 0)[:, None, None]
-    mask = torch.where(first, band & (kpos >= w), band)
-    mask = mask.reshape(1, nc, 1, 1, w, 2 * w)            # [b,c,k,g,s,t]
-    qg = q.reshape(b, nc, w, nkv, g, hd).to(torch.float32)
-    scores = torch.einsum("bcskgd,bctkd->bckgst", qg, k2) * (hd ** -0.5)
-    scores = _softcap(scores, cfg.logit_softcap)
-    scores = torch.where(mask, scores, NEG_INF)
-    wts = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bckgst,bctkd->bcskgd", wts, v2)
-    out = out.reshape(b, s, nq * hd).to(x.dtype)
+    out = _band_attend(cfg, q, k, v).reshape(b, s, -1).to(x.dtype)
     return mm(out, p["wo"]), (k, v)
 
 
@@ -339,6 +354,20 @@ def _mla_ckv(cfg: ModelConfig, p, x, positions):
     return c_kv, k_pe[..., 0, :]
 
 
+def _mla_attend(q, k, v, mask):
+    """``mla_full``'s attention below ``flash_block``: q, k [B, S, nq,
+    qk], v [B, T, nq, vd], ``mask`` broadcastable to [B, nq, S, T].
+    Scores and weights float32 at scale 1/sqrt(qk), no soft-cap and no
+    rounding of the weights (``_sdpa`` rounds them under ``fast_attn``;
+    MLA does not).  Returns [B, S, nq, vd] float32.  A seam of its own:
+    the dry run splits its heads over the model axis."""
+    scores = torch.einsum("bsnd,btnd->bnst", q.to(torch.float32),
+                          k.to(torch.float32)) * q.shape[-1] ** -0.5
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bnst,btnd->bsnd", w, v.to(torch.float32))
+
+
 def mla_full(cfg: ModelConfig, p, x, positions):
     """Train/prefill MLA: expand the compressed KV to per-head K/V and
     run causal attention.  x: [B, S, d]; positions: [B, S].  Returns
@@ -358,18 +387,34 @@ def mla_full(cfg: ModelConfig, p, x, positions):
     k_pe_b = k_pe[:, :, None, :].expand(b, s, nq, m.qk_rope_head_dim)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe_b], dim=-1)
-    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     if cfg.flash_block and s > cfg.flash_block:
         out = _flash_sdpa(q, k, v, cfg.flash_block)
     else:
-        scores = torch.einsum("bsnd,btnd->bnst", q.to(torch.float32),
-                              k.to(torch.float32)) * qk ** -0.5
-        scores = torch.where(_causal_mask(s, s, x.device)[0], scores,
-                             NEG_INF)
-        w = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bnst,btnd->bsnd", w, v.to(torch.float32))
+        out = _mla_attend(q, k, v, _causal_mask(s, s, x.device)[0])
     out = mm(out.reshape(b, s, -1).to(x.dtype), p["wo"])
     return out, (c_kv, k_pe)
+
+
+def _mla_latent(cfg: ModelConfig, q_c, q_pe, cache_ckv, cache_kpe, mask,
+                scale: float):
+    """``mla_decode``'s attention in latent space: the absorbed query q_c
+    [B, 1, nq, r] (float32) and the rotated rope query q_pe [B, 1, nq,
+    rope] against the cache's latents [B, Smax, r] and rope keys [B,
+    Smax, rope]; ``mask`` [B, Smax] the rows each slot sees.  Scores and
+    weights float32 (under ``fast_attn`` the weights rounded to the
+    cache's dtype).  Returns the weighted latents [B, 1, nq, r] float32.
+    A seam of its own: the dry run splits the cache's rows over the model
+    axis."""
+    ckv = cache_ckv.to(torch.float32)
+    s_c = torch.einsum("bsnr,btr->bnst", q_c, ckv)
+    s_pe = torch.einsum("bsnd,btd->bnst", q_pe.to(torch.float32),
+                        cache_kpe.to(torch.float32))
+    scores = (s_c + s_pe) * scale
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    if cfg.fast_attn:
+        w = w.to(cache_ckv.dtype).to(torch.float32)
+    return torch.einsum("bnst,btr->bsnr", w, ckv)
 
 
 def mla_decode(cfg: ModelConfig, p, x, cache_ckv, cache_kpe, pos):
@@ -405,19 +450,11 @@ def mla_decode(cfg: ModelConfig, p, x, cache_ckv, cache_kpe, pos):
     # absorb: q_c[b,1,nq,r] = q_nope @ w_uk^T
     q_c = torch.einsum("bsnd,rnd->bsnr", q_nope.to(torch.float32),
                        w_uk.to(torch.float32))
-    ckv = cache_ckv.to(torch.float32)
     if cfg.fast_attn:
         q_c = q_c.to(cache_ckv.dtype).to(torch.float32)
-    s_c = torch.einsum("bsnr,btr->bnst", q_c, ckv)
-    s_pe = torch.einsum("bsnd,btd->bnst", q_pe.to(torch.float32),
-                        cache_kpe.to(torch.float32))
-    scores = (s_c + s_pe) * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     mask = torch.arange(s, device=x.device)[None, :] <= pv[:, None]
-    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    if cfg.fast_attn:
-        w = w.to(cache_ckv.dtype).to(torch.float32)
-    ctx = torch.einsum("bnst,btr->bsnr", w, ckv)
+    ctx = _mla_latent(cfg, q_c, q_pe, cache_ckv, cache_kpe, mask,
+                      (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
     out = torch.einsum("bsnr,rnd->bsnd", ctx, w_uv.to(torch.float32))
     out = mm(out.reshape(b, 1, -1).to(x.dtype), p["wo"])
     return out, (cache_ckv, cache_kpe)

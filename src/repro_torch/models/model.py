@@ -109,6 +109,12 @@ def _check_model_mesh(cfg: ModelConfig, mesh) -> None:
     check_tensor_parallel(cfg, mesh.size)
 
 
+def _positions(x):
+    """[B, S] positions 0..S-1 for the rows of ``x`` [B, S, ...].  A seam
+    of its own: the dry run lays them out as ``x``'s batch."""
+    return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+
+
 class Model(nn.Module):
     """``model_mesh`` (with ``cfg.tp_axis``): the model-axis mesh of this
     rank; the model keeps its rank's block of each weight, cut from
@@ -219,8 +225,7 @@ class Model(nn.Module):
         the reference's encoder runs — then ``enc_norm``."""
         cfg = self.cfg
         h = frontend_apply(cfg, self.embed, enc_feats)
-        positions = torch.arange(h.shape[1], device=h.device) \
-            .expand(h.shape[:2])
+        positions = _positions(h)
         h, _, _ = tf.stack_apply(cfg, self.encoder, h, self.enc_kinds,
                                  mode="train", positions=positions,
                                  tp_mesh=self.tp_mesh)
@@ -237,8 +242,7 @@ class Model(nn.Module):
                              bool(cfg.enc_layers))
         enc_out = None if enc_feats is None else self._encode(enc_feats)
         x = self._embed_inputs(tokens, frontend_feats)
-        positions = torch.arange(x.shape[1], device=x.device) \
-            .expand(x.shape[:2])
+        positions = _positions(x)
         x, new_cache, aux = tf.stack_apply(
             cfg, self.layers, x, self.dec_kinds, mode=mode, cache=cache,
             pos=pos, positions=positions, groups=groups, enc_out=enc_out,

@@ -115,7 +115,8 @@ def _selective_scan_chunked(u, dt, B, C, A, h0, chunk: int = 256):
     """u, dt: [b, s, di]; B, C: [b, s, n]; A: [di, n] (``A_log``); h0:
     [b, di, n] -> (y [b, s, di], hT [b, di, n]), in the inputs' dtype.
     The row blocks and the chunks iterate through ``op_cost.scan`` (one
-    traced body each in a dry run)."""
+    traced body each in a dry run).  A seam of its own: the dry run runs
+    it on each rank's block (its rows of the batch and its channels)."""
     b, s, di = u.shape
     n = B.shape[-1]
     nch, ch = _chunks(s, chunk)
@@ -279,6 +280,17 @@ def mlstm_init(gen, cfg: ModelConfig) -> nn.ParameterDict:
     })
 
 
+def _mlstm_qkv(cfg: ModelConfig, p, x):
+    """q, k (scaled by hd^-1/2) and v [B, S, nh, hd] of x [B, S, d].  A
+    seam of its own: the dry run gathers its head splits as an
+    attention projection's."""
+    b, s, d = x.shape
+    nh, hd = _heads(cfg)
+    q, k, v = mm(x, p["w_qkv"]).split(d, dim=-1)
+    return (q.reshape(b, s, nh, hd), k.reshape(b, s, nh, hd) * (hd ** -0.5),
+            v.reshape(b, s, nh, hd))
+
+
 def mlstm_apply(cfg: ModelConfig, p, x, state=None):
     """Parallel (attention-like) mLSTM for train and prefill, recurrent
     for a one-token decode from ``state`` (C, n, m).
@@ -289,10 +301,7 @@ def mlstm_apply(cfg: ModelConfig, p, x, state=None):
     hand-off to decode."""
     b, s, d = x.shape
     nh, hd = _heads(cfg)
-    q, k, v = mm(x, p["w_qkv"]).split(d, dim=-1)
-    q = q.reshape(b, s, nh, hd)
-    k = k.reshape(b, s, nh, hd) * (hd ** -0.5)
-    v = v.reshape(b, s, nh, hd)
+    q, k, v = _mlstm_qkv(cfg, p, x)
     gif = mm(x, p["w_if"]).to(F32) + p["b_if"]
     gi, gf = gif.split(nh, dim=-1)                        # [b, s, nh]
     logf = F.logsigmoid(gf)
@@ -317,9 +326,21 @@ def mlstm_apply(cfg: ModelConfig, p, x, state=None):
         return mm(y.to(x.dtype), p["w_out"]), (C_new, n_new, m_new)
 
     # parallel form
+    y, state = _mlstm_parallel(q, k, v, gi, logf)
+    y = y.reshape(b, s, d).to(x.dtype)
+    return mm(y, p["w_out"]), state
+
+
+def _mlstm_parallel(q, k, v, gi, logf):
+    """mLSTM's parallel form: q, k (scaled), v [B, S, nh, hd]; the input
+    gate ``gi`` and log forget gate ``logf`` [B, S, nh] float32.
+    Returns (y [B, S, nh, hd] float32, the final state (C [B, nh, hd,
+    hd], n [B, nh, hd], m [B, nh])).  A seam of its own: the dry run
+    splits its heads over the model axis."""
+    s = q.shape[1]
     cum = torch.cumsum(logf, dim=1)                       # [b, s, nh]
     dmat = cum[:, :, None, :] - cum[:, None, :, :] + gi[:, None, :, :]
-    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     dmat = dmat.masked_fill(~causal[None, :, :, None], float("-inf"))
     mrow = dmat.amax(dim=2, keepdim=True)
     dstab = torch.exp(dmat - mrow)                        # [b, s, t, nh]
@@ -328,7 +349,6 @@ def mlstm_apply(cfg: ModelConfig, p, x, state=None):
     denom = torch.maximum(scores.sum(dim=2, keepdim=True).abs(),
                           torch.exp(-mrow))
     y = torch.einsum("bsth,bthd->bshd", scores / denom, vf)
-    y = y.reshape(b, s, d).to(x.dtype)
 
     # the final state for the prefill -> decode hand-off:
     #   m_fin = max over s of (cum_T - cum_s + gi_s); weights in its frame
@@ -338,7 +358,7 @@ def mlstm_apply(cfg: ModelConfig, p, x, state=None):
     wk = wts[..., None] * kf
     C_fin = torch.einsum("bshd,bshe->bhde", wk, vf)
     n_fin = wk.sum(dim=1)
-    return mm(y, p["w_out"]), (C_fin, n_fin, m_fin)
+    return y, (C_fin, n_fin, m_fin)
 
 
 def mlstm_state_init(cfg: ModelConfig, batch: int, device):

@@ -30,13 +30,15 @@ CELLS = {
 }
 
 # the reference's JSON keys (``repro/launch/dryrun.py`` ``run_cell``),
-# less ``compile_s``, plus the port's ``trace_s`` and ``replicated_ops``
+# less ``compile_s``, plus the port's ``trace_s``, ``replicated_ops`` and
+# ``torch_version``
 KEYS = {"arch", "shape", "mesh", "chips", "memory", "flops_per_device",
         "bytes_per_device", "raw_flops_per_device", "raw_bytes_per_device",
         "collectives", "collectives_uncorrected",
         "collective_bytes_per_device", "roofline", "dominant",
         "model_flops_global", "useful_ratio", "params_total",
-        "params_active", "loop_bodies", "trace_s", "replicated_ops"}
+        "params_active", "loop_bodies", "trace_s", "replicated_ops",
+        "torch_version"}
 MEMORY = {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
           "peak_live_bytes"}
 
