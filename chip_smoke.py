@@ -295,9 +295,10 @@ exit, no result line) on any mismatch:
    qwen2-1.5b ``decode_32k`` (float32), xlstm-350m ``train_4k`` (its
    sLSTM's 4,096 tokens through ``op_cost.scan``'s one traced body:
    ``loop_bodies`` must name them), deepseek-v3-671b ``decode_32k``,
-   gemma3-1b ``prefill_32k`` and nemotron-4-15b ``train_4k`` (square
-   FSDP projections laid out transposed) — at ``DRYRUN_LAYERS`` of their
-   layers
+   gemma3-1b ``prefill_32k``, nemotron-4-15b ``train_4k`` (square
+   FSDP projections laid out transposed, the global batch on every rank)
+   and jamba-v0.1-52b ``train_4k`` (the cell whose counts once hung on
+   the torch build) — at ``DRYRUN_LAYERS`` of their layers
    traced on the 256-rank fake production mesh with fake tensors on
    ``cuda`` (the first on ``cpu`` too, its ``argument_bytes``,
    ``flops_per_device``, ``bytes_per_device`` and collective bytes
@@ -5661,7 +5662,7 @@ def phase_sanitize(torch, dev, card):
 # (all at DRYRUN_LAYERS of their layers) traced on the card's device; the
 # first also on the CPU
 DRYRUN_CELLS = ("qwen2_decode_32k", "xlstm_train_4k", "deepseek_decode_32k",
-                "gemma3_prefill_32k", "nemotron_train_4k")
+                "gemma3_prefill_32k", "nemotron_train_4k", "jamba_train_4k")
 DRYRUN_COUNTS = ROOT / "tests" / "torch_dryrun_parity_counts.json"
 
 

@@ -289,3 +289,45 @@ class HWSpec:
 
 
 HW = HWSpec()
+
+
+# ---------------------------------------------------------------------------
+# Accelerator profiles: environment setup so the same commands run
+# unmodified on the CPU or the card
+# ---------------------------------------------------------------------------
+
+# Each profile: environment variables set BEFORE the program first
+# touches CUDA (``setdefault``: an explicit user environment always
+# wins), and the ``device`` the entry points' ``--device`` takes.  There
+# are no compiler flags to append: what the reference's XLA flags turn on
+# (overlapping collectives with compute) is the order in which the port
+# issues its own launches.  The port has no TPU backend, so no ``tpu``
+# entry.
+ACCEL_PROFILES = {
+    # the card hidden, so a reproduction run on a host with a GPU stays on
+    # the CPU and never builds a kernel
+    "cpu": {"env": {"CUDA_VISIBLE_DEVICES": ""}, "device": "cpu"},
+    # Hopper: the architecture ``torch.utils.cpp_extension`` builds for,
+    # the one ``kernels/_build.py``'s nvcc targets (``sm_90a``), and the
+    # toolkit ``_build.py`` runs nvcc from
+    "gpu": {"env": {"TORCH_CUDA_ARCH_LIST": "9.0a",
+                    "CUDA_HOME": "/usr/local/cuda"}, "device": "cuda"},
+}
+
+
+def apply_accel_profile(name: str) -> dict:
+    """Apply an ``ACCEL_PROFILES`` entry to ``os.environ`` (the
+    reference's contract): run it before the program first touches CUDA;
+    each variable is set with ``setdefault``, so a user's own setting
+    wins.  Returns the applied profile.  Raises ``ValueError`` on an
+    unknown name, naming the choices."""
+    import os
+    try:
+        prof = ACCEL_PROFILES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown accel profile {name!r}; "
+            f"pick one of {sorted(ACCEL_PROFILES)}") from None
+    for k, v in prof["env"].items():
+        os.environ.setdefault(k, v)
+    return prof

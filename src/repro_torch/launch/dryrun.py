@@ -22,7 +22,11 @@ counted, as GSPMD inserts one; each such op is listed
 (``_rules``), so a count does not hang on the torch build's own
 strategies, and the model's attention and recurrent cores are swapped
 while a cell traces for versions partitioned as GSPMD partitions the
-reference's (``_seams``).  ``launch.op_cost`` counts the rank's local
+reference's (``_seams``).  Every ``mm`` and ``bmm`` takes its result's
+placement from a rule (``_laid_mm``).  An FSDP cell's train and prefill
+steps hold the global batch on every rank, the model width split over
+the data axis, as GSPMD lays out the reference's (``_sharded_index``;
+``meter.batch_whole``).  ``launch.op_cost`` counts the rank's local
 ops, its collectives and its live bytes.
 
 Each cell writes results/torch/dryrun/<arch>__<shape>__<mesh>.json with
@@ -44,6 +48,7 @@ import math
 import os
 import sys
 import time
+import weakref
 
 import torch
 from torch import nn
@@ -250,6 +255,8 @@ def _on_unsharded(names: set):
                         out = _run_whole(func, nargs, nkw, mesh)
                     else:
                         out = func(*nargs, **nkw)
+                    if split and note == "model whole":
+                        _mark_tiled(meter, out)
                     out = _write_back(meter, func, args, kwargs, nargs,
                                       nkw, out)
                     names.add(f"{func} [{note}]")
@@ -267,14 +274,44 @@ def _heads_gathered(meter, laid, args, kwargs):
     out whole on the model axis by ``laid``, nothing counted: GSPMD
     keeps it tiled (h split gcd(h, m) ways, d the rest of the m ranks)
     and the attention gathers what it needs of it (``_Heads.take``),
-    which finds the split's shape and dtype in ``meter.head_tiles``."""
+    which knows the split's result by ``_mark_tiled``."""
     from torch.utils._pytree import tree_map
     with op_cost.paused():
         nargs, nkw = tree_map(laid, (args, kwargs))
     meter._alloc(nargs[0]._local_tensor, "all-gather")
-    meter.head_tiles = getattr(meter, "head_tiles", set())
-    meter.head_tiles.add((tuple(int(n) for n in args[1]), args[0].dtype))
     return nargs, nkw
+
+
+def _mark_tiled(meter, t) -> None:
+    """Note the DTensor ``t`` as a head split's result, which GSPMD keeps
+    tiled on the model axis (``_heads_gathered``): by identity, for as
+    long as the trace holds ``t``, not by shape."""
+    meter.head_tiles = getattr(meter, "head_tiles", {})
+    meter.head_tiles[id(t)] = weakref.ref(t)
+
+
+def _is_tiled(meter, t) -> bool:
+    r = getattr(meter, "head_tiles", {}).get(id(t))
+    return r is not None and r() is t
+
+
+def _carry_tiles(meter, args, out) -> None:
+    """The results of an op on a head split's result that keep its dims
+    (RoPE's halves, products and ``cat``; [.., h, d'] with the same
+    leading dims) are tiled as it is: GSPMD keeps the split's tiling
+    through them.  Another tensor of that shape is not."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_flatten
+    if not getattr(meter, "head_tiles", None):
+        return
+    src = next((a for a in tree_flatten(args)[0] if isinstance(a, DTensor)
+                and _is_tiled(meter, a)), None)
+    if src is None:
+        return
+    for o in tree_flatten(out)[0]:
+        if isinstance(o, DTensor) and o.dim() == src.dim() \
+                and o.shape[:-1] == src.shape[:-1]:
+            _mark_tiled(meter, o)
 
 
 def _head_split(func, dts, args, last) -> bool:
@@ -554,8 +591,23 @@ def _sharded_index(meter, x, indices):
     """``x[idx]`` on the leading dim (the embedding lookup): where that
     dim is sharded or ``x`` a partial sum, each rank looks up its rows
     (others read as zeros) and an all-reduce sums the parts, as the
-    vocab-parallel embedding does; a dim of ``x`` sharded over a mesh dim
-    that also shards ``idx`` is gathered first (FSDP's gather)."""
+    vocab-parallel embedding does.
+
+    Where a mesh dim shards both the table's width and ``idx`` (FSDP's
+    table [V, d] with d over the data axis, the tokens' batch over it
+    too) the tokens are all-gathered over it and the table keeps its
+    shard, so the embedding holds the global batch with d split as the
+    table's is, as GSPMD lays out the reference's lookup: its first ops
+    are ``all-gather s32[256,4096,1]`` and ``gather f32[1048576,1,320]``
+    in phi3-medium ``train_4k`` (5120 / 16), ``all-gather s32[32,32768,1]``
+    and ``gather f32[1048576,1,448]`` in deepseek ``prefill_32k``, then
+    the vocab's ``all-reduce f32[256,4096,320]`` over the model axis.
+    Every later product keeps that global batch (``_laid_mm``).  Without
+    ``meter.batch_whole`` (a decode step, whose cache is batch-sharded)
+    the embedding is laid out again with the batch sharded and its width
+    whole, one all-to-all, as the reference's decode does at once
+    (phi3.5-moe ``decode_32k``: ``all-gather s32[128,1,1]``, ``all-reduce
+    f32[128,1,256]``, ``all-to-all`` to [8, 1, 4096])."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if len(indices) != 1 or indices[0] is None \
             or not isinstance(indices[0], DTensor):
@@ -568,11 +620,10 @@ def _sharded_index(meter, x, indices):
     dims, _ = lay
     mesh = x.device_mesh
     xp, ip = list(x.placements), list(idx.placements)
-    for i, p in enumerate(xp):
-        if i in dims:
-            ip[i] = Replicate()
-        elif p.is_shard() and ip[i].is_shard():
-            xp[i] = Replicate()
+    shared = [i for i, p in enumerate(xp) if i not in dims and p.is_shard()
+              and ip[i].is_shard()]
+    for i in dims + shared:
+        ip[i] = Replicate()
     out_pl = []
     for i, p in enumerate(xp):
         if i in dims:
@@ -588,8 +639,12 @@ def _sharded_index(meter, x, indices):
         part = DTensor.from_local(
             loc, mesh, out_pl, run_check=False, shape=shape,
             stride=_stride(shape))
-        return _as(part, mesh, [Replicate() if i in dims else p
-                                for i, p in enumerate(out_pl)])
+        out = _as(part, mesh, [Replicate() if i in dims else p
+                               for i, p in enumerate(out_pl)])
+        if shared and not getattr(meter, "batch_whole", False):
+            out = _as(out, mesh, [idx.placements[i] if i in shared else p
+                                  for i, p in enumerate(out.placements)])
+        return out
 
 
 def _new_zeros(experts):
@@ -715,23 +770,105 @@ def _cat_sharded(meter, tensors, dim=0):
                               stride=_stride(shape))
 
 
-def _fsdp_mm(meter, a, b):
-    """``mm`` where a mesh dim shards ``a``'s rows and one of ``b``'s dims
-    (FSDP's weight against the data-sharded batch, or the weight's
-    transpose in the backward): ``b`` all-gathered over that mesh dim
-    first, as GSPMD gathers an FSDP weight, and the product left to
-    DTensor (whose own choice here differs between torch builds)."""
-    from torch.distributed.tensor import DTensor, Replicate
+def _mm_placement(p, q, k: int = 0):
+    """The placement of ``a @ b`` on one mesh dim where ``a`` [.., M, K]
+    is laid out ``p`` and ``b`` [.., K, N] ``q`` (``k`` batch dims in
+    front, as ``bmm``'s one), as GSPMD partitions a dot whose operands
+    already agree (nothing moves), or None: the batch, rows and columns
+    stay split, a contracting dim split in both (or a partial sum times
+    a whole operand) gives a partial sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if type(p) not in (Shard, Replicate, Partial) \
+            or type(q) not in (Shard, Replicate, Partial):
+        return None
+    if p.is_replicate() and q.is_replicate():
+        return Replicate()
+    if p == q and p.is_shard() and p.dim < k:
+        return p
+    if p == Shard(k) and q.is_replicate():
+        return Shard(k)
+    if p.is_replicate() and q == Shard(k + 1):
+        return Shard(k + 1)
+    if p == Shard(k + 1) and q == Shard(k):
+        return Partial()
+    if (p.is_partial() and q.is_replicate()) \
+            or (p.is_replicate() and q.is_partial()):
+        return Partial(p.reduce_op if p.is_partial() else q.reduce_op)
+    return None
+
+
+def _laid_mm(meter, a, b):
+    """``mm`` on the rank's blocks with the result's placement set here
+    (``_mm_placement``), never left to the torch build's strategy.
+
+    Where a mesh dim shards ``a``'s rows and one of ``b``'s dims (FSDP's
+    weight against a data-sharded batch: a decode step, or the weight's
+    transpose in its backward) ``b`` is all-gathered over that mesh dim
+    first, as GSPMD gathers an FSDP weight.  An FSDP cell's train and
+    prefill products hold the global batch (``_sharded_index``), so
+    their contracting dim (the model width) is split over the data axis
+    in both operands and the product is a partial sum there, all-reduced
+    where it is made (``_settle_partial``), as in the reference: phi3-
+    medium ``train_4k``'s ``dot f32[1048576,320] <- [1048576,320] x
+    [320,320]`` then ``all-reduce (f32[256,4096,80] x 2, f32[256,4096,
+    320])`` over the data axis (Q, K, V), the MLP's ``all-reduce (f32[256,
+    4096,1120] x 2)`` over the data axis, its output projection's and the
+    attention's ``all-reduce f32[256,4096,320]`` over the model axis; the
+    weights' gradients [320, N] need no collective (``dot f32[320,320]
+    <- [320,1048576] x [1048576,320]``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
         return NotImplemented
+    mesh = a.device_mesh
     clash = [i for i, (p, q) in enumerate(zip(a.placements, b.placements))
-             if p.is_shard(0) and q.is_shard() and a.device_mesh.size(i) > 1]
-    if not clash:
+             if p.is_shard(0) and q.is_shard() and mesh.size(i) > 1]
+    # beside the global batch, a product of batch-sharded rows (the
+    # loss's gradient, whose labels the data axis shards) with a weight
+    # whose columns that axis splits is laid out again as the global
+    # batch with its columns split, one all-to-all: the reference's
+    # head gradient ``dot f32[65536,5120]``, ``all-reduce f32[16,4096,
+    # 5120]`` over the model axis, then ``all-to-all`` to [256, 4096, 320]
+    # over the data axis (phi3-medium ``train_4k``)
+    relay = [i for i in clash if b.placements[i] == Shard(1)] \
+        if getattr(meter, "batch_whole", False) else []
+    with meter:
+        if clash:
+            b = _as(b, mesh, [Replicate() if i in clash else q
+                              for i, q in enumerate(b.placements)])
+        pl = [_mm_placement(p, q) for p, q in zip(a.placements,
+                                                   b.placements)]
+        if None in pl:
+            return torch.mm(a, b) if clash else NotImplemented
+        loc = torch.mm(a._local_tensor, b._local_tensor)
+        shape = torch.Size((a.shape[0], b.shape[1]))
+        out = DTensor.from_local(loc, mesh, pl, run_check=False,
+                                 shape=shape, stride=_stride(shape))
+        if relay:
+            out = _settle_partial(meter, torch.ops.aten.mm.default, (a, b),
+                                  out)
+            out = _as(out, mesh, [Shard(1) if i in relay else p
+                                  for i, p in enumerate(out.placements)])
+        return out
+
+
+def _laid_bmm(meter, a, b):
+    """``bmm`` on the rank's blocks, the result's placement set by
+    ``_mm_placement`` (the MoE's expert products [E, C, d] x [E, d, f]
+    with E over the model axis and d over the data axis: a partial sum
+    over the data axis, as the reference's ``all-reduce (f32[1,163840,
+    6400] x 2)`` in phi3.5-moe ``prefill_32k``); operands that do not
+    agree are left to DTensor."""
+    from torch.distributed.tensor import DTensor
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
+        return NotImplemented
+    pl = [_mm_placement(p, q, 1) for p, q in zip(a.placements, b.placements)]
+    if None in pl:
         return NotImplemented
     with meter:
-        whole = _as(b, b.device_mesh, [Replicate() if i in clash else q
-                                       for i, q in enumerate(b.placements)])
-        return torch.mm(a, whole)
+        loc = torch.bmm(a._local_tensor, b._local_tensor)
+    shape = torch.Size((a.shape[0], a.shape[1], b.shape[2]))
+    return DTensor.from_local(loc, a.device_mesh, pl, run_check=False,
+                              shape=shape, stride=_stride(shape))
 
 
 def _merged_view(meter, x, size):
@@ -992,6 +1129,46 @@ def _sharded_softmax_backward(meter, grad, out, dim, input_dtype):
         return _wrap((y * (g - tot)).to(input_dtype), out)
 
 
+def _sharded_var(meter, x, dim=None, *, correction=None, keepdim=False):
+    """``var`` along one sharded dim (the layer norm of an FSDP cell's
+    activations, their width split over the data axis): each rank's sum
+    and sum of squares all-reduced together, as the reference's ``jit(
+    _var)/reduce_sum`` all-reduces ``(f32[32,32768], f32[32,32768])``
+    (phi3.5-moe ``prefill_32k``), not the activations gathered."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dims_in = dim if isinstance(dim, (list, tuple)) else [dim]
+    if dim is None or len(dims_in) != 1:
+        return NotImplemented
+    d = dims_in[0] % x.dim()
+    dims = _split_dims(x, d)
+    if dims is None:
+        return NotImplemented
+    mesh = x.device_mesh
+    n = x.shape[d]
+    with meter:
+        loc = x._local_tensor
+        both = _reduced_over(meter, torch.stack(
+            [loc.sum(d, keepdim=True), loc.square().sum(d, keepdim=True)]),
+            mesh, [Shard(p.dim + 1) if p.is_shard() else p
+                   for p in x.placements], dims, "sum")
+        mean = both[0] / n
+        res = (both[1] / n - mean * mean) * (
+            n / max(n - (1 if correction is None else correction), 1))
+        if not keepdim:
+            res = res.squeeze(d)
+    pl = [Replicate() if i in dims else p for i, p in enumerate(x.placements)]
+    if not keepdim:
+        pl = [Shard(p.dim - 1) if p.is_shard() and p.dim > d else p
+              for p in pl]
+    shape = list(x.shape)
+    shape[d] = 1
+    if not keepdim:
+        del shape[d]
+    shape = torch.Size(shape)
+    return DTensor.from_local(res, mesh, pl, run_check=False, shape=shape,
+                              stride=_stride(shape))
+
+
 def _sharded_logsumexp(meter, x, dim, keepdim=False):
     """``logsumexp`` along a sharded dim (the loss over vocab-sharded
     logits): max and sum all-reduced, as GSPMD does."""
@@ -1057,7 +1234,9 @@ def _settle_partial(meter, func, args, out):
                        [(param[i] if param is not None and p.is_partial()
                          else Replicate()) if i in dims else p
                         for i, p in enumerate(t.placements)])
-    return tree_map(fix, out)
+    out = tree_map(fix, out)
+    _carry_tiles(meter, args, out)
+    return out
 
 
 def _grad_param(t, depth: int = 4):
@@ -1181,6 +1360,12 @@ class _Layout:
         self.batch = {i for i in range(mesh.ndim) if i != im and any(
             isinstance(x, DTensor) and x.placements[i] == Shard(0)
             for x in (q, k))}
+        # an FSDP cell's train or prefill step holds the global batch on
+        # every rank (``_sharded_index``): the mesh dims that shard
+        # neither the batch nor the heads (the data axis) are ``spare``
+        self.spare = [i for i in range(mesh.ndim) if i != im
+                      and i not in self.batch] \
+            if getattr(self.meter, "batch_whole", False) else []
 
     def lay(self, x, model, batch: bool = True):
         """Placements of ``x`` batch-sharded as the operands (where its
@@ -1216,7 +1401,9 @@ class _Layout:
 class _Heads(_Layout):
     """GSPMD's split of an attention over the model axis of m ranks, for
     q [B, S, nq, hd] (a DTensor), k [B, T, nkv, hd] and v [B, T, nkv,
-    vd]: the batch stays sharded where q's or k's is, and
+    vd]: the batch stays sharded where q's or k's is (or whole on every
+    rank, in an FSDP cell's train or prefill step: ``_Layout.spare``),
+    and
 
     * ``seq``: K/V sequence-parallel over the model axis (a cache whose
       kv heads do not divide it);
@@ -1232,7 +1419,8 @@ class _Heads(_Layout):
     * ``split``: the query heads split gcd(q heads, m) ways with the
       head dim whole (the rest of the axis computes the same) and each
       rank's output feeds the row-parallel output projection as GSPMD
-      leaves it tiled.
+      leaves it tiled; beside the global batch, query heads that do not
+      divide the axis split only as the kv heads.
 
     Q, K and V arrive whole on the model axis (a head split that does
     not divide it, ``_on_unsharded``) or heads-sharded."""
@@ -1265,6 +1453,14 @@ class _Heads(_Layout):
             self.kv_l = self.nkv // fk
             self.g_l = g if self.mode == "partial" and not tiled \
                 else g // (fq // fk)
+            if self.mode == "split" and self.spare and fq < m:
+                # query heads that do not divide the model axis, beside
+                # the global batch: GSPMD splits them only as the kv
+                # heads, each rank's kv heads with all their query heads
+                # (phi3-medium ``train_4k``, 40 on 16: ``all-gather
+                # f32[256,4096,20,128]`` then ``dot f32[256,5,4096,16384]``,
+                # five kv heads of four query heads each)
+                self.g_l = g
 
     def take(self, x, model, heads: int, width: int):
         """The rank's block of ``x`` [B, T, h, d] laid out with ``model``
@@ -1278,8 +1474,7 @@ class _Heads(_Layout):
         if not isinstance(x, DTensor):
             return x
         own = x.placements[self.im]
-        tiled = own.is_shard() or (tuple(x.shape), x.dtype) in getattr(
-            self.meter, "head_tiles", ())
+        tiled = own.is_shard() or _is_tiled(self.meter, x)
         with self.meter:
             with op_cost.paused():
                 loc = _as(x, self.mesh, self.lay(x, model)).to_local()
@@ -1401,11 +1596,26 @@ def _partitioned_mla(plain):
         qg, kl, vl, ml = h.parts(q, k, v, mask)
         bl = qg.shape[0]
         nl = h.kv_l * h.g_l
-        if h.mode == "partial":
+        qk, vd = qg.shape[-1], vl.shape[-1]
+        f = math.prod(h.mesh.size(i) for i in h.spare)
+        spare = f > 1 and qk % f == 0 and vd % f == 0
+        if spare:
+            # beside the global batch the head dims split over the data
+            # axis too: the scores a partial sum there, all-reduced, and
+            # the output's value dim all-gathered (deepseek
+            # ``prefill_32k``: ``dot f32[32,8,32768,32768] <- [32,8,32768,
+            # 12] x [32,8,12,32768]``, ``all-reduce f32[32,8,32768,32768]``,
+            # then ``all-gather f32[32,32768,8,128]`` over the data axis)
+            qg, kl, vl = (t[..., :n // f] for t, n in
+                          ((qg, qk), (kl, qk), (vl, vd)))
+        if h.mode == "partial" or spare:
             _count_collective("all-reduce", qg, (bl, nl, h.s, h.t),
                               torch.float32)
         out = plain(qg.reshape(bl, h.s, nl, qg.shape[-1]), kl, vl,
                     ml.to_local() if isinstance(ml, DTensor) else ml)
+        if spare:
+            shape = (bl, h.s, nl, vd)
+            out = _Gathered.apply(out, shape, shape)
         return h.finish(out)
     return attend
 
@@ -1539,13 +1749,21 @@ def _partitioned_scan(plain):
     each rank scans its block, the batch rows its data axes hold and
     the channels its model rank holds (the recurrence is elementwise in
     the channels), as GSPMD partitions the reference's scan; the row
-    blocks are the rank's own, never a cut of the sharded batch."""
+    blocks are the rank's own, never a cut of the sharded batch.  Beside
+    an FSDP cell's global batch (``_Layout.spare``) each rank scans its
+    data rank's rows and the outputs are all-gathered to the global
+    batch again, as the reference's jamba ``train_4k`` scans [16, 256,
+    512] blocks (``dot f32[16,256,512] <- [16,256,512,16] x [16,256,
+    16]``) and gathers ``all-gather f32[256,4096,512]`` over the data
+    axis for the output projection."""
 
     def scan(u, dt, B, C, A, h0, chunk: int = 256):
         from torch.distributed.tensor import DTensor, Replicate, Shard
         if not isinstance(u, DTensor):
             return plain(u, dt, B, C, A, h0, chunk=chunk)
         lay = _Layout(u, u)
+        spare = [i for i in lay.spare if u.shape[0] % lay.mesh.size(i) == 0]
+        lay.batch |= set(spare)
         b, s, di = u.shape
         n = B.shape[-1]
         ch = Shard(2) if di % lay.m == 0 else Replicate()
@@ -1561,8 +1779,15 @@ def _partitioned_scan(plain):
             if isinstance(h0, DTensor) else h0[:bl, :dl]
         y, hT = plain(ul, dtl, Bl, Cl, Al[:dl], hl, chunk=chunk)
         model = Shard(1) if ch.is_shard() else Replicate()
-        return (lay.wrap(y, (b, s, di), ch),
-                lay.wrap(hT.contiguous(), (b, di, n), model))
+        out = (lay.wrap(y, (b, s, di), ch),
+               lay.wrap(hT.contiguous(), (b, di, n), model))
+        if not spare:
+            return out
+        with lay.meter:
+            return tuple(_as(t, lay.mesh, [Replicate() if i in spare else p
+                                           for i, p in enumerate(
+                                               t.placements)])
+                         for t in out)
     return scan
 
 
@@ -1625,6 +1850,25 @@ def _laid_positions(plain):
     return positions
 
 
+def _laid_ce(plain):
+    """``models.model._masked_ce`` on DTensors: the logits laid out on the
+    rows the labels' batch shard holds (a slice: nothing moves) where
+    they hold the whole batch (an FSDP cell), so the loss and its
+    gradient run batch-sharded as GSPMD runs the reference's: phi3-medium
+    ``train_4k``'s ``all-reduce f32[16,4095]`` over the model axis for
+    the max and the sum, then ``all-gather f32[256,4096,6272]`` of the
+    logits' gradient for the head's."""
+
+    def ce(logits, labels):
+        from torch.distributed.tensor import DTensor, Shard
+        if isinstance(logits, DTensor) and isinstance(labels, DTensor):
+            logits = _as(logits, logits.device_mesh, [
+                Shard(0) if q == Shard(0) and p.is_replicate() else p
+                for p, q in zip(logits.placements, labels.placements)])
+        return plain(logits, labels)
+    return ce
+
+
 def _heads_whole(fn):
     """``fn`` (an attention projection) with its head splits gathered
     on the model axis (``_on_unsharded``)."""
@@ -1677,7 +1921,8 @@ def _seams():
             (ssm, "_selective_scan_chunked", _partitioned_scan),
             (attention, "_q", _heads_whole),
             (attention, "_qkv", _heads_whole),
-            (model, "_positions", _laid_positions)]
+            (model, "_positions", _laid_positions),
+            (model, "_masked_ce", _laid_ce)]
 
 
 @contextlib.contextmanager
@@ -1749,6 +1994,7 @@ def _rules(model=None) -> dict:
             aten._softmax.default: _sharded_softmax,
             aten._softmax_backward_data.default: _sharded_softmax_backward,
             aten.logsumexp.default: _sharded_logsumexp,
+            aten.var.correction: _sharded_var,
             aten.unfold.default: _local_unfold,
             aten.unfold_backward.default: _local_unfold_backward,
             aten.index_put_.default: _masked_scatter,
@@ -1758,7 +2004,8 @@ def _rules(model=None) -> dict:
             aten.roll.default: _local_along(torch.ops.aten.roll.default),
             aten._unsafe_view.default: _unsafe_view,
             aten.view.default: _merged_view,
-            aten.mm.default: _fsdp_mm,
+            aten.mm.default: _laid_mm,
+            aten.bmm.default: _laid_bmm,
             aten.cat.default: _cat_sharded,
             aten.split.Tensor: _split_sharded,
             aten.split_with_sizes.default: _split_sharded,
@@ -1922,6 +2169,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
                           on_unsharded=_on_unsharded(replicated),
                           settle=_settle_partial,
                           owners=bool(profile_top))
+    # an FSDP cell's train and prefill steps keep the global batch on
+    # every rank, as GSPMD does (``_sharded_index``, ``_Layout.spare``)
+    meter.batch_whole = bool(cfg.fsdp) and cell.kind != "decode"
     meter.track(arguments)
     with fake, _implicit_replication(), _gspmd_layouts(), meter:
         out = step(*args)

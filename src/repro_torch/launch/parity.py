@@ -45,6 +45,9 @@ CELLS = {
     "phi35moe_decode_32k": ("phi3.5-moe-42b-a6.6b", "decode_32k",
                             TWO + F32),
     "phi3medium_decode_32k": ("phi3-medium-14b", "decode_32k", TWO + F32),
+    "phi35moe_prefill_32k": ("phi3.5-moe-42b-a6.6b", "prefill_32k",
+                             TWO + F32),
+    "phi3medium_train_4k": ("phi3-medium-14b", "train_4k", TWO + F32),
     "xlstm_train_4k": ("xlstm-350m", "train_4k", TWO),
     "jamba_train_4k": ("jamba-v0.1-52b", "train_4k", TWO),
     # the least depth with a Mamba, an attention and an MoE layer; held in
@@ -53,17 +56,6 @@ CELLS = {
 }
 # bounds a cell does not hold, and why
 EXEMPT = {
-    "deepseek_prefill_32k": {
-        "collective": "open: the reference keeps the batch of 32 whole on "
-                      "every data rank in attention and all-reduces its "
-                      "scores over the data axis (99.8 % of its collective "
-                      "bytes carry the global batch); the port keeps the "
-                      "batch sharded",
-        "dominant": "open: the same all-reduces make the reference's term "
-                    "`coll` (the port's is `memory`)"},
-    "nemotron_train_4k": {
-        "collective": "open: the reference moves 12x the port's collective "
-                      "bytes (209 GB against 17.4 GB a rank)"},
     "xlstm_train_4k": {
         "dominant": "artifact: 99.7 % of the reference's HBM bytes are "
                     "charged inside its sLSTM token loop (the scan body's "

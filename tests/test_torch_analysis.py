@@ -53,3 +53,35 @@ def test_hw_is_the_h100_sxm():
     # no TPU number carried over
     for f in ("peak_flops_bf16", "hbm_bw", "hbm_bytes"):
         assert getattr(hw, f) != getattr(jconfig.HW, f)
+
+
+@pytest.mark.parametrize("name", sorted(config.ACCEL_PROFILES))
+def test_accel_profile_keeps_the_reference_contract(name, monkeypatch):
+    """``apply_accel_profile`` sets its variables with ``setdefault`` (a
+    value already in ``os.environ`` wins), returns the profile, and names
+    the choices when it refuses a name; ``monkeypatch`` restores the
+    environment."""
+    import os
+    prof = config.ACCEL_PROFILES[name]
+    assert set(prof) == {"env", "device"} and prof["env"]
+    assert prof["device"] in ("cpu", "cuda")
+    first, *rest = sorted(prof["env"])
+    monkeypatch.setenv(first, "set-by-user")
+    for k in rest:
+        monkeypatch.delenv(k, raising=False)
+    assert config.apply_accel_profile(name) is prof
+    assert os.environ[first] == "set-by-user"
+    for k in rest:
+        assert os.environ[k] == prof["env"][k]
+    # the reference's names where the port has the same accelerator
+    assert name in jconfig.ACCEL_PROFILES
+
+
+def test_accel_profile_refuses_an_unknown_name():
+    with pytest.raises(ValueError) as e:
+        config.apply_accel_profile("tpu")
+    for name in config.ACCEL_PROFILES:
+        assert repr(name) in str(e.value)
+    assert "'tpu'" in str(e.value)
+    with pytest.raises(ValueError):
+        jconfig.apply_accel_profile("nope")

@@ -1,13 +1,19 @@
-"""nemotron-4-15b's ``train_4k`` against the reference's dry run (two
-layers, 16 x 16; ``tests/torch_dryrun_parity_cells.py`` runs it,
-``repro_torch.launch.parity`` bounds it).
+"""The FSDP cells' train and prefill steps against the reference's dry run
+(two layers, 16 x 16; ``tests/torch_dryrun_parity_cells.py`` runs them,
+``repro_torch.launch.parity`` bounds them): nemotron-4-15b ``train_4k``,
+phi3.5-moe ``prefill_32k`` and phi3-medium ``train_4k`` (the last two in
+float32, the reference's CPU collectives being float32).
 
-An FSDP model whose ``wq`` [d, nq * hd] and ``wo`` [nq * hd, d] are both
-6144 x 6144 and laid out transposed: each gradient must be reduced into
-its own parameter's layout (the parameter the backward node hands it
-to), not into that of the first parameter of its shape.  The
-reference's collective bytes are 12x the port's (an open fault, ROADMAP
-queue 3), so that bound is not held.
+GSPMD gathers the tokens at the embedding and keeps the global batch on
+every rank, the model width split over the data axis, each product's
+partial sum over that axis all-reduced where it is made
+(``dryrun._sharded_index``, ``_laid_mm``); the port lays them out so.
+phi3-medium's 40 query heads do not divide the 16-wide model axis: each
+rank computes its five kv heads with all of their query heads, as the
+reference does.  nemotron's ``wq`` [d, nq * hd] and ``wo`` [nq * hd, d]
+are both 6144 x 6144 and laid out transposed: each gradient must be
+reduced into its own parameter's layout (the parameter the backward node
+hands it to), not into that of the first parameter of its shape.
 """
 from __future__ import annotations
 
@@ -15,23 +21,45 @@ import pytest
 
 import torch_dryrun_parity_cells as pc
 
-NAMES = ["nemotron_train_4k"]
+NAMES = ["nemotron_train_4k", "phi35moe_prefill_32k", "phi3medium_train_4k"]
 
 
 @pytest.fixture(scope="module")
-def cells(tmp_path_factory):
-    return pc.run_cells(tmp_path_factory.mktemp("dryrun_parity_fsdp"),
-                        NAMES)
+def run(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dryrun_parity_fsdp")
+    return tmp, pc.run_cells(tmp, NAMES)
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_dryrun_matches_the_reference(cells, name):
-    pc.check(name, *cells[name])
+def test_dryrun_matches_the_reference(run, name):
+    pc.check(name, *run[1][name])
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_counts_match_the_record(cells, name):
-    pc.check_recorded(name, cells[name][1])
+def test_counts_match_the_record(run, name):
+    pc.check_recorded(name, run[1][name][1])
+
+
+def test_train_carries_the_global_batch(run):
+    """phi3-medium ``train_4k``: most of each side's FLOPs are products
+    whose result holds the global batch of 256 (the 1,048,576 tokens, or
+    256 times the heads a rank computes); a batch-sharded step's products
+    hold 16 a rank."""
+    tmp, cells = run
+    name = "phi3medium_train_4k"
+    full, batch = pc.hlo_product_flops(pc.reference_hlo(tmp, name),
+                                       r"\w+\[(256|1048576)[,\]]")
+    p_full, p_batch = pc.port_product_flops(
+        pc.port_records(tmp, name),
+        lambda shape: shape[0] == 1048576 or (
+            shape[0] % 256 == 0 and shape[0] // 256 <= 40))
+    print(f"phi3-medium train: {batch / full:.4f} of the reference's "
+          f"{full:.4g} FLOPs in global-batch products, {p_batch / p_full:.4f}"
+          f" of the port's {p_full:.4g}")
+    assert full == pytest.approx(cells[name][0]["flops_per_device"])
+    assert p_full == pytest.approx(cells[name][1]["flops_per_device"])
+    assert batch >= 0.9 * full
+    assert p_batch >= 0.9 * p_full
 
 
 def test_each_gradient_finds_its_own_parameter():

@@ -98,6 +98,51 @@ def reference_hlo(tmp, name) -> str:
         return f.read()
 
 
+def port_records(tmp, name) -> list:
+    """The port's op records of cell ``name`` (its op log)."""
+    with gzip.open(tmp / "port" / "oplog" / f"{tag(name)}.json.gz",
+                   "rt") as f:
+        return json.load(f)["records"]
+
+
+def port_collective_bytes(records, keep) -> tuple:
+    """(the port's collective bytes over ``records``, the part whose
+    payload's shape ``keep`` accepts)."""
+    from repro_torch.launch import op_cost
+    full = part = 0.0
+    for rec in records:
+        c = op_cost.record_cost(rec)
+        if not c["kind"]:
+            continue
+        n = rec.get("n", 1) * c["coll_bytes"]
+        where = op_cost._COLL[op_cost._short(rec["op"])[1]][1]
+        payload = rec["out"] if where == "out" else rec["args"][where]
+        full += n
+        part += n if keep(payload[1]) else 0.0
+    return full, part
+
+
+def port_product_flops(records, keep) -> tuple:
+    """(the port's FLOPs over ``records``, the part in products ``mm`` and
+    ``bmm`` whose result's shape ``keep`` accepts)."""
+    from repro_torch.launch import op_cost
+    part = sum(rec.get("n", 1) * op_cost.record_cost(rec)["flops"]
+               for rec in records
+               if rec["op"] in ("aten.mm.default", "aten.bmm.default")
+               and keep(rec["out"][1]))
+    return op_cost.totals(records)["flops"], part
+
+
+def hlo_product_flops(hlo: str, result: str) -> tuple:
+    """(the reference's FLOPs of ``hlo`` by ``repro.launch.hlo_cost``, the
+    part in ``dot``s whose result type matches ``result``)."""
+    from repro.launch import hlo_cost
+    pat = re.compile(result)
+    part = sum(c for c, _, op, typ, _ in hlo_cost.top_contributors(
+        hlo, 1 << 30, by="flops") if op == "dot" and pat.match(typ))
+    return hlo_cost.analyze(hlo)["flops"], part
+
+
 def check(name, ref, port) -> None:
     """The parity module's bounds but those ``EXEMPT`` names, and the
     same keys, arguments, parameters and model FLOPs."""
